@@ -38,3 +38,9 @@ def spmd_devices() -> int:
         pytest.skip(f"needs {SPMD_HOST_DEVICES} forced host devices, "
                     f"found {n} (jax initialized before conftest?)")
     return n
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips on a host without one "
+        "(run on the card: python -m pytest -q -m cuda tests/test_torch_cuda.py)")
