@@ -19,10 +19,23 @@ Phases, each uncaught, so any failure exits non-zero:
    each under Hetero, with every launch count zeroed just before and read
    just after; then group time, Hetero against an Octa (Shell-only)
    service at 2e-5, and fused against serial ``run`` bit for bit;
-4. every kernel against its plain version on the arguments the main path
-   gave it (recorded in phase 3), with kernel, plain and library times
-   and the least time the card could take (``bound_ms``);
-5. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+4. every GNN kernel against its plain version on the arguments the main
+   path gave it (recorded in phase 3), with kernel, plain and library
+   times on the card (device time under torch.profiler; the kernel's
+   back-to-back call time too) and the least time the card could take
+   (``bound_ms``);
+5. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
+   d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
+   weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
+   of 500-token prompts and 32 new tokens, 4 at a time, with the launch
+   counts zeroed just before and read just after; prefill and decode
+   rates; rmsnorm, flash_attention and decode_attention against their
+   plain versions on the arguments the run gave them; then the same
+   engine with the three wrappers swapped for their plain versions:
+   last-position logits of one prefill and one decode step within 1e-3,
+   and the share of generated tokens that agree;
+6. a ``kernels`` JSON line for all seven kernels, then ``{"ok": true,
+   "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -48,12 +61,24 @@ GROUP, TARGETS = 32, 16
 MODELS = ("gcn", "gin", "ngcf")
 GROUP_REPEATS = 5
 DEVICE = "cuda"
+GNN_KERNELS = ("agg_combine", "spmm", "gemm", "sddmm")
+
+# the LM path: repro/launch/serve.py's engine at llama3.2-3b's full width
+LM_ARCH = "llama3.2-3b"
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 500, 32
+LM_PAGE_SIZE, LM_PAGES = 16, 512
+LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+LM_KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel",   # in the profiler's names
+                     "flash_attention": "flash_kernel",
+                     "decode_attention": "decode_kernel"}
+LM_LOGITS_TOL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM and fp32 FMA
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5}
+TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
+       "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
 TOL_BF16 = 2e-2
 SERVICE_TOL = 2e-5
 KERNEL_SOURCES = {
@@ -65,6 +90,12 @@ KERNEL_SOURCES = {
              "src/repro/kernels/gemm.py:63"),
     "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
               "src/repro/kernels/sddmm.py:49"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:36"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:98"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:90"),
 }
 
 
@@ -86,9 +117,36 @@ def model_setup(gnn, make_service_dfg, model: str):
     return make_service_dfg(model, len(DIMS) - 1, FANOUTS).save(), weights
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+def profiled(torch, fn, reps: int = 1):
+    """The card's work during ``reps`` calls of ``fn`` under torch.profiler
+    (its key_averages entries) and the host ms of that window, which ends
+    in a synchronize (the profiler slows the host somewhat)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return ([e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA], wall * 1e3)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of one call of ``fn``: the summed time of every
+    kernel and copy the card ran over ``reps`` calls (torch.profiler),
+    after one warm-up call.  Host overhead between launches is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    events, _ = profiled(torch, fn, reps)
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def call_ms(torch, fn, reps: int = 20) -> float:
+    """Mean time per call of ``fn`` back to back (CUDA events around
+    ``reps`` calls, after one warm-up): the device time or, for a call
+    shorter than its own host overhead, the host's rate of issuing it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -135,20 +193,238 @@ def call_cost(torch, name: str, args) -> tuple[float, float]:
             + d * o * 4), 2.0 * nnz * f + 2.0 * d * f * o
 
 
-def device_busy(torch, fn) -> tuple[float, float]:
-    """(device-busy ms, wall ms) of one call of ``fn`` under torch.profiler:
-    the summed time of every kernel and copy the card ran, against the
-    host clock around the call (which the profiler slows somewhat)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3, wall * 1e3
+def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
+    """(bytes, fp32 flops) one LM kernel call needs: each input read once,
+    each output written once; attention counts the key positions this
+    call's mask and lengths leave visible."""
+    if name == "rmsnorm":
+        x, w = args
+        return 2 * x.numel() * x.element_size() + w.numel() * 4, 4.0 * x.numel()
+    if name == "flash_attention":
+        q, k, v = args
+        b, hq, t, d = q.shape
+        s = k.shape[2]
+        pairs = (sum(min(i + 1, s) for i in range(t))
+                 if kwargs.get("causal", True) else t * s)
+        return ((2 * q.numel() + k.numel() + v.numel()) * 4,
+                4.0 * b * hq * pairs * d)
+    q, k_pages, _, pt, lengths = args
+    hkv, d = k_pages.shape[2], k_pages.shape[3]
+    cap = pt.shape[1] * k_pages.shape[1]
+    n = int(lengths.clamp(min=0, max=cap).sum())       # positions read
+    return ((2 * n * hkv * d + 2 * q.numel()) * 4
+            + (pt.numel() + lengths.numel()) * 4, 4.0 * n * q.shape[1] * d)
+
+
+def lm_phase(torch, card: str) -> list[dict]:
+    """Phase 5: the paged-KV LM serving path at llama3.2-3b's full width.
+    Returns the ``kernels`` rows of its three kernels."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import PagedLM, serve
+    from repro_torch.models import build
+    from repro_torch.store.pagedkv import PagePool
+
+    cfg = ARCHS[LM_ARCH]
+    t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+    params = build(cfg).init_params(0, DEVICE)
+    torch.cuda.synchronize()
+    print(f"lm: {LM_ARCH} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}"
+          f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+          f"{(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB of fp32 "
+          f"parameters made on the card in {time.perf_counter() - t0:.2f} s")
+
+    def engine(num_pages):
+        pool = PagePool(num_pages=num_pages, page_size=LM_PAGE_SIZE,
+                        num_layers=cfg.num_layers,
+                        num_kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.resolved_head_dim, device=DEVICE)
+        return PagedLM(cfg, params, pool)
+
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               LM_PROMPT).tolist()
+
+    def one_prefill_and_decode():
+        eng = engine(2 * -(-(LM_PROMPT + 1) // LM_PAGE_SIZE))
+        seq = eng.mgr.add_sequence(0, prompt)
+        pre = eng.prefill_logits(seq)
+        seq.generated.append(int(torch.argmax(pre)))
+        return pre, eng.decode_logits([seq])[0]
+
+    one_prefill_and_decode()                         # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    # the main path: record one call per distinct argument layout, count all
+    recorded = {name: {} for name in LM_KERNELS}
+    originals = {name: getattr(ops, name) for name in LM_KERNELS}
+
+    def recorder(name, fn):
+        def wrapped(*args, **kwargs):
+            key = tuple((tuple(a.shape), a.dtype, a.stride())
+                        if isinstance(a, torch.Tensor) else a for a in args)
+            key += tuple(sorted(kwargs.items()))
+            entry = recorded[name].setdefault(key, [args, kwargs, 0])
+            entry[2] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(ops, name, recorder(name, fn))
+    try:
+        kernels.reset_launch_counts()
+        done, stats = serve(cfg, num_requests=LM_REQUESTS,
+                            prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
+                            page_size=LM_PAGE_SIZE, num_pages=LM_PAGES,
+                            params=params, device=DEVICE)
+        launches = kernels.launch_counts()
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+    print(f"lm main path launches: {launches}")
+    assert all(launches[k] > 0 for k in LM_KERNELS), launches
+    assert len(done) == LM_REQUESTS
+    assert all(len(s.generated) == LM_NEW and
+               all(0 <= t < cfg.vocab_size for t in s.generated)
+               for s in done)
+    pre, step = np.asarray(stats["prefill_s"]), np.asarray(stats["step_s"])
+    dec_tokens = sum(len(s.generated) - 1 for s in done)
+    print(f"lm prefill: {len(pre)} prompts of {LM_PROMPT} tokens, best "
+          f"{pre.min() * 1e3:.3f} ms, median {np.median(pre) * 1e3:.3f} ms "
+          f"per prompt, {LM_PROMPT * len(pre) / pre.sum():.1f} tokens/s  "
+          f"[{card}]")
+    print(f"lm decode: {len(step)} steps at batch 4, best "
+          f"{step.min() * 1e3:.3f} ms, median {np.median(step) * 1e3:.3f} ms"
+          f" per step, {dec_tokens / step.sum():.1f} tokens/s  [{card}]")
+    print(f"lm serve: {stats['tokens']} tokens for {LM_REQUESTS} requests in "
+          f"{stats['seconds']:.3f} s ({stats['tokens'] / stats['seconds']:.1f}"
+          f" tokens/s), {stats['pages_alloc']} pages allocated  [{card}]")
+    # where the time goes: one prefill, then one decode step at batch 4
+    def show(what, fn):
+        busy, wall, split = profile_split(torch, fn, LM_KERNEL_SYMBOLS)
+        print(f"lm {what} under torch.profiler: card busy {busy:.3f} ms of "
+              f"{wall:.3f} ms ({100 * busy / wall:.2f} %); device ms by "
+              f"kernel: {split}  [{card}]")
+
+    eng = engine(4 * -(-(LM_PROMPT + 1) // LM_PAGE_SIZE))
+    seqs = [eng.mgr.add_sequence(i, prompt) for i in range(4)]
+    show("prefill of one prompt", lambda: eng.prefill_logits(seqs[0]))
+    for s in seqs:
+        s.generated.append(eng.prefill(s))
+    show("decode step at batch 4", lambda: eng.decode_logits(seqs))
+    del eng, seqs
+
+    # each kernel against its plain version on the run's arguments
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref}
+
+    def library(name, args, kwargs):
+        if name == "rmsnorm":
+            x, w = args
+            w = w.to(x.dtype)
+            return lambda: F.rms_norm(x, (x.shape[-1],), w,
+                                      kwargs.get("eps", 1e-6))
+        if name == "flash_attention":
+            q, k, v = args
+            rep = q.shape[1] // k.shape[1]
+            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=kwargs.get("causal", True))
+        return None                     # paged decode: no one-call yardstick
+
+    rows = []
+    for name in LM_KERNELS:
+        fn = originals[name]
+        ms = plain_ms = bound_ms = by_bytes = by_ops = max_err = 0.0
+        calls_ms = 0.0
+        lib_ms = None if name == "decode_attention" else 0.0
+        for args, kwargs, count in recorded[name].values():
+            got = fn(*args, **kwargs)
+            want = plain[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL[name]
+            err = float((got.float() - want.float()).abs().max())
+            assert torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol), (name, err)
+            max_err = max(max_err, err)
+            ms += count * device_ms(torch, lambda: fn(*args, **kwargs))
+            calls_ms += count * call_ms(torch, lambda: fn(*args, **kwargs))
+            plain_ms += count * device_ms(
+                torch, lambda: plain[name](*args, **kwargs), reps=5)
+            lib = library(name, args, kwargs)
+            if lib is not None:
+                lib_ms += count * device_ms(torch, lib)
+            nbytes, flops = lm_call_cost(name, args, kwargs)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            bound_ms += count * max(t_bytes, t_ops)
+            if t_bytes >= t_ops:
+                by_bytes += count * t_bytes
+            else:
+                by_ops += count * t_ops
+        n = launches[name]
+        src, replaces = KERNEL_SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     "library_ms": lib_ms})
+        print(f"{name}: {n} launches over {len(recorded[name])} argument "
+              f"layouts, max abs err {max_err:.3g} (tol {TOL[name]}, bf16 "
+              f"{TOL_BF16}); summed over the run: kernel {ms:.4f} ms on the "
+              f"card ({ms / n:.5f} per launch; back to back, host included, "
+              f"{calls_ms / n:.5f}), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_ms / n:.5f} per launch)  [{card}]")
+
+    # the same engine on the plain versions: logits and generated tokens
+    kernel_logits = one_prefill_and_decode()
+    for name in LM_KERNELS:
+        setattr(ops, name, plain[name])
+    try:
+        plain_logits = one_prefill_and_decode()
+        plain_done, _ = serve(cfg, num_requests=LM_REQUESTS,
+                              prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
+                              page_size=LM_PAGE_SIZE, num_pages=LM_PAGES,
+                              params=params, device=DEVICE,
+                              log=lambda *_: None)
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+    for what, a, b in zip(("prefill", "decode"), kernel_logits, plain_logits):
+        err = float((a - b).abs().max())
+        print(f"lm {what} last-position logits, kernels vs plain: max abs "
+              f"diff {err:.3g} (atol {LM_LOGITS_TOL}), argmax "
+              f"{int(a.argmax())} vs {int(b.argmax())}")
+        assert torch.isfinite(a).all() and a.shape == (cfg.vocab_size,)
+        assert torch.allclose(a, b, rtol=0, atol=LM_LOGITS_TOL), (what, err)
+    by_sid = {s.sid: s.generated for s in plain_done}
+    same = sum(x == y for s in done
+               for x, y in zip(s.generated, by_sid[s.sid]))
+    print(f"lm generated tokens equal to the plain run's: {same} of "
+          f"{stats['tokens']} ({100 * same / stats['tokens']:.1f} %)")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return rows
+
+
+def profile_split(torch, fn, symbols: dict) -> tuple[float, float, dict]:
+    """(device-busy ms, wall ms, {kernel: ms}) of one call of ``fn`` under
+    torch.profiler; the split sums device time by kernel symbol, the rest
+    (products, copies, elementwise) under "other"."""
+    events, wall = profiled(torch, fn)
+    split = {name: 0.0 for name in symbols}
+    split["other"] = 0.0
+    for e in events:
+        name = next((n for n, sym in symbols.items() if sym in e.key),
+                    "other")
+        split[name] += e.self_device_time_total / 1e3
+    return sum(split.values()), wall, {k: round(v, 3)
+                                       for k, v in split.items()}
 
 
 def main() -> int:
@@ -219,8 +495,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # record what each kernel wrapper gets on the main path, to replay it
-    recorded = {name: [] for name in kernels.KERNELS}
-    originals = {name: getattr(ops, name) for name in kernels.KERNELS}
+    recorded = {name: [] for name in GNN_KERNELS}
+    originals = {name: getattr(ops, name) for name in GNN_KERNELS}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
@@ -239,7 +515,7 @@ def main() -> int:
         for name, fn in originals.items():
             setattr(ops, name, fn)
     print(f"main path launches: {launches}")
-    assert all(launches[k] > 0 for k in kernels.KERNELS), launches
+    assert all(launches[k] > 0 for k in GNN_KERNELS), launches
     print(f"group: {GROUP} requests x {TARGETS} targets, fanouts {FANOUTS}; "
           f"H rows {recorded['agg_combine'][0][0][0].shape[0]}, layer dst "
           f"rows {[a[0][1].shape[0] for a in recorded['agg_combine']]}")
@@ -262,8 +538,8 @@ def main() -> int:
               f"{GROUP / best:.1f} requests/s; engine (plan walk to sync) "
               f"median {np.median(engine) * 1e3:.3f} ms, the rest is host "
               f"sampling, padding and copies  [{card}]")
-        busy, wall = device_busy(
-            torch, lambda: svc.run_batch(dfg, reqs, weights=weights))
+        busy, wall, _ = profile_split(
+            torch, lambda: svc.run_batch(dfg, reqs, weights=weights), {})
         print(f"{m}: under torch.profiler the card was busy {busy:.3f} ms of "
               f"a {wall:.3f} ms group ({100 * busy / wall:.2f} %)  [{card}]")
         shell = octa.run_batch(dfg, reqs, weights=weights)
@@ -303,10 +579,10 @@ def main() -> int:
         return None
 
     rows = []
-    for name in kernels.KERNELS:
+    for name in GNN_KERNELS:
         fn = originals[name]
         tol = TOL[name]
-        ms = plain_ms = bound_ms = 0.0
+        ms = plain_ms = bound_ms = calls_ms = 0.0
         lib_ms = 0.0 if name in ("gemm", "spmm") else None
         max_err, by_bytes, by_ops = 0.0, 0.0, 0.0
         for args, kwargs in recorded[name]:
@@ -318,12 +594,14 @@ def main() -> int:
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (name, err)
             max_err = max(max_err, err)
-            ms += time_ms(torch, lambda: fn(*args, **kwargs))
-            plain_ms += time_ms(torch, lambda: plain[name](*args, **kwargs),
-                                reps=5)
+            ms += device_ms(torch, lambda: fn(*args, **kwargs))
+            calls_ms += call_ms(torch, lambda: fn(*args, **kwargs))
+            plain_ms += device_ms(torch,
+                                  lambda: plain[name](*args, **kwargs),
+                                  reps=5)
             lib = library(name, args, kwargs)
             if lib is not None:
-                lib_ms += time_ms(torch, lib)
+                lib_ms += device_ms(torch, lib)
             nbytes, flops = call_cost(torch, name, args)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -340,7 +618,8 @@ def main() -> int:
                      "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                      "library_ms": lib_ms})
         print(f"{name}: {len(recorded[name])} calls, max abs err {max_err:.3g} "
-              f"(tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"(tol {tol}), kernel {ms:.4f} ms on the card ({calls_ms:.4f} "
+              f"ms back to back, host included), plain {plain_ms:.4f} ms, "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound_ms:.4f} ms  [{card}]")
 
@@ -362,7 +641,10 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
-    # ------------------------------------------------ 5. result lines
+    # ------------------------------------------------ 5. LM path, full width
+    rows += lm_phase(torch, card)
+
+    # ------------------------------------------------ 6. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

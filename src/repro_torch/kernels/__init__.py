@@ -9,9 +9,11 @@ import importlib
 
 from . import ref
 from .ops import (gemm, spmm, sddmm, agg_combine, agg_combine_partial,
-                  BITSTREAMS, program_config)
+                  rmsnorm, flash_attention, decode_attention, BITSTREAMS,
+                  program_config)
 
-KERNELS = ("agg_combine", "spmm", "gemm", "sddmm")
+KERNELS = ("agg_combine", "spmm", "gemm", "sddmm", "rmsnorm",
+           "flash_attention", "decode_attention")
 
 
 def _module(name: str):
@@ -28,5 +30,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["ref", "gemm", "spmm", "sddmm", "agg_combine",
-           "agg_combine_partial", "BITSTREAMS", "program_config", "KERNELS",
+           "agg_combine_partial", "rmsnorm", "flash_attention",
+           "decode_attention", "BITSTREAMS", "program_config", "KERNELS",
            "launch_counts", "reset_launch_counts"]

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 INT_MAX = 2**31 - 1
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "repro_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_sddmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -42,6 +42,12 @@ SIGNATURES = {
     "repro_agg_combine_rows": [_I],
     "repro_agg_combine_f32": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
+    "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, *[_L] * 12, _P],
+    "repro_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

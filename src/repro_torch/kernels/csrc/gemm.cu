@@ -9,8 +9,6 @@
 // convert to fp32 on load and round once on the store.  Every output
 // element is one chain of fused multiply-adds over k = 0..K-1 in order,
 // and the tile shape is fixed, so a row's result never depends on M.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
@@ -18,14 +16,8 @@ namespace {
 constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 4, kTN = 4;
 constexpr int kThreads = (kBM / kTM) * (kBN / kTN);   // 256
 
-__device__ __forceinline__ float load_f32(float x) { return x; }
-__device__ __forceinline__ float load_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using repro_torch::load_f32;
+using repro_torch::store_as;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -1,0 +1,79 @@
+"""Flash attention (causal or full, online softmax) for prefill, on Hopper.
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+_flash_kernel`` (``pallas_call`` at ``flash_attention.py:98``).  CUDA
+source: ``csrc/flash_attention.cu``.
+
+q (B,Hq,T,D), k/v (B,Hkv,S,D) fp32, GQA by index (query head h reads KV
+head h // (Hq/Hkv)); causal means key j is visible to query i when
+j <= i.  Bound on the H100: operations at prefill shapes (about
+4*T*S*D/2 fp32 flops per head against 67 TFLOP/s; TF32 would miss the
+reference's 3e-5).  One block per (batch*head, 64 queries) walks the key
+tiles up to the diagonal with the softmax state in registers; the TPU
+kernel carried it across its in-order grid instead.  The kernel reads
+and writes through strides (only the head dim must be contiguous), so
+the model's (B,T,H,D) activations go in without a transposed or padded
+copy, and the output keeps q's memory layout.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+
+launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128, 256)     # head dims with a compiled kernel
+
+
+def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                         f"expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"flash_attention: {name} has dtype {t.dtype}; the "
+                        "kernel takes float32")
+    if t.dim() != 4 or t.stride(-1) != 1:
+        raise ValueError(f"flash_attention: {name} must be 4-d with a "
+                         f"contiguous last dim, got {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B,Hq,T,D); k,v (B,Hkv,S,D) with Hq % Hkv == 0 -> (B,Hq,T,D)."""
+    global launches
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device}; the "
+                         "kernel takes CUDA tensors and the plain version "
+                         "CPU ones")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.device)
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != b
+            or k.shape[3] != d or hkv == 0 or hq % hkv):
+        raise ValueError(f"flash_attention shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the "
+                         "grid's 65535")
+    _build.check_sizes("flash_attention", b, hq, t, s)
+    out = torch.empty_like(q)       # keeps a dense q's layout, e.g. (B,T,H,D)
+    if out.numel() == 0:
+        return out
+    strides = [x for tensor in (q, k, v, out) for x in tensor.stride()[:3]]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, t, s, d, int(causal), 1.0 / d ** 0.5, *strides,
+            _build.stream(q.device))
+    _build.raise_on(rc, "flash_attention")
+    launches += 1
+    return out

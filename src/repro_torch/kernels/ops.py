@@ -14,8 +14,9 @@ priorities:
     AggCombine on the vector kernels, GEMM on the GEMM kernel (highest
     priority), the winning configuration.
 
-``RMSNorm`` is not on Hetero yet: its kernel is not ported, and no GNN
-DFG uses it.
+The LM path's kernels (rmsnorm, flash_attention, decode_attention) are
+imported here too: ``models/layers.py`` and ``launch/serve.py`` call them
+as attributes of this module, the way the bitstreams call the GNN ones.
 """
 from __future__ import annotations
 
@@ -24,7 +25,10 @@ import torch.nn.functional as F
 
 from ..core.xbuilder import Bitstream
 from .agg_combine import agg_combine, agg_combine_partial
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
 from .gemm import gemm
+from .rmsnorm import rmsnorm
 from .sddmm import sddmm
 from .spmm import spmm
 
@@ -70,6 +74,7 @@ def hetero_bitstream() -> Bitstream:
         "SpMM_Mean": lambda h, n, m: spmm(h, n, m, mode="mean"),
         "SpMM_Sum": lambda h, n, m: spmm(h, n, m, mode="sum"),
         "SDDMM": lambda h, n, m: sddmm(h, n, m),
+        "RMSNorm": lambda x, w: rmsnorm(x, w),
         # fused aggregate-combine: one whole GCN layer per kernel launch —
         # the engine's fusion pass targets this C-operation when present.
         "AggCombine": lambda h, n, m, w, b: agg_combine(h, n, m, w, b,
@@ -105,5 +110,6 @@ def program_config(xbuilder, name: str) -> float:
 
 
 __all__ = ["gemm", "spmm", "sddmm", "agg_combine", "agg_combine_partial",
-           "BITSTREAMS", "program_config", "octa_bitstream",
-           "lsap_bitstream", "hetero_bitstream", "hetero_gemm_bitstream"]
+           "rmsnorm", "flash_attention", "decode_attention", "BITSTREAMS",
+           "program_config", "octa_bitstream", "lsap_bitstream",
+           "hetero_bitstream", "hetero_gemm_bitstream"]

@@ -5,8 +5,8 @@ ground truth of one CUDA kernel: the CPU tests hold it against the JAX
 reference, ``chip_smoke.py`` holds each kernel against it on the card,
 and a kernel's wrapper takes it for a tensor that lies on the CPU.
 
-Every reduction here runs in a fixed order that does not depend on the
-number of rows (a loop over K, or over the neighbour slots), so a row's
+Every GNN reduction here runs in a fixed order that does not depend on
+the number of rows (a loop over K, or over the neighbour slots), so a row's
 result never changes with the batch it rides in: ``run_batch`` is held
 bit-identical to serial ``run``.  torch's own CPU matmul is not
 row-invariant (its blocking changes with M), hence ``gemm_ref`` is a
@@ -70,3 +70,57 @@ def agg_combine_ref(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
     if b is not None:
         z = torch.relu(z + b.float())
     return z.to(h.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w over the last dim, in fp32, cast
+    back to x's dtype."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """(B,H,T,D) x (B,Hkv,S,D) -> (B,H,T,D); GQA by head repeat (head h
+    reads KV head h // (H/Hkv)); causal means key j is visible to query i
+    when j <= i."""
+    hq, t, d = q.shape[1:]
+    rep = hq // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * d ** -0.5
+    if causal:
+        tt = torch.arange(t, device=q.device)[:, None]
+        ss = torch.arange(k.shape[2], device=q.device)[None, :]
+        s = torch.where(tt >= ss, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", p, v.float()).to(q.dtype)
+
+
+def paged_gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """(P,ps,Hkv,D) pages + (B,PP) table -> (B, PP*ps, Hkv, D) logical KV."""
+    b, pp = page_table.shape
+    sel = pages[page_table.reshape(-1).long()]          # (B*PP, ps, Hkv, D)
+    ps, hkv, d = sel.shape[1:]
+    return sel.reshape(b, pp * ps, hkv, d)
+
+
+def decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_table: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token paged decode attention: q (B,Hq,D); pages
+    (P,ps,Hkv,D); page_table (B,PP); lengths (B,) -> (B,Hq,D), keys at
+    positions >= lengths[b] masked."""
+    d = q.shape[-1]
+    k = paged_gather(k_pages, page_table)               # (B,S,Hkv,D)
+    v = paged_gather(v_pages, page_table)
+    rep = q.shape[1] // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * d ** -0.5
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    s = torch.where(pos < lengths.long()[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)

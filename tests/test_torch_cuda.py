@@ -6,8 +6,9 @@ machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test skips on a host without CUDA.  Shapes are those of
-``tests/test_kernels.py`` and ``tests/test_fastpath.py``, tolerances the
-reference's own (1e-5 fp32, 2e-2 bf16, 2e-5 agg_combine).
+``tests/test_kernels.py`` and ``tests/test_fastpath.py`` plus the
+full-width llama3.2-3b shapes of the LM path, tolerances the reference's
+own (1e-5 fp32, 2e-2 bf16, 2e-5 agg_combine, 3e-5 attention).
 """
 import numpy as np
 import pytest
@@ -131,3 +132,138 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kernels.gemm(h.t(), h)
     with pytest.raises(ValueError):
         kernels.sddmm(h[:5].contiguous(), nbr, mask)
+
+
+# ------------------------------------------------------- the LM path's kernels
+@pytest.mark.parametrize("shape", [(3, 64), (17, 256), (64, 512), (500, 3072),
+                                   (4, 1, 3072)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    """The reference sweep and the LM's prefill and decode rows at F = 3072."""
+    rng = np.random.default_rng(6)
+    x = _r(rng, *shape, device=cuda, dtype=dtype)
+    w = _r(rng, shape[-1], device=cuda)
+    before = kernels.launch_counts()["rmsnorm"]
+    got = kernels.rmsnorm(x, w)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert kernels.launch_counts()["rmsnorm"] == before + 1
+    _close(got, ref.rmsnorm_ref(x, w), 1e-5 if dtype == torch.float32
+           else 2e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d", [(1, 2, 2, 64, 32), (2, 4, 2, 100, 64),
+                                          (1, 8, 1, 33, 16), (1, 6, 2, 40, 16),
+                                          (1, 24, 8, 500, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, t, d, causal):
+    """The reference sweep, G = 3, and llama3.2-3b's prefill (T = 500,
+    24 heads over 8, D = 128)."""
+    rng = np.random.default_rng(7)
+    q = _r(rng, b, hq, t, d, device=cuda)
+    k, v = _r(rng, b, hkv, t, d, device=cuda), _r(rng, b, hkv, t, d,
+                                                   device=cuda)
+    before = kernels.launch_counts()["flash_attention"]
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    _close(got, ref.attention_ref(q, k, v, causal=causal), 3e-5)
+
+
+def test_flash_attention_reads_the_model_layout_in_place(cuda):
+    """(B,T,H,D) activations go in as permuted views; the output keeps
+    that layout and equals the contiguous call."""
+    rng = np.random.default_rng(8)
+    q = _r(rng, 2, 77, 6, 32, device=cuda).permute(0, 2, 1, 3)
+    k = _r(rng, 2, 77, 2, 32, device=cuda).permute(0, 2, 1, 3)
+    v = _r(rng, 2, 77, 2, 32, device=cuda).permute(0, 2, 1, 3)
+    got = kernels.flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    assert torch.equal(got, kernels.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous()))
+    _close(got, ref.attention_ref(q, k, v), 3e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,ps,pp", [(2, 4, 2, 32, 8, 4),
+                                              (3, 8, 2, 64, 16, 6),
+                                              (1, 4, 4, 128, 32, 3),
+                                              (2, 6, 2, 32, 8, 5),
+                                              (4, 24, 8, 128, 16, 34)])
+def test_decode_attention_kernel_matches_plain(cuda, b, hq, hkv, d, ps, pp):
+    """The reference sweep, G = 3 and llama3.2-3b's decode (B = 4, page
+    size 16, up to 34 pages); lengths end mid-page, and the table pads
+    with page 0, which another sequence owns."""
+    rng = np.random.default_rng(9)
+    p_total = b * pp + 2
+    q = _r(rng, b, hq, d, device=cuda)
+    kp, vp = _r(rng, p_total, ps, hkv, d, device=cuda), \
+        _r(rng, p_total, ps, hkv, d, device=cuda)
+    pt = rng.permutation(p_total)[: b * pp].reshape(b, pp)
+    lengths = rng.integers(1, ps * pp, b)
+    lengths[0] = ps * (pp // 2) + ps // 2 + 1            # mid-page
+    pt[0, pp // 2 + 1:] = 0                              # padded with page 0
+    pt_t = torch.tensor(pt, dtype=torch.int32, device=cuda)
+    len_t = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = kernels.launch_counts()["decode_attention"]
+    got = kernels.decode_attention(q, kp, vp, pt_t, len_t)
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    _close(got, ref.decode_attention_ref(q, kp, vp, pt_t, len_t), 3e-5)
+
+
+def test_lm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(10)
+    x = _r(rng, 4, 32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.rmsnorm(x.double(), x[0])
+    with pytest.raises(ValueError):
+        kernels.rmsnorm(x, x[0, :5])
+    q = _r(rng, 1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError):                       # head dim 48
+        kernels.flash_attention(q, q, q)
+    q = _r(rng, 1, 2, 8, 32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    pages = _r(rng, 3, 4, 2, 32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.decode_attention(q[:, :, 0].contiguous(), pages, pages,
+                                 torch.zeros((1, 2), dtype=torch.int64,
+                                             device=cuda),
+                                 torch.ones(1, dtype=torch.int32,
+                                            device=cuda))
+    qg = _r(rng, 1, 8, 2, 2, 32, device=cuda)
+    kv = _r(rng, 1, 8, 2, 32, device=cuda)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L._sdpa(qg, kv, kv, causal=True, window=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L._sdpa(qg, kv, kv, causal=True, window=0,
+                kv_len=torch.ones(1, dtype=torch.int32, device=cuda))
+    assert kernels.launch_counts()["flash_attention"] == before
+
+
+def test_paged_lm_on_the_card_matches_the_cpu(cuda):
+    """The smoke llama3.2-3b through the kernels against the plain path on
+    the CPU, from the same weights: tokens equal, logits within 1e-4."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.launch.serve import PagedLM
+    from repro_torch.models import build, layers as L
+    from repro_torch.store.pagedkv import PagePool
+    cfg = SMOKES["llama3.2-3b"]
+    cpu_params = build(cfg).init_params(0, "cpu")
+    prompt = list(np.random.default_rng(0).integers(0, cfg.vocab_size, 37))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = L.tree_map(lambda t: t.to(dev), cpu_params)
+        pool = PagePool(num_pages=32, page_size=16, num_layers=cfg.num_layers,
+                        num_kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.resolved_head_dim, device=dev)
+        eng = PagedLM(cfg, params, pool)
+        seq = eng.mgr.add_sequence(0, prompt)
+        logits = [eng.prefill_logits(seq).cpu()]
+        seq.generated.append(int(torch.argmax(logits[0])))
+        for _ in range(4):
+            logits.append(eng.decode_logits([seq])[0].cpu())
+            seq.generated.append(int(torch.argmax(logits[-1])))
+        runs[dev] = (seq.generated, logits)
+    assert runs["cuda"][0] == runs["cpu"][0]
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        _close(a, b, 1e-4)

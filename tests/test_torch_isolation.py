@@ -17,7 +17,13 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 COPIES = ["concurrency.py", "store/blockdev.py", "store/sampler.py",
           "store/embcache.py", "store/graphstore.py", "rpc/transport.py",
-          "rpc/server.py", "rpc/client.py", "rpc/queues.py", "core/registry.py"]
+          "rpc/server.py", "rpc/client.py", "rpc/queues.py", "core/registry.py",
+          *sorted(f"configs/{p.name}" for p in
+                  (REPO / "src" / "repro" / "configs").glob("*.py"))]
+KERNEL_FNS = {"agg_combine": "_agg_combine_kernel", "spmm": "_spmm_kernel",
+              "gemm": "_gemm_kernel", "sddmm": "_sddmm_kernel",
+              "rmsnorm": "_rmsnorm_kernel", "flash_attention": "_flash_kernel",
+              "decode_attention": "_decode_kernel"}
 
 
 def _env():
@@ -41,7 +47,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20 and bad.strip() == "[]", out.stdout
+    assert int(n_modules) >= 50 and bad.strip() == "[]", out.stdout
 
 
 def _imports(path: pathlib.Path) -> set[str]:
@@ -75,15 +81,25 @@ def test_copied_modules_stay_verbatim(rel):
         (REPO / "src" / "repro" / rel).read_text()
 
 
-@pytest.mark.parametrize("name", ["agg_combine", "spmm", "gemm", "sddmm"])
+@pytest.mark.parametrize("name", list(KERNEL_FNS))
 def test_each_kernel_has_source_note_counter_and_cuda_source(name):
+    fn = KERNEL_FNS[name]
     wrapper = (PORT / "kernels" / f"{name}.py").read_text()
-    assert f"repro/kernels/{name}.py::_{name}_kernel" in \
-        wrapper.replace("::\n", "::")
+    assert f"repro/kernels/{name}.py::{fn}" in wrapper.replace("::\n", "::")
     assert "Bound on the H100" in wrapper and "\nlaunches = 0\n" in wrapper
     cu = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
-    assert f"Replaces repro/kernels/{name}.py::_{name}_kernel" in cu
+    assert f"Replaces repro/kernels/{name}.py::{fn}" in cu
     assert "torch/extension.h" not in cu
+
+
+def test_every_pallas_kernel_has_a_port():
+    """Each ``pl.pallas_call`` of the reference has a wrapper and CUDA
+    source in the port, and a launch count."""
+    from repro_torch import kernels
+    ref = REPO / "src" / "repro" / "kernels"
+    with_pallas = sorted(p.stem for p in ref.glob("*.py")
+                         if "pl.pallas_call(" in p.read_text())
+    assert with_pallas == sorted(KERNEL_FNS) == sorted(kernels.KERNELS)
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -12,6 +12,7 @@ from _hyp import given, settings, st
 from repro import kernels as jk
 from repro.kernels import ref as jref
 from repro.kernels.agg_combine import agg_combine_partial as j_agg_partial
+from repro.kernels import ops as j_ops
 from repro.kernels.ops import (_sddmm_via_gemm as j_sddmm_via_gemm,
                                _spmm_via_gemm as j_spmm_via_gemm)
 from repro_torch import kernels as tk
@@ -135,10 +136,12 @@ def test_named_configs_match_shell():
 
 
 def test_hetero_registers_the_ported_kernels_only():
-    """Hetero binds the four ported kernels; RMSNorm waits for its port."""
+    """Hetero binds every C-kernel the reference's Hetero binds, RMSNorm
+    included now that its kernel is ported."""
     vector = tops.hetero_bitstream().kernels
     assert set(vector) == {"SpMM", "SpMM_Mean", "SpMM_Sum", "SDDMM",
-                           "AggCombine", "AggCombinePartial"}
+                           "RMSNorm", "AggCombine", "AggCombinePartial"}
+    assert set(vector) == set(j_ops.hetero_bitstream().kernels)
     assert set(tops.hetero_gemm_bitstream().kernels) == {"GEMM"}
 
 
