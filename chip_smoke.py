@@ -23,14 +23,16 @@ Phases, each uncaught, so any failure exits non-zero:
    path gave it (recorded in phase 3), with kernel, plain and library
    times on the card (device time under torch.profiler; the kernel's
    back-to-back call time too) and the least time the card could take
-   (``bound_ms``);
+   (``bound_ms``); then gemm by shape: kernel and ``torch.matmul`` ms a
+   launch and the share of the bound reached;
 5. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
    d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
    weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
    of 500-token prompts and 32 new tokens, 4 at a time, with the launch
    counts zeroed just before and read just after; prefill and decode
    rates; rmsnorm, flash_attention and decode_attention against their
-   plain versions on the arguments the run gave them; then the same
+   plain versions on the arguments the run gave them, and
+   flash_attention's share of its bound beside SDPA; then the same
    engine with the three wrappers swapped for their plain versions:
    last-position logits of one prefill and one decode step within 1e-3,
    and the share of generated tokens that agree;
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +118,17 @@ def model_setup(gnn, make_service_dfg, model: str):
     weights = {k: v for k, v in gnn.dfg_feeds(model, params, None, []).items()
                if k != "H"}
     return make_service_dfg(model, len(DIMS) - 1, FANOUTS).save(), weights
+
+
+def kernel_name(symbol: str) -> str:
+    """A ptxas entry symbol as kernel<template args>, e.g.
+    gemm_kernel<float,24,64,6,4,16,3>; the symbol itself if not a kernel."""
+    m = re.search(r"\d+([a-z_]+_kernel)I(.+?)EEv", symbol)
+    if not m:
+        return symbol
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "float,", args))
+    return f"{m.group(1)}<{args.strip(',')}>"
 
 
 def profiled(torch, fn, reps: int = 1):
@@ -380,6 +394,10 @@ def lm_phase(torch, card: str) -> list[dict]:
               f"{calls_ms / n:.5f}), plain {plain_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
               f"{bound_ms:.4f} ms ({bound_ms / n:.5f} per launch)  [{card}]")
+        if name == "flash_attention":
+            print(f"flash_attention share of bound: {100 * bound_ms / ms:.1f} "
+                  f"% ({ms / n:.5f} ms a launch against a {bound_ms / n:.5f} "
+                  f"ms bound; SDPA {lib_ms / n:.5f} ms a launch)  [{card}]")
 
     # the same engine on the plain versions: logits and generated tokens
     kernel_logits = one_prefill_and_decode()
@@ -451,9 +469,12 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.build_dir().name})")
+    entry = ""
     for line in (_build.build_dir() / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            entry = kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print(f"  {entry}: {line.strip()}")
 
     # ------------------------------------------------ 2. quickstart over RPC
     rng = np.random.default_rng(0)
@@ -579,6 +600,7 @@ def main() -> int:
         return None
 
     rows = []
+    gemm_shapes = {}       # (M,K,N) -> [calls, kernel ms, matmul ms, bound ms]
     for name in GNN_KERNELS:
         fn = originals[name]
         tol = TOL[name]
@@ -594,18 +616,26 @@ def main() -> int:
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (name, err)
             max_err = max(max_err, err)
-            ms += device_ms(torch, lambda: fn(*args, **kwargs))
+            one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
+            ms += one_ms
             calls_ms += call_ms(torch, lambda: fn(*args, **kwargs))
             plain_ms += device_ms(torch,
                                   lambda: plain[name](*args, **kwargs),
                                   reps=5)
             lib = library(name, args, kwargs)
+            one_lib = device_ms(torch, lib) if lib is not None else 0.0
             if lib is not None:
-                lib_ms += device_ms(torch, lib)
+                lib_ms += one_lib
             nbytes, flops = call_cost(torch, name, args)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOP_PER_S * 1e3
             bound_ms += max(t_bytes, t_ops)
+            if name == "gemm":
+                shape = (*args[0].shape, args[1].shape[1])
+                acc = gemm_shapes.setdefault(shape, [0, 0.0, 0.0, 0.0])
+                for i, x in enumerate((1, one_ms, one_lib,
+                                       max(t_bytes, t_ops))):
+                    acc[i] += x
             if t_bytes >= t_ops:
                 by_bytes += t_bytes
             else:
@@ -622,6 +652,14 @@ def main() -> int:
               f"ms back to back, host included), plain {plain_ms:.4f} ms, "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound_ms:.4f} ms  [{card}]")
+
+    # gemm by shape: where the pass's gemm time goes, against torch.matmul
+    for (m, k, n), (calls, k_ms, lib_ms, b_ms) in sorted(
+            gemm_shapes.items(), key=lambda kv: -kv[1][1]):
+        print(f"gemm ({m}x{k})@({k}x{n}): {calls} calls, kernel "
+              f"{k_ms / calls:.5f} ms a launch, torch.matmul "
+              f"{lib_ms / calls:.5f}, bound {b_ms / calls:.5f} "
+              f"({100 * b_ms / k_ms:.1f} % of bound reached)  [{card}]")
 
     # agg_combine_partial and bf16 gemm on main-path arguments
     (h, nbr, mask, w, _b), kw = recorded["agg_combine"][0]

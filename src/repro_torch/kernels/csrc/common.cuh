@@ -56,4 +56,118 @@ inline int allow_shared(Kernel kernel, size_t bytes) {
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// Four consecutive elements of shared memory as fp32 in one load (16
+// bytes of fp32, 8 of bf16); p must be aligned to that size.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Asynchronous global -> shared copies (cp.async): BYTES of 4, 8 or 16,
+// both addresses aligned to BYTES.  A thread's copies since its last
+// commit form one group; cp_async_wait<N>() returns once at most N of its
+// groups are still in flight (a __syncthreads() then shows every
+// thread's copies to the block).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(s), "l"(src), "n"(BYTES) : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void zero_as(float* p) { *p = 0.f; }
+__device__ __forceinline__ void zero_as(__nv_bfloat16* p) {
+  *p = __float2bfloat16(0.f);
+}
+// One element: fp32 as a 4-byte cp.async, bf16 (2 bytes, below the
+// smallest cp.async) as a plain load and store.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src) {
+  cp_async<4>(dst, src);
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src) {
+  *dst = *src;
+}
+
+// Whether every row of a matrix at p with a row stride of ld elements
+// starts on a 4-element boundary (16 bytes of fp32, 8 of bf16), so that
+// load_tile_full may copy it: decided from the pointer and the stride.
+template <typename T>
+__device__ __forceinline__ bool rows_aligned(const T* p, int64_t ld) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0 &&
+         ld % 4 == 0;
+}
+
+// Start the copy of a ROWS x COLS tile of T that lies wholly inside the
+// matrix, rows aligned (rows_aligned): one cp.async per 4 elements and no
+// checks.  dst has a row stride of LDS elements, src one of ld.
+template <typename T, int ROWS, int COLS, int LDS, int THREADS>
+__device__ __forceinline__ void load_tile_full(T* dst, const T* src,
+                                               int64_t ld, int tid) {
+  static_assert(COLS % 4 == 0 && LDS % 4 == 0, "tiles in chunks of 4");
+  constexpr int kBytes = 4 * static_cast<int>(sizeof(T));
+  constexpr int kPerRow = COLS / 4, kChunks = ROWS * kPerRow;
+#pragma unroll
+  for (int it = 0; it < (kChunks + THREADS - 1) / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    if (kChunks % THREADS != 0 && i >= kChunks) break;
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    cp_async<kBytes>(dst + r * LDS + c, src + r * ld + c);
+  }
+}
+
+// Start the copy of a ROWS x COLS tile of T into shared memory (row stride
+// LDS elements) from global memory at src (row stride ld elements), of
+// which the first rows_valid rows and cols_valid columns exist; the rest
+// of the tile is zeroed.  Four elements go in one cp.async wherever the
+// source address is aligned to their size, so the copy width follows the
+// pointer and the row stride, never the number of rows; ragged and
+// unaligned chunks go element by element.  The bits that land are the
+// same either way, and the same as load_tile_full's.
+template <typename T, int ROWS, int COLS, int LDS, int THREADS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld,
+                                          int rows_valid, int cols_valid,
+                                          int tid) {
+  static_assert(COLS % 4 == 0 && LDS % 4 == 0, "tiles in chunks of 4");
+  constexpr int kBytes = 4 * static_cast<int>(sizeof(T));
+  constexpr int kPerRow = COLS / 4, kChunks = ROWS * kPerRow;
+#pragma unroll
+  for (int it = 0; it < (kChunks + THREADS - 1) / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    if (kChunks % THREADS != 0 && i >= kChunks) break;
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    T* d = dst + r * LDS + c;
+    const T* s = src + r * ld + c;
+    if (r < rows_valid && c + 4 <= cols_valid &&
+        reinterpret_cast<uintptr_t>(s) % kBytes == 0) {
+      cp_async<kBytes>(d, s);
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (r < rows_valid && c + e < cols_valid) copy_elem(d + e, s + e);
+      else zero_as(d + e);
+    }
+  }
+}
+
 }  // namespace repro_torch

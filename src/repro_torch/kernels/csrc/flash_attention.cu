@@ -5,172 +5,367 @@
 // Replaces repro/kernels/flash_attention.py::_flash_kernel.  The TPU grid
 // walked key tiles in order and carried (m, l, acc) in VMEM scratch from
 // one grid step to the next; blocks have no order, so one block owns one
-// (batch*head, 64-query tile) and loops over the key tiles itself, up to
+// (batch*head, 32-query tile) and loops over the key tiles itself, up to
 // the diagonal when causal, with the running state in registers.  GQA is
 // by index (head h reads KV head h / G, G need not be a power of two):
 // no repeated copy of K and V.  Ragged tails are masked, never padded.
 //
-// Layout: 256 threads as 16 x 16; thread (ty, tx) owns query rows
-// 4*ty..4*ty+3, the score columns 2*tx, 2*tx+1 of each 32-key tile, and
-// the output dims tx, tx+16, ... .  Q and the K/V tile sit in shared
-// memory (rows padded by one float so the score loop is free of bank
-// conflicts); the probabilities go through shared memory to the PV
-// product.  The row max and sum are shuffles over the 16 lanes that share
-// ty.  Every product is an fp32 FMA: no TF32, since the reference holds
-// attention to 3e-5.  Bound at prefill shapes: operations (4*T*S*D/2
-// flops per head against 67 TFLOP/s of fp32 FMA).
+// Bound at prefill shapes: operations (4*T*S*D/2 flops per head against
+// 67 TFLOP/s of fp32 FMA; no TF32, since the reference holds attention to
+// 3e-5).  In practice the limit is the SM's shared-memory port, 128 bytes
+// a clock: a warp's 16-byte shared load costs it 4 clocks whether or not
+// lanes share addresses, against one clock for a warp's FMA on each of
+// the 4 schedulers.  What the design does about both:
 //
-// q, k, v and o are addressed through (batch, head, seq) strides with the
-// head dim contiguous, so the model's (B, T, H, D) activations are read
-// and written in place.
+//  * The critical path.  A launch lasts as long as its slowest SM, so
+//    query tiles are 32 rows (T = 500 over 24 heads: 384 blocks, the
+//    heaviest 32 x 500 keys) and, when causal, the grid's slow axis walks
+//    the tiles from the last (heaviest) to the first, so the heaviest
+//    blocks start first and the light ones fill in behind.  A block is
+//    two parts of 4 warps that take alternate key tiles, each with its
+//    own buffers, barrier and (m, l, acc), combined once at the end: the
+//    heaviest tile takes half as long as one 4-warp block would, which
+//    would otherwise share its SM for its whole life and end last.
+//  * QK^T without re-reads (see Flash below): each lane keeps a 1/16
+//    slice of its rows' q in registers and reads only the K values it
+//    multiplies; a butterfly of shuffles sums the 16 slices.  Per 16 keys
+//    and 4 rows: 32 shared loads and 60 shuffles for 512 FMAs, where
+//    16-byte fragments of q and K cost 80 loads.
+//  * PV register-tiled: 4 rows x 8 dims a thread (D = 128), P and V read
+//    as 16-byte fragments: 12 loads for 128 FMAs.  A row's probabilities
+//    are written and read by the same 16 lanes: a __syncwarp, no block
+//    barrier.  Row max: shuffles over those lanes; row sum: each lane's
+//    share, added once at the end.
+//  * Loads overlap compute: each part double-buffers its K/V tiles of 32
+//    keys, fed by cp.async along the contiguous head dim, one barrier of
+//    its own a tile; whole tiles of 16-byte aligned rows take an
+//    unchecked 16-byte copy, the ragged tail and unaligned rows a checked
+//    one (load_tile).  Shared memory per part: 4*(4*32*(D+4) + BQ*36)
+//    bytes, 144 KB a block at D = 128 (one an SM, 8 warps); at D = 256 a
+//    block is one part of 16 query rows (135 KB), so its registers and
+//    buffers fit.
+//
+// Every product is an fp32 FMA, in an order fixed by D and the key index,
+// and expf is the precise one.  q, k, v and o are addressed through
+// (batch, head, seq) strides with the head dim contiguous, so the model's
+// (B, T, H, D) activations are read and written in place; the arithmetic
+// does not depend on the strides.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 32;          // keys per tile
-constexpr int kTX = 16;          // threads across a row
-constexpr int kRows = kBQ / 16;  // query rows per thread (4)
-constexpr int kCols = kBK / kTX; // score columns per thread (2)
-constexpr int kThreads = 256;
+using repro_torch::kNegInf;
+using repro_torch::load4;
 
 struct Strides {
   int64_t b, h, t;
 };
 
-template <int D>
-constexpr size_t shared_bytes() {
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+constexpr int kTX = 16;         // lanes of a row group (half a warp)
+constexpr int kBK = 32;         // keys a tile: two groups of kTX
+
+// A block owns BQ query rows; each of its SPLIT parts has (BQ / TR) row
+// groups of kTX lanes, lane tx of group ty owning rows ty + (BQ/TR) i (TR
+// of them), and takes every SPLIT-th key tile.
+//  * QK^T: lane tx keeps d-slice [tx D/16, (tx+1) D/16) of its rows' q in
+//    registers.  For each group of 16 keys it forms 16 partial dots over
+//    its slice, the one for key k in slot k ^ tx, and a 4-step butterfly
+//    over the 16 lanes (add slot s + w of lane tx ^ w into slot s, w = 8,
+//    4, 2, 1) leaves lane tx the whole score of key tx in slot 0.  Every
+//    K value a lane reads is one it uses: no lane re-reads what its
+//    neighbours read, and q never goes through shared memory.
+//  * PV: lane tx owns output dims 4 (tx + 16 g) .. + 3 and reads P (the
+//    row's probabilities, via shared memory) and V as 16-byte fragments.
+template <int D, int BQ, int TR, int SPLIT>
+struct Flash {
+  static constexpr int kTY = BQ / TR;
+  static constexpr int kPartThreads = kTY * kTX;      // one part's threads
+  static constexpr int kThreads = SPLIT * kPartThreads;
+  static constexpr int kSlice = D / kTX;              // q/k floats a lane
+  static constexpr int kLd = D + 4, kLdP = kBK + 4;   // padded rows
+  static constexpr int kGroups = D / 4;               // float4s of a row
+  static constexpr int kGpt = (kGroups + kTX - 1) / kTX;
+  static constexpr size_t kSmem =           // a part's K, V x 2 and P
+      sizeof(float) * SPLIT * (4 * kBK * kLd + BQ * kLdP);
+  // what a part-1 thread hands to its part-0 twin: acc, m, l
+  static constexpr int kXch = TR * (kGpt * 4 + 2);
+  static_assert(SPLIT == 1 ||
+                kXch * kPartThreads <= 4 * kBK * kLd + BQ * kLdP,
+                "the exchange fits in part 1's buffers");
+};
+
+// n consecutive floats of shared memory, 16, 8 or 4 bytes a load
+template <int N>
+__device__ __forceinline__ void load_slice(const float* p, float (&out)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = load4(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int BQ, int TR, int SPLIT>
+__global__ void __launch_bounds__((Flash<D, BQ, TR, SPLIT>::kThreads))
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int hq,
              int group, int t, int s, int causal, float scale, Strides qs_,
              Strides ks_, Strides vs_, Strides os_) {
-  constexpr int kLd = D + 1;
-  constexpr int kDims = D / kTX;  // output dims per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kBQ][kLd]
-  float* ks = qs + kBQ * kLd;       // [kBK][kLd]
-  float* vs = ks + kBK * kLd;       // [kBK][D]
-  float* ps = vs + kBK * D;         // [kBQ][kBK + 1]
+  using F = Flash<D, BQ, TR, SPLIT>;
+  constexpr int kLd = F::kLd, kLdP = F::kLdP, kTY = F::kTY;
+  constexpr int kSlice = F::kSlice, kGroups = F::kGroups, kGpt = F::kGpt;
+  constexpr int kCols = kBK / kTX;
+  extern __shared__ __align__(16) float smem[];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / hq, h = bh % hq, kvh = h / group;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  // causal: the last query tile walks the most keys, so it goes first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  // part p of the block takes key tiles p, p + SPLIT, ...: its own rows'
+  // (m, l, acc) over its share of the keys, combined at the end.  A part
+  // loads its own tiles and syncs on its own barrier, so the parts run as
+  // freely as two blocks would.
+  const int tid = threadIdx.x, part = tid / F::kPartThreads;
+  const int ptid = tid % F::kPartThreads;
+  const int tx = tid % kTX, ty = ptid / kTX;
+  float* ks = smem + part * (4 * kBK * kLd + BQ * kLdP);   // [2][kBK][kLd]
+  float* vs = ks + 2 * kBK * kLd;                          // [2][kBK][kLd]
+  float* ps = vs + 2 * kBK * kLd;                          // [BQ][kLdP]
+  auto part_sync = [&]() {
+    if constexpr (SPLIT == 1) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + part),
+                   "n"(F::kPartThreads) : "memory");
+    }
+  };
   const float* qb = q + b * qs_.b + h * qs_.h;
   const float* kb = k + b * ks_.b + kvh * ks_.h;
   const float* vb = v + b * vs_.b + kvh * vs_.h;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    qs[r * kLd + d] = q0 + r < t ? qb[(q0 + r) * qs_.t + d] : 0.f;
+  // causal: no key after the tile's last query row is visible
+  const int kend = causal ? min(s, min(q0 + BQ, t)) : s;
+  const int tiles = (kend + kBK - 1) / kBK;
+  // whole tiles of aligned rows take the unchecked copy (uniform)
+  const bool k_full = repro_torch::rows_aligned(kb, ks_.t);
+  const bool v_full = repro_torch::rows_aligned(vb, vs_.t);
+  auto load_rows = [&](float* dst, const float* src, int64_t ld, int rows,
+                       bool aligned) {
+    if (aligned && rows >= kBK) {
+      repro_torch::load_tile_full<float, kBK, D, kLd, F::kPartThreads>(
+          dst, src, ld, ptid);
+    } else {
+      repro_torch::load_tile<float, kBK, D, kLd, F::kPartThreads>(
+          dst, src, ld, rows, D, ptid);
+    }
+  };
+  auto load_kv = [&](int n) {       // the part's n-th tile, into buffer n&1
+    const int k0 = (n * SPLIT + part) * kBK;
+    load_rows(ks + (n & 1) * kBK * kLd, kb + k0 * ks_.t, ks_.t, s - k0,
+              k_full);
+    load_rows(vs + (n & 1) * kBK * kLd, vb + k0 * vs_.t, vs_.t, s - k0,
+              v_full);
+  };
+  const int mine = tiles > part ? (tiles - part + SPLIT - 1) / SPLIT : 0;
+  if (mine > 0) load_kv(0);
+  repro_torch::cp_async_commit();
+
+  // this lane's slice of its rows' q, zero past the last query
+  float qr[TR][kSlice];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = q0 + ty + kTY * i;
+#pragma unroll
+    for (int d = 0; d < kSlice; ++d)
+      qr[i][d] = r < t ? qb[r * qs_.t + tx * kSlice + d] : 0.f;
   }
 
-  float m[kRows], l[kRows], acc[kRows][kDims];
+  float m[TR], l[TR], acc[TR][kGpt * 4];
+  int last[TR];                      // the last key each row may see
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = repro_torch::kNegInf;
+  for (int i = 0; i < TR; ++i) {
+    last[i] = causal ? min(s - 1, q0 + ty + kTY * i) : s - 1;
+    m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < kGpt * 4; ++e) acc[i][e] = 0.f;
   }
 
-  // causal: no key after the tile's last query row is visible
-  const int kend = causal ? min(s, min(q0 + kBQ, t)) : s;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();              // Q stored; the last tile's readers done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const bool in = k0 + c < s;
-      ks[c * kLd + d] = in ? kb[(k0 + c) * ks_.t + d] : 0.f;
-      vs[c * D + d] = in ? vb[(k0 + c) * vs_.t + d] : 0.f;
-    }
-    __syncthreads();
+  for (int n = 0; n < mine; ++n) {
+    repro_torch::cp_async_wait<0>();   // K and V of tile n have landed
+    part_sync();                       // ... and tile n-1 is done with
+    if (n + 1 < mine) load_kv(n + 1);
+    repro_torch::cp_async_commit();
+    const int k0 = (n * SPLIT + part) * kBK;
+    const float* kt = ks + (n & 1) * kBK * kLd;
+    const float* vt = vs + (n & 1) * kBK * kLd;
 
-    float sc[kRows][kCols] = {};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
+    float sc[TR][kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty * kRows + i) * kLd + d];
+    for (int c = 0; c < kCols; ++c) {
+      float dots[TR][kTX];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx * kCols + j) * kLd + d];
+      for (int slot = 0; slot < kTX; ++slot) {
+        float kf[kSlice];
+        load_slice(kt + (kTX * c + (slot ^ tx)) * kLd + tx * kSlice, kf);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < TR; ++i) {
+          float dot = 0.f;
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          for (int d = 0; d < kSlice; ++d) dot = fmaf(qr[i][d], kf[d], dot);
+          dots[i][slot] = dot;
+        }
+      }
+#pragma unroll
+      for (int step = 1; step < kTX; step *= 2) {
+        const int w = kTX / 2 / step;      // 8, 4, 2, 1
+#pragma unroll
+        for (int slot = 0; slot < w; ++slot)
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+            dots[i][slot] += __shfl_xor_sync(0xffffffffu, dots[i][slot + w], w);
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i) sc[i][c] = dots[i][0];
     }
 
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = ty * kRows + i;
+    for (int i = 0; i < TR; ++i) {
+      const int row = ty + kTY * i;
       bool vis[kCols];
-      float mx = repro_torch::kNegInf;
+      float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kp = k0 + tx * kCols + j;
-        vis[j] = kp < s && (!causal || kp <= q0 + row);
-        sc[i][j] = vis[j] ? sc[i][j] * scale : repro_torch::kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int c = 0; c < kCols; ++c) {
+        vis[c] = k0 + tx + kTX * c <= last[i];
+        sc[i][c] = vis[c] ? sc[i][c] * scale : kNegInf;
+        mx = fmaxf(mx, sc[i][c]);
       }
       const float m_new = fmaxf(m[i], repro_torch::warp_max(mx, kTX));
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = vis[j] ? expf(sc[i][j] - m_new) : 0.f;
-        ps[row * (kBK + 1) + tx * kCols + j] = p;
+      for (int c = 0; c < kCols; ++c) {
+        const float p = vis[c] ? expf(sc[i][c] - m_new) : 0.f;
+        ps[row * kLdP + tx + kTX * c] = p;
         sum += p;
       }
+      // m is the same on the row's lanes, so each lane keeps its own
+      // share of the row sum and they are added once, at the end
       const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + repro_torch::warp_sum(sum, kTX);
+      l[i] = alpha * l[i] + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) acc[i][j] *= alpha;
+      for (int e = 0; e < kGpt * 4; ++e) acc[i][e] *= alpha;
+    }
+    __syncwarp();            // a row's probabilities: its own 16 lanes
+
+#pragma unroll
+    for (int c = 0; c < kBK; c += 4) {
+      float4 pv[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) pv[i] = load4(ps + (ty + kTY * i) * kLdP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int g = 0; g < kGpt; ++g) {
+          if (kGroups % kTX != 0 && tx + kTX * g >= kGroups) continue;
+          const float4 vv = load4(vt + (c + cc) * kLd + 4 * (tx + kTX * g));
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y
+                          : cc == 2 ? pv[i].z : pv[i].w;
+            acc[i][4 * g] = fmaf(p, vv.x, acc[i][4 * g]);
+            acc[i][4 * g + 1] = fmaf(p, vv.y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p, vv.z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p, vv.w, acc[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+  repro_torch::cp_async_wait<0>();
+
+  if constexpr (SPLIT == 2) {
+    // part 1 hands its state to part 0 through its own buffers
+    __syncthreads();
+    float* xch = smem + (4 * kBK * kLd + BQ * kLdP) + ptid * F::kXch;
+    if (part == 1) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+#pragma unroll
+        for (int e = 0; e < kGpt * 4; ++e) xch[i * kGpt * 4 + e] = acc[i][e];
+        xch[TR * kGpt * 4 + 2 * i] = m[i];
+        xch[TR * kGpt * 4 + 2 * i + 1] = l[i];
+      }
     }
     __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float vv[kDims];
+    if (part == 1) return;
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) vv[j] = vs[c * D + tx + kTX * j];
+    for (int i = 0; i < TR; ++i) {
+      const float m1 = xch[TR * kGpt * 4 + 2 * i];
+      const float m_new = fmaxf(m[i], m1);
+      const float a0 = expf(m[i] - m_new), a1 = expf(m1 - m_new);
+      l[i] = a0 * l[i] + a1 * xch[TR * kGpt * 4 + 2 * i + 1];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = ps[(ty * kRows + i) * (kBK + 1) + c];
-#pragma unroll
-        for (int j = 0; j < kDims; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
+      for (int e = 0; e < kGpt * 4; ++e)
+        acc[i][e] = a0 * acc[i][e] + a1 * xch[i * kGpt * 4 + e];
     }
   }
 
   float* ob = o + b * os_.b + h * os_.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty * kRows + i;
+  for (int i = 0; i < TR; ++i) {
+    // every lane adds its row's shares, before any lane leaves the loop
+    const float denom = fmaxf(repro_torch::warp_sum(l[i], kTX), 1e-30f);
+    const int r = q0 + ty + kTY * i;
     if (r >= t) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) ob[r * os_.t + tx + kTX * j] = acc[i][j] / denom;
+    for (int g = 0; g < kGpt; ++g) {
+      if (kGroups % kTX != 0 && tx + kTX * g >= kGroups) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ob[r * os_.t + 4 * (tx + kTX * g) + e] = acc[i][4 * g + e] / denom;
+    }
   }
 }
 
+template <int D, int BQ, int TR, int SPLIT>
+int launch_tile(const float* q, const float* k, const float* v, float* o,
+                int b, int hq, int hkv, int t, int s, int causal, float scale,
+                const Strides& qs, const Strides& ks, const Strides& vs,
+                const Strides& os, cudaStream_t stream) {
+  using F = Flash<D, BQ, TR, SPLIT>;
+  auto kernel = flash_kernel<D, BQ, TR, SPLIT>;
+  const int rc = repro_torch::allow_shared(kernel, F::kSmem);
+  if (rc != 0) return rc;
+  const dim3 grid(b * hq, (t + BQ - 1) / BQ);
+  kernel<<<grid, F::kThreads, F::kSmem, stream>>>(
+      q, k, v, o, hq, hq / hkv, t, s, causal, scale, qs, ks, vs, os);
+  return repro_torch::launch_status();
+}
+
+// 32 query rows a block, 4 a thread, in two parts that split the keys; at
+// D = 256, 16 rows, 2 a thread, one part, so the q slice, the partial dots
+// and the output stay in registers and the buffers in shared memory.
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int b,
            int hq, int hkv, int t, int s, int causal, float scale,
            const Strides& qs, const Strides& ks, const Strides& vs,
            const Strides& os, cudaStream_t stream) {
-  constexpr size_t bytes = shared_bytes<D>();
-  const int rc = repro_torch::allow_shared(flash_kernel<D>, bytes);
-  if (rc != 0) return rc;
-  const dim3 grid((t + kBQ - 1) / kBQ, b * hq);
-  flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, hq, hq / hkv, t, s, causal, scale, qs, ks, vs, os);
-  return repro_torch::launch_status();
+  if constexpr (D > 128) {
+    return launch_tile<D, 16, 2, 1>(q, k, v, o, b, hq, hkv, t, s, causal,
+                                    scale, qs, ks, vs, os, stream);
+  } else {
+    return launch_tile<D, 32, 4, 2>(q, k, v, o, b, hq, hkv, t, s, causal,
+                                    scale, qs, ks, vs, os, stream);
+  }
 }
 
 }  // namespace

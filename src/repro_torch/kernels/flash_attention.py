@@ -8,9 +8,14 @@ q (B,Hq,T,D), k/v (B,Hkv,S,D) fp32, GQA by index (query head h reads KV
 head h // (Hq/Hkv)); causal means key j is visible to query i when
 j <= i.  Bound on the H100: operations at prefill shapes (about
 4*T*S*D/2 fp32 flops per head against 67 TFLOP/s; TF32 would miss the
-reference's 3e-5).  One block per (batch*head, 64 queries) walks the key
-tiles up to the diagonal with the softmax state in registers; the TPU
-kernel carried it across its in-order grid instead.  The kernel reads
+reference's 3e-5).  One block per (batch*head, 32 queries; 16 at
+D = 256) walks the key tiles up to the diagonal with the softmax state
+in registers (the TPU kernel carried it across its in-order grid
+instead), in two parts that take alternate key tiles and combine their
+states at the end; causal launches start the heaviest query tiles first.  QK^T
+keeps each lane's slice of q in registers and sums the slices with
+shuffles, PV is register-tiled from 16-byte shared-memory fragments, and
+K/V tiles are double-buffered through ``cp.async``.  The kernel reads
 and writes through strides (only the head dim must be contiguous), so
 the model's (B,T,H,D) activations go in without a transposed or padded
 copy, and the output keeps q's memory layout.
@@ -25,6 +30,7 @@ from .ref import attention_ref
 launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)     # head dims with a compiled kernel
+QUERY_TILE = 16                        # fewest query rows a block (D = 256)
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -60,9 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the "
-                         "grid's 65535")
+    if -(-t // QUERY_TILE) > 65535:
+        raise ValueError(f"flash_attention: T = {t} needs more than the "
+                         f"grid's 65535 tiles of {QUERY_TILE} queries")
     _build.check_sizes("flash_attention", b, hq, t, s)
     out = torch.empty_like(q)       # keeps a dense q's layout, e.g. (B,T,H,D)
     if out.numel() == 0:

@@ -5,12 +5,14 @@ Replaces the Pallas kernel ``repro/kernels/gemm.py::_gemm_kernel``
 
 Bound on the H100: operations at the service's shapes (2*M*N*K fp32
 FMAs against 67 TFLOP/s, since TF32 would miss the reference's 1e-5;
-bytes are a few MB).  This first version is a shared-memory-tiled
-product on the fp32 FMA pipes, 64x64 tiles of 4x4 per thread; ``wgmma``
-and TMA are later work.  bf16 inputs accumulate in fp32 and store bf16.
-The tile shape is fixed and each output is one in-order chain over K,
-so a row's result never depends on M: fused batches stay bit-identical
-to serial runs.
+bytes are a few MB).  The kernel stays on the fp32 FMA pipes: 24x64
+output tiles of 6x4 a thread (32x32 of 2x4 at N <= 64) so the service's
+3072-row products fill the card, fragments read from shared memory 16
+bytes at a time, and three ``cp.async`` stages so the next K slices
+load while this one computes.  bf16 inputs accumulate in fp32 and store
+bf16.  The tile shape depends on N only and each output is one in-order
+chain over K, so a row's result never depends on M: fused batches stay
+bit-identical to serial runs.
 """
 from __future__ import annotations
 

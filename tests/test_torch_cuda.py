@@ -47,11 +47,20 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("m,k,n,scale", [(8, 16, 8, 1.0), (100, 130, 70, 1.0),
                                          (128, 128, 128, 1.0),
                                          (257, 64, 33, 1.0),
-                                         (6144, 420, 128, 0.1)])
+                                         (6144, 420, 128, 0.1),
+                                         (3072, 420, 128, 0.1),
+                                         (3072, 128, 128, 0.1),
+                                         (512, 128, 64, 0.1),
+                                         (512, 64, 64, 0.1),
+                                         (1, 420, 128, 1.0),
+                                         (100, 421, 70, 1.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_kernel_matches_plain(cuda, m, k, n, scale, dtype):
-    """The reference's shapes with its N(0,1) inputs, and the service's
-    layer-0 transform with glorot-scale weights (|w| ~ 0.1)."""
+    """The reference's shapes with its N(0,1) inputs; the service's
+    transforms with glorot-scale weights (|w| ~ 0.1) at the four shapes of
+    the GNN main path (3072 x 420 and 3072 x 128 by 128, 512 x 128 by 64,
+    512 x 64 by 64); one row; and K = 421, whose rows are not 16-byte
+    aligned (bf16 rows at K = 420 are not either)."""
     rng = np.random.default_rng(0)
     a = _r(rng, m, k, device=cuda, dtype=dtype)
     b = (_r(rng, k, n, device=cuda) * scale).to(dtype)
@@ -60,6 +69,36 @@ def test_gemm_kernel_matches_plain(cuda, m, k, n, scale, dtype):
     assert got.dtype == dtype and kernels.launch_counts()["gemm"] == before + 1
     _close(got, ref.gemm_ref(a, b).to(dtype), 1e-5 if dtype == torch.float32
            else 2e-2)
+
+
+def test_gemm_kernel_at_lsap_depth(cuda):
+    """Lsap's one-hot lowering: a (1024 x 16384) aggregation matrix with at
+    most 10 nonzero mean weights a row, through the kernel at K = 16384."""
+    rng = np.random.default_rng(11)
+    n, rows, fanout, f = 16384, 1024, 10, 420
+    a = np.zeros((rows, n), np.float32)
+    for r in range(rows):
+        cols = rng.integers(0, n, fanout)
+        keep = rng.integers(0, 2, fanout).astype(bool)
+        a[r, cols[keep]] += 1.0 / max(int(keep.sum()), 1)
+    a = torch.tensor(a, device=cuda)
+    h = _r(rng, n, f, device=cuda)
+    _close(kernels.gemm(a, h), ref.gemm_ref(a, h), 1e-5)
+
+
+def test_gemm_copy_width_does_not_change_bits(cuda):
+    """Rows that are not 16-byte aligned take narrower copies: a row slice
+    of a K = 421 matrix (1,684 bytes in) and bf16 rows at K = 420 give the
+    same bits as an aligned copy of the same numbers."""
+    rng = np.random.default_rng(12)
+    a = _r(rng, 300, 421, device=cuda)[1:]
+    b = _r(rng, 421, 128, device=cuda) * 0.1
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    assert torch.equal(kernels.gemm(a, b), kernels.gemm(a.clone(), b))
+    a16 = _r(rng, 301, 420, device=cuda, dtype=torch.bfloat16)[1:]
+    b16 = (_r(rng, 420, 64, device=cuda) * 0.1).bfloat16()
+    assert a16.data_ptr() % 16 != 0
+    assert torch.equal(kernels.gemm(a16, b16), kernels.gemm(a16.clone(), b16))
 
 
 @pytest.mark.parametrize("n,f,d,kk", [(50, 32, 10, 4), (300, 96, 64, 7),
@@ -113,6 +152,12 @@ def test_kernels_rows_do_not_depend_on_batch(cuda):
     g_full = kernels.gemm(h[:640].contiguous(), w)
     g_part = kernels.gemm(h[33:97].contiguous(), w)
     assert torch.equal(g_full[33:97], g_part)
+    # the gemm tile is 32 rows: a slice from mid-tile and a single row, at
+    # N = 128 (32x64 tiles) and N = 64 (32x32 tiles)
+    for wn in (w, w[:, :64].contiguous()):
+        g_full = kernels.gemm(h[:640].contiguous(), wn)
+        assert torch.equal(g_full[45:123], kernels.gemm(h[45:123].contiguous(), wn))
+        assert torch.equal(g_full[77:78], kernels.gemm(h[77:78].contiguous(), wn))
     s_full = kernels.spmm(h, nbr, mask, mode="mean")
     assert torch.equal(s_full[5:6], kernels.spmm(h, nbr[5:6].contiguous(),
                                                  mask[5:6].contiguous()))
@@ -153,11 +198,17 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("b,hq,hkv,t,d", [(1, 2, 2, 64, 32), (2, 4, 2, 100, 64),
                                           (1, 8, 1, 33, 16), (1, 6, 2, 40, 16),
-                                          (1, 24, 8, 500, 128)])
+                                          (1, 24, 8, 500, 128),
+                                          (1, 4, 2, 1, 64), (1, 6, 2, 65, 128),
+                                          (2, 3, 1, 127, 32),
+                                          (1, 4, 2, 130, 256),
+                                          (2, 6, 2, 500, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, t, d, causal):
-    """The reference sweep, G = 3, and llama3.2-3b's prefill (T = 500,
-    24 heads over 8, D = 128)."""
+    """The reference sweep, G = 3, llama3.2-3b's prefill (T = 500, 24 heads
+    over 8, D = 128), one query, ragged tails one past and one short of
+    the 32- and 64-row tiles (T = 65, 127), D = 256 (the largest shared-
+    memory footprint) and G = 3 at T = 500."""
     rng = np.random.default_rng(7)
     q = _r(rng, b, hq, t, d, device=cuda)
     k, v = _r(rng, b, hkv, t, d, device=cuda), _r(rng, b, hkv, t, d,
@@ -179,6 +230,22 @@ def test_flash_attention_reads_the_model_layout_in_place(cuda):
     assert got.stride() == q.stride()
     assert torch.equal(got, kernels.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous()))
+    _close(got, ref.attention_ref(q, k, v), 3e-5)
+
+
+def test_flash_attention_copy_width_does_not_change_bits(cuda):
+    """Rows 4 bytes past a 16-byte boundary take 4-byte copies; the output
+    has the same bits as from aligned copies of the same numbers."""
+    rng = np.random.default_rng(13)
+    def unaligned(*shape):
+        buf = _r(rng, int(np.prod(shape)) + 1, device=cuda)
+        return buf[1:].view(*shape)
+    q, k, v = unaligned(1, 6, 70, 64), unaligned(1, 2, 70, 64), \
+        unaligned(1, 2, 70, 64)
+    assert q.data_ptr() % 16 != 0
+    got = kernels.flash_attention(q, k, v)
+    assert torch.equal(got, kernels.flash_attention(q.clone(), k.clone(),
+                                                    v.clone()))
     _close(got, ref.attention_ref(q, k, v), 3e-5)
 
 
