@@ -32,7 +32,10 @@ Phases, each uncaught, so any failure exits non-zero:
    counts zeroed just before and read just after; prefill and decode
    rates; rmsnorm, flash_attention and decode_attention against their
    plain versions on the arguments the run gave them, and
-   flash_attention's share of its bound beside SDPA; then the same
+   flash_attention's share of its bound beside SDPA; decode_attention
+   timed cold (each launch on another layer's pools, as in a decode
+   step) beside its warm time; rmsnorm by shape beside ``F.rms_norm``;
+   then the same
    engine with the three wrappers swapped for their plain versions:
    last-position logits of one prefill and one decode step within 1e-3,
    and the share of generated tokens that agree;
@@ -71,9 +74,12 @@ LM_ARCH = "llama3.2-3b"
 LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 500, 32
 LM_PAGE_SIZE, LM_PAGES = 16, 512
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
-LM_KERNEL_SYMBOLS = {"rmsnorm": "rmsnorm_kernel",   # in the profiler's names
-                     "flash_attention": "flash_kernel",
-                     "decode_attention": "decode_kernel"}
+# the profiler's kernel names each LM kernel's time is summed under
+LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
+                     "flash_attention": ("flash_kernel",),
+                     "decode_attention": ("decode_split_kernel",
+                                          "decode_combine_kernel")}
+DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
 LM_LOGITS_TOL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM and fp32 FMA
@@ -122,10 +128,12 @@ def model_setup(gnn, make_service_dfg, model: str):
 
 def kernel_name(symbol: str) -> str:
     """A ptxas entry symbol as kernel<template args>, e.g.
-    gemm_kernel<float,24,64,6,4,16,3>; the symbol itself if not a kernel."""
+    gemm_kernel<float,24,64,6,4,16,3>, or as the bare name of a kernel
+    that is no template; the symbol itself if not a kernel."""
     m = re.search(r"\d+([a-z_]+_kernel)I(.+?)EEv", symbol)
     if not m:
-        return symbol
+        m = re.search(r"\d+([a-z_]+_kernel)E", symbol)
+        return m.group(1) if m else symbol
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "float,", args))
     return f"{m.group(1)}<{args.strip(',')}>"
@@ -349,11 +357,27 @@ def lm_phase(torch, card: str) -> list[dict]:
                 q, k, v, is_causal=kwargs.get("causal", True))
         return None                     # paged decode: no one-call yardstick
 
+    def decode_cold_ms(fn, args) -> float:
+        """Device ms a launch with every launch on another layer's pools:
+        the call's q, page table and lengths against layers 0..L-1 of the
+        pools its K and V pages are views of, DECODE_COLD_ROUNDS times
+        over.  The layers' pages together (L times the call's K and V
+        rows, ~460 MB at batch 4) exceed the 50 MB L2, so each launch
+        reads its pages from HBM, as each layer of a decode step does."""
+        q, kp, vp, pt, lengths = args
+        kb, vb = kp._base, vp._base
+        assert kb is not None and tuple(kb.shape[1:]) == tuple(kp.shape)
+        calls = [lambda li=li: fn(q, kb[li], vb[li], pt, lengths)
+                 for li in range(kb.shape[0])]
+        return device_ms(torch, lambda: [c() for c in calls],
+                         reps=DECODE_COLD_ROUNDS) / len(calls)
+
     rows = []
+    rms_shapes = {}       # (rows, F, dtype) -> [calls, kernel, lib, bound]
     for name in LM_KERNELS:
         fn = originals[name]
         ms = plain_ms = bound_ms = by_bytes = by_ops = max_err = 0.0
-        calls_ms = 0.0
+        calls_ms = warm_ms = 0.0
         lib_ms = None if name == "decode_attention" else 0.0
         for args, kwargs, count in recorded[name].values():
             got = fn(*args, **kwargs)
@@ -364,13 +388,21 @@ def lm_phase(torch, card: str) -> list[dict]:
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (name, err)
             max_err = max(max_err, err)
-            ms += count * device_ms(torch, lambda: fn(*args, **kwargs))
+            one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
+            if name == "decode_attention":        # the cold figure counts
+                warm_ms += count * one_ms
+                one_ms = decode_cold_ms(fn, args)
+                one_plain = decode_cold_ms(plain[name], args)
+            else:
+                one_plain = device_ms(
+                    torch, lambda: plain[name](*args, **kwargs), reps=5)
+            ms += count * one_ms
+            plain_ms += count * one_plain
             calls_ms += count * call_ms(torch, lambda: fn(*args, **kwargs))
-            plain_ms += count * device_ms(
-                torch, lambda: plain[name](*args, **kwargs), reps=5)
             lib = library(name, args, kwargs)
+            one_lib = device_ms(torch, lib) if lib is not None else 0.0
             if lib is not None:
-                lib_ms += count * device_ms(torch, lib)
+                lib_ms += count * one_lib
             nbytes, flops = lm_call_cost(name, args, kwargs)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -379,6 +411,14 @@ def lm_phase(torch, card: str) -> list[dict]:
                 by_bytes += count * t_bytes
             else:
                 by_ops += count * t_ops
+            if name == "rmsnorm":
+                x = args[0]
+                key = (x.numel() // x.shape[-1], x.shape[-1],
+                       str(x.dtype).replace("torch.", ""))
+                acc = rms_shapes.setdefault(key, [0, 0.0, 0.0, 0.0])
+                for i, v in enumerate((count, one_ms, one_lib,
+                                       max(t_bytes, t_ops))):
+                    acc[i] += v if i == 0 else count * v
         n = launches[name]
         src, replaces = KERNEL_SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -398,6 +438,20 @@ def lm_phase(torch, card: str) -> list[dict]:
             print(f"flash_attention share of bound: {100 * bound_ms / ms:.1f} "
                   f"% ({ms / n:.5f} ms a launch against a {bound_ms / n:.5f} "
                   f"ms bound; SDPA {lib_ms / n:.5f} ms a launch)  [{card}]")
+        if name == "decode_attention":
+            print(f"decode_attention cold: {ms / n:.5f} ms a launch, each "
+                  f"launch on another layer's pools; warm (one layer's "
+                  f"pools repeated) {warm_ms / n:.5f}; plain, cold "
+                  f"{plain_ms / n:.5f}; bound {bound_ms / n:.5f} "
+                  f"({100 * bound_ms / ms:.1f} % of bound reached)  [{card}]")
+
+    # rmsnorm by shape: kernel against F.rms_norm at each shape of the run
+    for (r, f, dt), (calls, k_ms, l_ms, b_ms) in sorted(
+            rms_shapes.items(), key=lambda kv: -kv[1][1]):
+        print(f"rmsnorm ({r}x{f}) {dt}: {calls} calls, kernel "
+              f"{k_ms / calls:.5f} ms a launch, F.rms_norm "
+              f"{l_ms / calls:.5f}, bound {b_ms / calls:.5f} "
+              f"({100 * b_ms / k_ms:.1f} % of bound reached)  [{card}]")
 
     # the same engine on the plain versions: logits and generated tokens
     kernel_logits = one_prefill_and_decode()
@@ -432,14 +486,15 @@ def lm_phase(torch, card: str) -> list[dict]:
 
 def profile_split(torch, fn, symbols: dict) -> tuple[float, float, dict]:
     """(device-busy ms, wall ms, {kernel: ms}) of one call of ``fn`` under
-    torch.profiler; the split sums device time by kernel symbol, the rest
-    (products, copies, elementwise) under "other"."""
+    torch.profiler; the split sums device time by kernel, each under the
+    names its symbols are part of, the rest (products, copies,
+    elementwise) under "other"."""
     events, wall = profiled(torch, fn)
     split = {name: 0.0 for name in symbols}
     split["other"] = 0.0
     for e in events:
-        name = next((n for n, sym in symbols.items() if sym in e.key),
-                    "other")
+        name = next((n for n, syms in symbols.items()
+                     if any(sym in e.key for sym in syms)), "other")
         split[name] += e.self_device_time_total / 1e3
     return sum(split.values()), wall, {k: round(v, 3)
                                        for k, v in split.items()}

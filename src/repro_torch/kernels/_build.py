@@ -42,12 +42,12 @@ SIGNATURES = {
     "repro_agg_combine_rows": [_I],
     "repro_agg_combine_f32": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P],
-    "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
-    "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, *[_L] * 12, _P],
-    "repro_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _F, _P],
+    "repro_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

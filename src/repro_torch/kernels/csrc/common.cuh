@@ -30,14 +30,23 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
 }
 
 // Sum and max over the lanes of a warp (every lane gets the result), or
-// over the `width` lanes of an aligned group of them.
+// over the `width` lanes (a power of two) of an aligned group of them.
+// Unrolled and branch-free (a step past the width is taken and its result
+// dropped), so that the butterflies of independent values interleave.
 __device__ __forceinline__ float warp_sum(float v, int width = 32) {
-  for (int o = width / 2; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
+    v = o < width ? v + t : v;
+  }
   return v;
 }
 __device__ __forceinline__ float warp_max(float v, int width = 32) {
-  for (int o = width / 2; o > 0; o /= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
+    v = o < width ? fmaxf(v, t) : v;
+  }
   return v;
 }
 
@@ -56,8 +65,8 @@ inline int allow_shared(Kernel kernel, size_t bytes) {
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
-// Four consecutive elements of shared memory as fp32 in one load (16
-// bytes of fp32, 8 of bf16); p must be aligned to that size.
+// Four consecutive elements (shared or global memory) as fp32 in one load
+// (16 bytes of fp32, 8 of bf16); p must be aligned to that size.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -68,6 +77,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// The inverse of load4: four fp32 values stored as 4 consecutive elements
+// (16 bytes of fp32, 8 of bf16 rounded to nearest); p aligned to that.
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Asynchronous global -> shared copies (cp.async): BYTES of 4, 8 or 16,
@@ -92,6 +115,45 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Bulk copies by the Tensor Memory Accelerator, completed on an mbarrier
+// in shared memory.  One thread initialises the barrier for one arrival
+// (mbar_init, then fence_mbar_init and a __syncthreads()); one thread
+// arrives announcing the bytes the phase waits for (mbar_expect_tx), any
+// thread starts copies that count against them (bulk_copy: BYTES a
+// multiple of 16, both addresses 16-byte aligned) without waiting, and
+// mbar_wait returns once the phase of the given parity is complete, that
+// is, every byte has landed.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
 }
 
 __device__ __forceinline__ void zero_as(float* p) { *p = 0.f; }

@@ -7,122 +7,353 @@
 // Replaces repro/kernels/decode_attention.py::_decode_kernel.  The TPU
 // kernel scalar-prefetched the page table so that its BlockSpec fetched
 // page pt[b, p] while the previous one was in use, and carried (m, l, acc)
-// across the sequential page axis of its grid.  Here one block owns one
-// (batch, KV head) and its G query heads (G need not be a power of two)
-// and walks that sequence's pages itself with an online softmax: it reads
-// the page id, stages the page's K and V rows for its KV head in shared
-// memory, scores them (one warp per (head, slot) pair, shuffle-reduced
-// over D), updates the running max and sum, and accumulates P @ V.
-// Pages at or past the sequence's end are never read, and slots past the
-// end of the last page are masked, so the page table's padding (page 0,
-// possibly another sequence's live page) is harmless.  Bound: bytes (the
-// sequence's K and V rows are read once for 4*G*D flops per position);
-// with B*Hkv blocks (32 at batch 4) most SMs idle, so splitting a
-// sequence's pages over blocks is the next step.
+// across the sequential page axis of its grid.  Bound: bytes (each of
+// the sequence's K and V rows is read once for 4*G*D flops a position),
+// so the card needs megabytes of loads in flight; one block per
+// (batch, KV head) walking its pages gives 32 blocks at batch 4 and
+// leaves the kernel latency-bound.  So the sequence's pages are split
+// over blocks (flash-decoding), in two kernels launched together:
+//
+// * decode_split_kernel, grid (B*Hkv*ceil(G/GT), n_split): a block owns
+//   split s of a sequence, positions [s*SL, (s+1)*SL) with SL = pps*ps,
+//   for one KV head and up to GT of its query heads.  It reads the
+//   sequence's length on the device and exits if the split lies past the
+//   end; else it loads the split's page ids and its heads' q, then starts
+//   the copy of all its K rows and then all its V rows into shared
+//   memory: one TMA bulk copy a row, counted on an mbarrier for K and one
+//   for V, where every row is 16-byte aligned (4-byte cp.async where not,
+//   the same bits landing).  No thread waits on a copy it starts, and
+//   the scores run as soon as K is in, while V is still landing.  Scores:
+//   LPS lanes a key slot, each holding up to 16 floats of every head's q
+//   in registers, shuffle-reduced within the group, without branches;
+//   softmax: one warp a head; P @ V: threads over (slot group, 4
+//   columns), summed over the groups in a fixed order.  It writes
+//   (m, l, acc[D]) for each head to the workspace.
+// * decode_combine_kernel, one block a (batch, query head): reads the
+//   sequence's length and every used split's (m, l) at once, then merges
+//   the splits in split order and writes acc / l (zeros for a sequence
+//   with no position, as the TPU kernel's flush gives).
+//
+// Split boundaries sit at multiples of SL, which depends on the pools'
+// ps and D only, and the merge order is fixed: a sequence's output bits
+// do not depend on the batch it rides in or on the page table's padded
+// width.  Pages past the sequence's end are never read; a page id
+// outside the pool masks its slots, as before.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLaneChunks = 4;     // 4-float chunks of q a lane holds a head
 
+// Positions of sequence b that the page table can hold.
+__device__ __forceinline__ int visible(const int* lengths, int b, int cap) {
+  return min(max(lengths[b], 0), cap);
+}
+
+// Floats of shared memory below the V rows: the split's K rows, which the
+// P @ V partials of every slot group reuse once the scores are taken.
+__host__ __device__ __forceinline__ int k_region(int sl, int lds, int gt) {
+  const int partials = (kThreads / (lds / 4)) * gt * lds;
+  return sl * lds > partials ? sl * lds : partials;
+}
+
+template <int GT>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ kp,
-              const float* __restrict__ vp, const int* __restrict__ pt,
-              const int* __restrict__ lengths, float* __restrict__ out,
-              int n_pool, int ps, int hkv, int group, int d, int pp,
-              float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [G][D]
-  float* acc = qs + group * d;      // [G][D]
-  float* ks = acc + group * d;      // [ps][D]
-  float* vs = ks + ps * d;          // [ps][D]
-  float* sc = vs + ps * d;          // [G][ps] scores, then probabilities
-  float* m = sc + group * ps;       // [G]
-  float* l = m + group;             // [G]
-  float* alpha = l + group;         // [G]
+decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                    const float* __restrict__ vp, const int* __restrict__ pt,
+                    const int* __restrict__ lengths, float* __restrict__ ws,
+                    int n_pool, int ps, int hkv, int group, int d, int pp,
+                    int pps, int n_split, int lps, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t landed[2];                  // K rows, V rows (TMA)
+  const int sl = pps * ps, lds = (d + 3) & ~3, chunks = lds / 4;
+  float* ks = smem;                               // [sl][lds]
+  float* vs = ks + k_region(sl, lds, GT);         // [sl][lds]
+  float* sc = vs + sl * lds;                      // [GT][sl]
+  int* pg = reinterpret_cast<int*>(sc + GT * sl);  // [pps] page ids
 
-  const int b = blockIdx.x / hkv, h = blockIdx.x % hkv;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gd = group * d;
-  const int64_t qoff = (static_cast<int64_t>(b) * hkv + h) * gd;
-  for (int i = tid; i < gd; i += kThreads) {
-    qs[i] = q[qoff + i];
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += kThreads) {
-    m[g] = repro_torch::kNegInf;
-    l[g] = 0.f;
+  const int n_hc = (group + GT - 1) / GT;
+  const int bh = blockIdx.x / n_hc, hc = blockIdx.x % n_hc;
+  const int b = bh / hkv, h = bh % hkv, s = blockIdx.y;
+  const int g0 = hc * GT, gn = min(GT, group - g0);
+
+  // the length and the split's page ids, loaded together
+  const int p = s * pps + tid;
+  const int page = (tid < pps && p < pp)
+      ? pt[static_cast<int64_t>(b) * pp + p] : -1;
+  const int nv = min(visible(lengths, b, pp * ps) - s * sl, sl);
+  if (nv <= 0) return;                            // past the end: no output
+  const bool live_page = page >= 0 && page < n_pool;
+  if (tid < pps) pg[tid] = live_page ? page : -1;
+  // rows go by TMA bulk copies where every row is 16-byte aligned, else
+  // by 4-byte cp.async; the bulk path's barriers wait for the live rows
+  const bool bulk = d % 4 == 0 && pps <= 32 &&
+                    reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+  if (bulk && warp == 0) {
+    const int rows = __reduce_add_sync(
+        0xffffffffu, (tid < pps && live_page) ? min(max(nv - tid * ps, 0), ps)
+                                              : 0);
+    if (lane == 0) {
+      const unsigned bytes = static_cast<unsigned>(rows) * d * sizeof(float);
+      repro_torch::mbar_init(&landed[0], 1);
+      repro_torch::mbar_init(&landed[1], 1);
+      repro_torch::fence_mbar_init();
+      repro_torch::mbar_expect_tx(&landed[0], bytes);
+      repro_torch::mbar_expect_tx(&landed[1], bytes);
+    }
   }
 
-  const int len = lengths[b];
-  const int n_pages = len > 0 ? min((len + ps - 1) / ps, pp) : 0;
-  const int64_t slot_stride = static_cast<int64_t>(hkv) * d;
-  for (int p = 0; p < n_pages; ++p) {
-    const int page = pt[static_cast<int64_t>(b) * pp + p];
-    const int valid = (page >= 0 && page < n_pool) ? min(ps, len - p * ps) : 0;
-    const int64_t base = (static_cast<int64_t>(page) * ps) * slot_stride + h * d;
-    __syncthreads();              // the previous page's readers are done
-    for (int i = tid; i < ps * d; i += kThreads) {
-      const int slot = i / d, dd = i % d;
-      const bool in = slot < valid;
-      ks[i] = in ? kp[base + slot * slot_stride + dd] : 0.f;
-      vs[i] = in ? vp[base + slot * slot_stride + dd] : 0.f;
-    }
-    __syncthreads();
-    for (int e = warp; e < group * ps; e += kWarps) {
-      const int g = e / ps, slot = e % ps;
-      float dot = 0.f;
-      for (int dd = lane; dd < d; dd += 32)
-        dot = fmaf(qs[g * d + dd], ks[slot * d + dd], dot);
-      dot = repro_torch::warp_sum(dot);
-      if (lane == 0) sc[e] = slot < valid ? dot * scale : repro_torch::kNegInf;
-    }
-    __syncthreads();
-    for (int g = tid; g < group; g += kThreads) {
-      float mx = repro_torch::kNegInf;
-      for (int slot = 0; slot < ps; ++slot) mx = fmaxf(mx, sc[g * ps + slot]);
-      const float m_new = fmaxf(m[g], mx);
-      float sum = 0.f;
-      for (int slot = 0; slot < ps; ++slot) {
-        const float e = slot < valid ? expf(sc[g * ps + slot] - m_new) : 0.f;
-        sc[g * ps + slot] = e;
-        sum += e;
-      }
-      alpha[g] = expf(m[g] - m_new);
-      l[g] = alpha[g] * l[g] + sum;
-      m[g] = m_new;
-    }
-    __syncthreads();
-    for (int i = tid; i < gd; i += kThreads) {
-      const int g = i / d, dd = i % d;
-      float a = acc[i] * alpha[g];
-      for (int slot = 0; slot < valid; ++slot)
-        a = fmaf(sc[g * ps + slot], vs[slot * d + dd], a);
-      acc[i] = a;
+  // q of the block's heads into registers before the copies start: lane
+  // `sub` of a slot's group holds chunks sub, sub + LPS, ... (zero past D)
+  const int sub = lane & (lps - 1);
+  const float* qb =
+      q + (static_cast<int64_t>(b) * hkv * group + h * group + g0) * d;
+  float4 qr[GT][kLaneChunks];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int j = 0; j < kLaneChunks; ++j) {
+      const int e0 = 4 * (sub + lps * j);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (g < gn && e0 + e < d) ? qb[g * d + e0 + e] : 0.f;
+      qr[g][j] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
   __syncthreads();
-  for (int i = tid; i < gd; i += kThreads)
-    out[qoff + i] = acc[i] / fmaxf(l[i / d], 1e-30f);
+
+  // start the copies of the K and V rows; a masked page's rows are zeros
+  // (finite, so P @ V's zero weights keep them out)
+  const int64_t slot_stride = static_cast<int64_t>(hkv) * d;
+  // TMA: a thread a row, row i on warp i % 4 (each warp issues its lanes'
+  // copies one after another), all K rows before any V row, so that K
+  // lands first and the scores overlap V's copy
+#pragma unroll
+  for (int half = 0; bulk && half < 2; ++half) {
+    const float* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
+    float* dst = half ? vs : ks;
+    for (int i = lane * kWarps + warp; i < nv; i += kThreads) {
+      const int pid = pg[i / ps];
+      if (pid >= 0) {
+        repro_torch::bulk_copy(
+            dst + i * lds,
+            src + (static_cast<int64_t>(pid) * ps + i % ps) * slot_stride,
+            d * sizeof(float), &landed[half]);
+      } else {
+        for (int e = 0; e < d; e += 4)
+          repro_torch::store4(dst + i * lds + e,
+                              make_float4(0.f, 0.f, 0.f, 0.f));
+      }
+    }
+    if (half == 0) __syncthreads();               // every K copy queued
+  }
+  for (int half = 0; !bulk && half < 2; ++half) {      // a warp a row
+    const float* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
+    float* dst = half ? vs : ks;
+    for (int i = warp; i < nv; i += kWarps) {
+      float* drow = dst + i * lds;
+      const int pid = pg[i / ps];
+      const float* srow =
+          src + (static_cast<int64_t>(pid) * ps + i % ps) * slot_stride;
+      for (int e = lane; e < lds; e += 32) {
+        if (pid >= 0 && e < d) repro_torch::cp_async<4>(drow + e, srow + e);
+        else drow[e] = 0.f;
+      }
+    }
+    repro_torch::cp_async_commit();               // K, then V: two groups
+  }
+
+  if (bulk) repro_torch::mbar_wait(&landed[0], 0);
+  else repro_torch::cp_async_wait<1>();
+  __syncthreads();                                // K rows are in
+
+  // scores: each warp takes 32 / LPS slots, twice, a step (independent
+  // chains); no branches: a slot past the end reads the last row and its
+  // score is dropped, a chunk past D reads chunk 0 against a zero q
+  const int per_warp = 32 / lps, step = kWarps * per_warp;
+  for (int base = warp * per_warp; base < nv; base += 2 * step) {
+    const int i0 = base + lane / lps;
+    float dot[2][GT];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float* krow = ks + min(i0 + u * step, nv - 1) * lds;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) dot[u][g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kLaneChunks; ++j) {
+        const int c = sub + lps * j;
+        const float4 k4 = repro_torch::load4(krow + 4 * (c < chunks ? c : 0));
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          dot[u][g] = fmaf(qr[g][j].x, k4.x, dot[u][g]);
+          dot[u][g] = fmaf(qr[g][j].y, k4.y, dot[u][g]);
+          dot[u][g] = fmaf(qr[g][j].z, k4.z, dot[u][g]);
+          dot[u][g] = fmaf(qr[g][j].w, k4.w, dot[u][g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g)
+        dot[u][g] = repro_torch::warp_sum(dot[u][g], lps);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * step;
+      if (sub == 0 && i < nv) {
+        const bool live = pg[i / ps] >= 0;
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          if (g < gn)
+            sc[g * sl + i] = live ? dot[u][g] * scale : repro_torch::kNegInf;
+      }
+    }
+  }
+  if (bulk) repro_torch::mbar_wait(&landed[1], 0);
+  else repro_torch::cp_async_wait<0>();
+  __syncthreads();                                // V rows, every score
+
+  // softmax over the split, one warp a head; (m, l) to the workspace
+  const int64_t head0 = static_cast<int64_t>(b) * hkv * group + h * group + g0;
+  for (int g = warp; g < gn; g += kWarps) {
+    float* sg = sc + g * sl;
+    float mx = repro_torch::kNegInf;
+    for (int i = lane; i < nv; i += 32) mx = fmaxf(mx, sg[i]);
+    mx = repro_torch::warp_max(mx);
+    float sum = 0.f;
+    for (int i = lane; i < nv; i += 32) {
+      const float e = pg[i / ps] >= 0 ? expf(sg[i] - mx) : 0.f;
+      sg[i] = e;
+      sum += e;
+    }
+    sum = repro_torch::warp_sum(sum);
+    if (lane == 0) {
+      float* w = ws + ((head0 + g) * n_split + s) * (d + 2);
+      w[0] = mx;
+      w[1] = sum;
+    }
+  }
+  __syncthreads();
+
+  // P @ V: thread (grp, c) sums slots grp, grp + n_grp, ... of column
+  // chunk c; the groups' partials go through shared memory (the K rows'
+  // space) and are summed in group order
+  const int n_grp = kThreads / chunks;
+  const int c = tid % chunks, grp = tid / chunks;
+  float4 acc[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (grp < n_grp) {
+#pragma unroll 4
+    for (int i = grp; i < nv; i += n_grp) {
+      const float4 v4 = repro_torch::load4(vs + i * lds + 4 * c);
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float pr = sc[g * sl + i];         // rows past gn: unused
+        acc[g].x = fmaf(pr, v4.x, acc[g].x);
+        acc[g].y = fmaf(pr, v4.y, acc[g].y);
+        acc[g].z = fmaf(pr, v4.z, acc[g].z);
+        acc[g].w = fmaf(pr, v4.w, acc[g].w);
+      }
+    }
+    float* red = ks;                              // [n_grp][GT][lds]
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+      *reinterpret_cast<float4*>(red + (grp * GT + g) * lds + 4 * c) = acc[g];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < gn * d; idx += kThreads) {
+    const int g = idx / d, e = idx % d;
+    float a = 0.f;
+    for (int r = 0; r < n_grp; ++r) a += ks[(r * GT + g) * lds + e];
+    ws[((head0 + g) * n_split + s) * (d + 2) + 2 + e] = a;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ ws,
+                      const int* __restrict__ lengths, float* __restrict__ out,
+                      int hq, int d, int cap, int sl, int n_split) {
+  extern __shared__ float ml[];                   // [2][used]: m then l
+  const int bq = blockIdx.x;                      // b * Hq + query head
+  const int used = (visible(lengths, bq / hq, cap) + sl - 1) / sl;
+  const float* w = ws + static_cast<int64_t>(bq) * n_split * (d + 2);
+  for (int s = threadIdx.x; s < used; s += kThreads) {  // all loads at once
+    ml[s] = w[s * (d + 2)];
+    ml[used + s] = w[s * (d + 2) + 1];
+  }
+  __syncthreads();
+  float mx = repro_torch::kNegInf;
+  for (int s = 0; s < used; ++s) mx = fmaxf(mx, ml[s]);
+  __syncthreads();                                // every m read: weights
+  for (int s = threadIdx.x; s < used; s += kThreads) ml[s] = expf(ml[s] - mx);
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < used; ++s) l = fmaf(ml[s], ml[used + s], l);
+  for (int e = threadIdx.x; e < d; e += kThreads) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < used; ++s) a = fmaf(ml[s], w[s * (d + 2) + 2 + e], a);
+    out[static_cast<int64_t>(bq) * d + e] = a / fmaxf(l, 1e-30f);
+  }
+}
+
+template <int GT>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const void* page_table, const void* lengths, void* out, void* ws,
+           int b, int hkv, int group, int d, int n_pool, int ps, int pp,
+           int pps, float scale, cudaStream_t stream) {
+  const int lds = (d + 3) & ~3, chunks = lds / 4;
+  int lps = 1;                                    // lanes a key slot
+  while (lps * kLaneChunks < chunks) lps *= 2;
+  const int sl = pps * ps, n_split = (pp + pps - 1) / pps;
+  const size_t bytes = sizeof(float) *
+      (k_region(sl, lds, GT) + sl * lds + GT * sl) + sizeof(int) * pps;
+  if (n_split > 0) {                              // else: no position
+    int rc = repro_torch::allow_shared(decode_split_kernel<GT>, bytes);
+    if (rc != 0) return rc;
+    const dim3 grid(b * hkv * ((group + GT - 1) / GT), n_split);
+    decode_split_kernel<GT><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pages),
+        static_cast<const float*>(v_pages),
+        static_cast<const int*>(page_table), static_cast<const int*>(lengths),
+        static_cast<float*>(ws), n_pool, ps, hkv, group, d, pp, pps, n_split,
+        lps, scale);
+    rc = repro_torch::launch_status();
+    if (rc != 0) return rc;
+  }
+  const size_t ml_bytes = sizeof(float) * 2 * n_split;
+  const int rc = repro_torch::allow_shared(decode_combine_kernel, ml_bytes);
+  if (rc != 0) return rc;
+  decode_combine_kernel<<<b * hkv * group, kThreads, ml_bytes, stream>>>(
+      static_cast<const float*>(ws), static_cast<const int*>(lengths),
+      static_cast<float*>(out), hkv * group, d, pp * ps, sl, n_split);
+  return repro_torch::launch_status();
 }
 
 }  // namespace
 
+// ws holds b * Hq * ceil(pp / pages_per_split) * (d + 2) floats; d <= 512
+// and pages_per_split <= 128.
 extern "C" int repro_decode_attention_f32(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* lengths, void* out, int b, int hkv,
-    int group, int d, int n_pool, int ps, int pp, float scale,
-    void* stream) {
-  const size_t bytes =
-      sizeof(float) * (2 * group * d + 2 * ps * d + group * ps + 3 * group);
-  const int rc = repro_torch::allow_shared(decode_kernel, bytes);
-  if (rc != 0) return rc;
-  decode_kernel<<<b * hkv, kThreads, bytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages), static_cast<const int*>(page_table),
-      static_cast<const int*>(lengths), static_cast<float*>(out), n_pool, ps,
-      hkv, group, d, pp, scale);
-  return repro_torch::launch_status();
+    const void* page_table, const void* lengths, void* out, void* ws, int b,
+    int hkv, int group, int d, int n_pool, int ps, int pp,
+    int pages_per_split, float scale, void* stream) {
+  if (d < 1 || d > 4 * kThreads || pages_per_split < 1 ||
+      pages_per_split > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // G <= 4 exactly, else chunks of 8 query heads a block
+  const auto run = group == 1 ? &launch<1> : group == 2 ? &launch<2>
+                 : group == 3 ? &launch<3> : group == 4 ? &launch<4>
+                 : &launch<8>;
+  return run(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, group,
+             d, n_pool, ps, pp, pages_per_split, scale,
+             static_cast<cudaStream_t>(stream));
 }

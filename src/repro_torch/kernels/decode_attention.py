@@ -8,12 +8,20 @@ source: ``csrc/decode_attention.cu``.
 One new token per sequence: q (B,Hq,D) fp32 against the (P,ps,Hkv,D) K
 and V page pools through page_table (B,PP) int32, masked by lengths (B,)
 int32.  Bound on the H100: bytes (each of the sequence's K and V rows is
-read once for 4*G*D flops per position).  One block per (batch, KV head)
-holds its G = Hq/Hkv query heads and walks the sequence's pages with an
-online softmax; pages at or past ``lengths[b]`` are never read, so the
-page table's padding may name any page.  The TPU kernel's
-scalar-prefetched page table becomes a plain load of the page id by the
-block.
+read once for 4*G*D flops per position).  Each sequence's pages are split
+over blocks (flash-decoding): a block owns ``pages_per_split(ps, D)``
+pages of one (batch, KV head), brings their K and V rows into shared
+memory with TMA bulk copies and writes a partial (m, l, acc) for its
+query heads; a combine kernel, launched by the same C call, merges the
+splits in order.
+The grid comes from the page table's width; each block reads its
+sequence's length on the card, so the wrapper never reads ``lengths`` on
+the host.  Pages at or past ``lengths[b]`` are never read, so the page
+table's padding may name any page.  Split boundaries depend on the
+pools' page size and head dim only, so a sequence's output bits do not
+depend on its batch or on the table's padded width.  The TPU kernel's
+scalar-prefetched page table becomes a plain load of the page ids by
+each block.
 """
 from __future__ import annotations
 
@@ -23,6 +31,22 @@ from . import _build
 from .ref import decode_attention_ref
 
 launches = 0
+
+PAGES_PER_SPLIT = 4           # pages a block owns: 64 positions at ps = 16
+SPLIT_SMEM = 160 * 1024       # at most this many bytes of K and V rows a block
+MAX_HEAD_DIM = 512
+
+
+def pages_per_split(ps: int, d: int) -> int:
+    """Pages of a split: PAGES_PER_SPLIT, halved while the split's K and V
+    rows (D rounded up to 4 floats) would take more than SPLIT_SMEM bytes
+    of shared memory.  A function of the pools' page size and head dim
+    only, so the split boundaries of a sequence never move with its batch
+    or with the page table's width."""
+    n = PAGES_PER_SPLIT
+    while n > 1 and 2 * n * ps * (-(-d // 4) * 4) * 4 > SPLIT_SMEM:
+        n //= 2
+    return n
 
 
 def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -57,17 +81,22 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"decode_attention shapes q {tuple(q.shape)} pages "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} page_table "
             f"{tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
-    _build.check_sizes("decode_attention", b * hkv, n_pool * ps, d, pp)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {d} > {MAX_HEAD_DIM}")
+    _build.check_sizes("decode_attention", b * hq, n_pool * ps, d, pp * ps)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    pps = pages_per_split(ps, d)
+    n_split = -(-pp // pps)
+    ws = torch.empty(b * hq * n_split * (d + 2), dtype=f32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = lib.repro_decode_attention_f32(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-            hkv, hq // hkv, d, n_pool, ps, pp, 1.0 / d ** 0.5,
-            _build.stream(dev))
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), b, hkv, hq // hkv, d, n_pool, ps, pp, pps,
+            1.0 / d ** 0.5, _build.stream(dev))
     _build.raise_on(rc, "decode_attention")
     launches += 1
     return out

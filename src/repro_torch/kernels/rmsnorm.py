@@ -1,4 +1,4 @@
-"""Fused RMSNorm — one row per block, on Hopper.
+"""Fused RMSNorm — each row held in registers, on Hopper.
 
 Replaces the Pallas kernel ``repro/kernels/rmsnorm.py::_rmsnorm_kernel``
 (``pallas_call`` at ``rmsnorm.py:36``).  CUDA source: ``csrc/rmsnorm.cu``.
@@ -6,9 +6,12 @@ Replaces the Pallas kernel ``repro/kernels/rmsnorm.py::_rmsnorm_kernel``
 Computes ``x * rsqrt(mean(x^2) + eps) * w`` over the last dim in fp32 and
 stores it in x's dtype (fp32 or bf16).  Bound on the H100: bytes (each
 element read once and written once for three flops).  The TPU kernel
-kept 256-row slabs in VMEM; here a block of 256 threads owns one row and
-reads it with neighbouring threads on neighbouring elements, which at
-the LM's widths (F = 3072) is a few KB a row.
+kept 256-row slabs in VMEM; here ``threads_per_row(F, rows)`` threads own a row
+and hold it in registers as 16-byte vectors (8-byte for bf16), so x is
+read once: at the LM's width (F = 3072) 128 threads of 6 vectors each at
+the 500 prefill rows (one wave of blocks over the card), 256 of 3 at the
+1-4 decode rows (one short block a row).  Rows not aligned to the vector size
+take element loads with the same arithmetic.
 """
 from __future__ import annotations
 
@@ -21,6 +24,21 @@ launches = 0
 
 _ENTRY = {torch.float32: "repro_rmsnorm_f32",
           torch.bfloat16: "repro_rmsnorm_bf16"}
+MAX_CHUNKS = 8              # 4-element vectors the kernel's registers hold
+MAX_THREADS = 512
+WIDE = 132                  # rows that give each SM of an H100 a block
+
+
+def threads_per_row(f: int, rows: int) -> int:
+    """Threads that share a row of F elements: enough for each to hold 6
+    vectors of 4 when the rows fill the card (blocks small enough for one
+    wave), 3 when they do not (each row's block short); a power of two up
+    to a warp, whole warps beyond.  At F = 3072: 128 and 256."""
+    chunks = -(-f // 4)
+    per = -(-chunks // (6 if rows >= WIDE else 3))
+    if per <= 32:
+        return 1 << (per - 1).bit_length()
+    return min(MAX_THREADS, -(-per // 32) * 32)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
@@ -42,6 +60,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     w32 = w.float()                  # the kernel scales in fp32
     _build.check("rmsnorm", "w", w32, dtype=torch.float32, ndim=1,
                  device=x.device)
+    if f > MAX_THREADS * MAX_CHUNKS * 4:
+        raise ValueError(f"rmsnorm: F = {f} > {MAX_THREADS * MAX_CHUNKS * 4}"
+                         ", more than the kernel holds in registers")
     rows = x.numel() // f if f else 0
     _build.check_sizes("rmsnorm", rows, f)
     out = torch.empty_like(x)
@@ -51,6 +72,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     with torch.cuda.device(x.device):
         rc = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), w32.data_ptr(),
                                            out.data_ptr(), rows, f, eps,
+                                           threads_per_row(f, rows),
                                            _build.stream(x.device))
     _build.raise_on(rc, "rmsnorm")
     launches += 1

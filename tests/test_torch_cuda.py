@@ -16,8 +16,12 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import pages_per_split
 
 pytestmark = pytest.mark.cuda
+
+# positions a decode_attention block owns at llama3.2-3b's pools (ps 16, D 128)
+SPLIT = pages_per_split(16, 128) * 16
 
 
 @pytest.fixture
@@ -181,10 +185,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 # ------------------------------------------------------- the LM path's kernels
 @pytest.mark.parametrize("shape", [(3, 64), (17, 256), (64, 512), (500, 3072),
-                                   (4, 1, 3072)])
+                                   (4, 1, 3072), (1, 3072), (4096, 3072),
+                                   (5, 3075), (2, 17)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
-    """The reference sweep and the LM's prefill and decode rows at F = 3072."""
+    """The reference sweep, the LM's prefill, last-position and decode rows
+    at F = 3072, 4096 rows, and F = 3075 and 17 (rows not a whole number
+    of 4-element vectors)."""
     rng = np.random.default_rng(6)
     x = _r(rng, *shape, device=cuda, dtype=dtype)
     w = _r(rng, shape[-1], device=cuda)
@@ -192,6 +199,24 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     got = kernels.rmsnorm(x, w)
     assert got.dtype == dtype and got.shape == x.shape
     assert kernels.launch_counts()["rmsnorm"] == before + 1
+    _close(got, ref.rmsnorm_ref(x, w), 1e-5 if dtype == torch.float32
+           else 2e-2)
+
+
+@pytest.mark.parametrize("rows", [4, 500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_copy_width_does_not_change_bits(cuda, rows, dtype):
+    """Rows 4 bytes past a 16-byte boundary take element loads and stores;
+    the sum of squares runs in the same order, so the output has the same
+    bits as from an aligned copy of the same rows."""
+    rng = np.random.default_rng(14)
+    skip = 4 // torch.tensor([], dtype=dtype).element_size()
+    buf = _r(rng, rows * 3072 + skip, device=cuda, dtype=dtype)
+    x = buf[skip:].view(rows, 3072)
+    w = _r(rng, 3072, device=cuda)
+    assert x.data_ptr() % 16 == 4
+    got = kernels.rmsnorm(x, w)
+    assert torch.equal(got, kernels.rmsnorm(x.clone(), w))
     _close(got, ref.rmsnorm_ref(x, w), 1e-5 if dtype == torch.float32
            else 2e-2)
 
@@ -273,6 +298,107 @@ def test_decode_attention_kernel_matches_plain(cuda, b, hq, hkv, d, ps, pp):
     got = kernels.decode_attention(q, kp, vp, pt_t, len_t)
     assert kernels.launch_counts()["decode_attention"] == before + 1
     _close(got, ref.decode_attention_ref(q, kp, vp, pt_t, len_t), 3e-5)
+
+
+def _paged(rng, lengths, *, hq, hkv, d, ps=16, pad=0, device):
+    """q (B,Hq,D), K/V pools of distinct shuffled pages for each sequence
+    plus two spare, a page table of each sequence's pages padded with page
+    0 (another sequence's page) to the longest plus ``pad`` columns, and
+    the lengths as int32."""
+    need = [-(-n // ps) for n in lengths]
+    total = sum(need) + 2
+    kp, vp = (_r(rng, total, ps, hkv, d, device=device) for _ in range(2))
+    order = rng.permutation(total)
+    pt = np.zeros((len(lengths), max(need) + pad), np.int32)
+    start = 0
+    for i, n in enumerate(need):
+        pt[i, :n] = order[start:start + n]
+        start += n
+    return (_r(rng, len(lengths), hq, d, device=device), kp, vp,
+            torch.tensor(pt, device=device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("length", [1, 16, SPLIT - 1, SPLIT, SPLIT + 1, 4096])
+@pytest.mark.parametrize("group", [3, 1])
+def test_decode_attention_split_edges(cuda, length, group):
+    """Lengths at the page and split boundaries (one position, one page,
+    one short of a split, a split, one past it) and 4,096 positions (256
+    pages, 64 splits), beside a second sequence of 37, G = 3 and G = 1,
+    the table padded with page 0."""
+    rng = np.random.default_rng(15)
+    args = _paged(rng, [length, 37], hq=2 * group, hkv=2, d=128, pad=1,
+                  device=cuda)
+    _close(kernels.decode_attention(*args), ref.decode_attention_ref(*args),
+           3e-5)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(40, 8, 128), (24, 2, 64), (4, 2, 20)])
+def test_decode_attention_head_groups_and_odd_head_dim(cuda, hq, hkv, d):
+    """G = 5 (eight-head register tile, three heads idle), G = 12 (two
+    chunks of heads a split) and D = 20 (rows not a whole number of
+    16-byte copies)."""
+    rng = np.random.default_rng(16)
+    args = _paged(rng, [150, 3, 64], hq=hq, hkv=hkv, d=d, device=cuda)
+    _close(kernels.decode_attention(*args), ref.decode_attention_ref(*args),
+           3e-5)
+
+
+def test_decode_attention_sequence_bits_do_not_depend_on_batch(cuda):
+    """Each sequence of a batch of 4 alone, with a page table just wide
+    enough for it, gives the same bits as inside the batch."""
+    rng = np.random.default_rng(17)
+    q, kp, vp, pt, lengths = _paged(rng, [517, 64, 1000, 5], hq=24, hkv=8,
+                                    d=128, device=cuda)
+    full = kernels.decode_attention(q, kp, vp, pt, lengths)
+    for i, n in enumerate(lengths.tolist()):
+        alone = kernels.decode_attention(
+            q[i:i + 1].contiguous(), kp, vp,
+            pt[i:i + 1, :-(-n // 16)].contiguous(), lengths[i:i + 1])
+        assert torch.equal(full[i:i + 1], alone), i
+
+
+def test_decode_attention_bits_do_not_depend_on_table_padding(cuda):
+    """The same lengths with the page table padded to PP and to PP + 7
+    (page 0 in the padding) give the same bits."""
+    rng = np.random.default_rng(18)
+    q, kp, vp, pt, lengths = _paged(rng, [517, 200, 33, 64], hq=24, hkv=8,
+                                    d=128, device=cuda)
+    wide = torch.cat([pt, torch.zeros((4, 7), dtype=pt.dtype, device=cuda)],
+                     1)
+    assert torch.equal(kernels.decode_attention(q, kp, vp, pt, lengths),
+                       kernels.decode_attention(q, kp, vp, wide, lengths))
+
+
+def test_decode_attention_empty_sequence_gives_zeros(cuda):
+    """A sequence of length 0 gives zeros (the Pallas kernel's flush of an
+    empty (m, l, acc)), its batch neighbour the plain version's answer."""
+    rng = np.random.default_rng(19)
+    q, kp, vp, pt, lengths = _paged(rng, [1, 90], hq=6, hkv=2, d=128,
+                                    device=cuda)
+    lengths[0] = 0
+    got = kernels.decode_attention(q, kp, vp, pt, lengths)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention_ref(q, kp, vp, pt, lengths)[1:],
+           3e-5)
+
+
+def test_decode_attention_copy_width_does_not_change_bits(cuda):
+    """Pools 4 bytes past a 16-byte boundary take 4-byte copies; the output
+    has the same bits as from aligned copies of the same pools."""
+    rng = np.random.default_rng(20)
+    q, kp, vp, pt, lengths = _paged(rng, [300, 70], hq=24, hkv=8, d=128,
+                                    device=cuda)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    ku, vu = unaligned(kp), unaligned(vp)
+    assert ku.data_ptr() % 16 == 4
+    got = kernels.decode_attention(q, ku, vu, pt, lengths)
+    assert torch.equal(got, kernels.decode_attention(q, kp, vp, pt, lengths))
+    _close(got, ref.decode_attention_ref(q, kp, vp, pt, lengths), 3e-5)
 
 
 def test_lm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -211,6 +211,39 @@ def test_plain_lm_kernels_on_cpu_launch_nothing():
     assert tk.launch_counts() == {k: 0 for k in tk.KERNELS}
 
 
+def test_decode_splits_depend_on_the_pools_only():
+    """decode_attention's split boundaries come from the pools' page size
+    and head dim alone: 4 pages (64 positions) at llama3.2-3b's pools,
+    halved only where a split's K and V rows would pass the shared-memory
+    budget, so they never move with the batch or the table's width."""
+    from repro_torch.kernels.decode_attention import (PAGES_PER_SPLIT,
+                                                      SPLIT_SMEM,
+                                                      pages_per_split)
+    assert pages_per_split(16, 128) * 16 == 64 and PAGES_PER_SPLIT == 4
+    for ps, d in [(8, 32), (16, 64), (16, 256), (32, 256), (64, 512),
+                  (16, 20)]:
+        n = pages_per_split(ps, d)
+        assert 1 <= n <= PAGES_PER_SPLIT
+        assert n == 1 or 2 * n * ps * (-(-d // 4) * 4) * 4 <= SPLIT_SMEM
+        if n < PAGES_PER_SPLIT:
+            assert 2 * (2 * n) * ps * (-(-d // 4) * 4) * 4 > SPLIT_SMEM
+
+
+@pytest.mark.parametrize("f", [1, 17, 64, 3072, 3075, 4096, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 4, 500])
+def test_rmsnorm_threads_per_row_hold_the_row(f, rows):
+    """The rmsnorm kernel's row split: whole warps or a power-of-two share
+    of one, at most 8 vectors of 4 a thread; 128 threads at the prefill
+    rows of llama3.2-3b (one wave of blocks), 256 at its decode rows."""
+    from repro_torch.kernels.rmsnorm import (MAX_CHUNKS, MAX_THREADS,
+                                             threads_per_row)
+    t = threads_per_row(f, rows)
+    assert 1 <= t <= MAX_THREADS and t * MAX_CHUNKS * 4 >= f
+    assert (t <= 32 and 32 % t == 0) or t % 32 == 0
+    if f == 3072:
+        assert t == (128 if rows == 500 else 256)
+
+
 # ---------------------------------------------------------- parameter tree
 def test_params_from_numpy_round_trips_the_reference_tree(params):
     jp, tp = params

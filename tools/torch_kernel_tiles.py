@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Time other tile shapes of the port's gemm and flash_attention kernels
-on the card, at the main path's shapes, beside the library call.
+"""Time other tile shapes of the port's kernels on the card, at the main
+path's shapes, beside the library call.
 
 Run from the repository root on a machine with an H100:
 
-    PYTHONPATH=src python tools/torch_kernel_tiles.py
+    PYTHONPATH=src python tools/torch_kernel_tiles.py [gemm] [flash] \
+        [decode] [rmsnorm]
 
-It compiles ``src/repro_torch/kernels/csrc/{gemm,flash_attention}.cu``
-once more into a scratch library under ``build/kernel_tiles/``, with one
-extra C entry per tile shape (the kernels' own ``launch_tile`` templates,
-nothing else changed), checks each against the plain version, and prints
-device ms a launch under torch.profiler:
+(all four when none is named).  For gemm and flash it compiles
+``src/repro_torch/kernels/csrc/{gemm,flash_attention}.cu`` once more into
+a scratch library under ``build/kernel_tiles/``, with one extra C entry
+per tile shape (the kernels' own ``launch_tile`` templates, nothing else
+changed); decode and rmsnorm call the port's library with other values
+of a launch argument.  Each is checked against the plain version and
+timed in device ms a launch under torch.profiler:
 
 * gemm at the four GNN main-path shapes (3072x420 and 3072x128 by 128,
   512x128 by 64, 512x64 by 64), one line per (wide, narrow) tile pair,
   with the pass total (4, 1, 4, 1 calls) beside ``torch.matmul``'s;
 * flash_attention at llama3.2-3b's prefill (1 x 24 heads over 8 x 500 x
   128, causal, model layout), one line per (BQ, TR, SPLIT), beside
-  ``scaled_dot_product_attention`` on repeated KV heads.
+  ``scaled_dot_product_attention`` on repeated KV heads;
+* decode_attention at llama3.2-3b's decode step (batch 4, 516 positions,
+  24 heads over 8, D 128, 16-slot pages), cold (each launch on another
+  of 28 layers' pools) and warm, split and combine kernels apart, one
+  line per pages-a-split (the C entry's argument), beside the plain
+  version and the bound;
+* rmsnorm at the 500 x 3072 prefill rows and the 4 x 3072 decode rows,
+  fp32 and bf16, one line per threads-a-row (the C entry's argument),
+  beside ``F.rms_norm`` and the bound.
 
 A tuning aid for whoever changes the tiles: the port itself runs only the
 shapes its launch functions pick.
@@ -51,6 +62,10 @@ GEMM_TILES = {
     "16x64/8x4 + 16x32/4x4": ((16, 64, 8, 4, 16, 3), (16, 32, 4, 4, 16, 3)),
     "64x64/8x4 (96 blocks)": ((64, 64, 8, 4, 16, 3), (32, 32, 4, 4, 16, 4)),
 }
+DECODE_PAGES_PER_SPLIT = (1, 2, 4, 8)
+DECODE_LAYERS, DECODE_ROUNDS = 28, 3
+RMSNORM_THREADS = (96, 128, 192, 256, 384)  # 8, 6, 4, 3, 2 vectors
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 FLASH_TILES = {                             # BQ, TR, SPLIT at D = 128
     "32 rows, 4 a thread, 2 parts (the port's)": (32, 4, 2),
     "32 rows, 4 a thread, 1 part": (32, 4, 1),
@@ -99,6 +114,11 @@ def build() -> ctypes.CDLL:
 
 def device_ms(fn, reps: int = 30) -> float:
     """Mean device time of one call (torch.profiler), after a warm-up."""
+    return sum(device_ms_by_kernel(fn, reps).values())
+
+
+def device_ms_by_kernel(fn, reps: int = 30) -> dict[str, float]:
+    """Mean device time of one call by kernel name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -106,11 +126,105 @@ def device_ms(fn, reps: int = 30) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def main() -> int:
+def sweep_decode(card: str) -> None:
+    """decode_attention by pages a split (the C entry's argument), cold and
+    warm, at the decode step of llama3.2-3b."""
+    from repro_torch.kernels.decode_attention import pages_per_split
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, hq, hkv, d, ps, n = 4, 24, 8, 128, 16, 516
+    pp = -(-n // ps)
+    shape = (DECODE_LAYERS, b * pp + 2, ps, hkv, d)
+    kb = torch.randn(shape, device="cuda", generator=gen)
+    vb = torch.randn(shape, device="cuda", generator=gen)
+    perm = torch.randperm(b * pp + 2, device="cuda", generator=gen)
+    pt = perm[: b * pp].view(b, pp).to(torch.int32)
+    lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    q = torch.randn(b, hq, d, device="cuda", generator=gen)
+    out = torch.empty_like(q)
+    bound = (2 * b * n * hkv * d + 2 * q.numel() + pt.numel() + b) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+
+    def timed(fn):
+        """(cold ms, warm ms, {kernel: cold ms}) a launch."""
+        by = device_ms_by_kernel(
+            lambda: [fn(li) for li in range(DECODE_LAYERS)],
+            reps=DECODE_ROUNDS)
+        by = {("split" if "split" in k else "combine" if "combine" in k
+               else k): v / DECODE_LAYERS for k, v in by.items()}
+        return sum(by.values()), device_ms(lambda: fn(0)), by
+
+    want = ref.decode_attention_ref(q, kb[0], vb[0], pt, lengths)
+    for pps in DECODE_PAGES_PER_SPLIT:
+        ws = torch.empty(b * hq * -(-pp // pps) * (d + 2), device="cuda")
+
+        def kernel(li):
+            return lib.repro_decode_attention_f32(
+                q.data_ptr(), kb[li].data_ptr(), vb[li].data_ptr(),
+                pt.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), b, hkv, hq // hkv, d, b * pp + 2, ps, pp, pps,
+                d ** -0.5, stream)
+        assert kernel(0) == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
+        cold, warm, by = timed(kernel)
+        mark = " (the port's)" if pps == pages_per_split(ps, d) else ""
+        print(f"decode_attention {pps} pages a split{mark}: cold "
+              f"{cold:.5f} ms a launch (split {by.get('split', 0):.5f}, "
+              f"combine {by.get('combine', 0):.5f}), warm {warm:.5f}, bound "
+              f"{bound:.5f} ({100 * bound / cold:.1f} % cold)  [{card}]")
+    cold, warm, _ = timed(lambda li: ref.decode_attention_ref(
+        q, kb[li], vb[li], pt, lengths))
+    print(f"decode_attention plain: cold {cold:.5f} ms a launch, warm "
+          f"{warm:.5f}  [{card}]")
+
+
+def sweep_rmsnorm(card: str) -> None:
+    """rmsnorm by threads a row at the LM's prefill and decode rows."""
+    from repro_torch.kernels.rmsnorm import threads_per_row
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f = 3072
+    w = torch.randn(f, device="cuda", generator=gen)
+    for dtype, entry in ((torch.float32, lib.repro_rmsnorm_f32),
+                         (torch.bfloat16, lib.repro_rmsnorm_bf16)):
+        name = str(dtype).replace("torch.", "")
+        for rows in (500, 4):
+            x = torch.randn(rows, f, device="cuda", generator=gen).to(dtype)
+            out = torch.empty_like(x)
+            want = ref.rmsnorm_ref(x, w)
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            bound = (2 * x.numel() * x.element_size() + f * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            for tpr in RMSNORM_THREADS:
+                call = lambda: entry(  # noqa: E731
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, f,
+                    1e-6, tpr, stream)
+                assert call() == 0
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out.float(), want.float(),
+                                           rtol=tol, atol=tol)
+                ms = device_ms(call)
+                mark = (" (the port's)" if tpr == threads_per_row(f, rows)
+                        else "")
+                print(f"rmsnorm ({rows}x{f}) {name} {tpr} threads a row"
+                      f"{mark}: {ms:.5f} ms a launch, bound {bound:.5f} "
+                      f"({100 * bound / ms:.1f} %)  [{card}]")
+            wd = w.to(dtype)
+            ms = device_ms(lambda: torch.nn.functional.rms_norm(
+                x, (f,), wd, 1e-6))
+            print(f"rmsnorm ({rows}x{f}) {name} F.rms_norm: {ms:.5f} ms a "
+                  f"launch  [{card}]")
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_tiles: needs a CUDA device", file=sys.stderr)
         return 2
@@ -118,6 +232,18 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
+    which = set(argv) or {"gemm", "flash", "decode", "rmsnorm"}
+    if "decode" in which:
+        sweep_decode(card)
+    if "rmsnorm" in which:
+        sweep_rmsnorm(card)
+    if which & {"gemm", "flash"}:
+        sweep_gemm_flash(card, which)
+    return 0
+
+
+def sweep_gemm_flash(card: str, which: set) -> None:
+    """gemm and flash_attention by tile shape, from a scratch build."""
     lib = build()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stream = torch.cuda.current_stream().cuda_stream
@@ -126,7 +252,7 @@ def main() -> int:
             torch.randn(k, n, device="cuda", generator=gen) * 0.1)
            for m, k, n, _ in GEMM_SHAPES]
     rows = list(GEMM_TILES.items()) + [("torch.matmul", None)]
-    for i, (name, _) in enumerate(rows):
+    for i, (name, _) in enumerate(rows if "gemm" in which else []):
         fn = None if name == "torch.matmul" else getattr(lib, f"tile_gemm_{i}")
         if fn is not None:
             fn.argtypes, fn.restype = [P, P, P, I, I, I, P], I
@@ -156,7 +282,7 @@ def main() -> int:
     want = ref.attention_ref(q, k, v)
     kr, vr = k.repeat_interleave(3, 1), v.repeat_interleave(3, 1)
     rows = list(FLASH_TILES) + ["scaled_dot_product_attention"]
-    for i, name in enumerate(rows):
+    for i, name in enumerate(rows if "flash" in which else []):
         out = torch.empty_like(q)
         if name == "scaled_dot_product_attention":
             call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
@@ -174,8 +300,7 @@ def main() -> int:
             torch.cuda.synchronize()
             torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
         print(f"flash {name}: {device_ms(call):.5f} ms a launch  [{card}]")
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
