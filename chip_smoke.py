@@ -23,8 +23,10 @@ Phases, each uncaught, so any failure exits non-zero:
    path gave it (recorded in phase 3), with kernel, plain and library
    times on the card (device time under torch.profiler; the kernel's
    back-to-back call time too) and the least time the card could take
-   (``bound_ms``); then gemm by shape: kernel and ``torch.matmul`` ms a
-   launch and the share of the bound reached;
+   (``bound_ms``), sddmm held bit for bit; then gemm, agg_combine and
+   sddmm by shape: kernel ms a launch beside ``torch.matmul`` (gemm) or
+   the port's unfused spmm then gemm kernels (agg_combine), and the
+   share of the bound reached;
 5. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
    d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
    weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
@@ -158,11 +160,18 @@ def profiled(torch, fn, reps: int = 1):
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of one call of ``fn``: the summed time of every
     kernel and copy the card ran over ``reps`` calls (torch.profiler),
-    after one warm-up call.  Host overhead between launches is not in it."""
+    after one warm-up call.  Host overhead between launches is not in it.
+    The profiler now and then records no device time for a run; every
+    ``fn`` here launches work on the card, so such a run is taken again
+    (up to three times)."""
     fn()
     torch.cuda.synchronize()
-    events, _ = profiled(torch, fn, reps)
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    for _ in range(3):
+        events, _ = profiled(torch, fn, reps)
+        ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+        if ms > 0:
+            break
+    return ms
 
 
 def call_ms(torch, fn, reps: int = 20) -> float:
@@ -654,8 +663,17 @@ def main() -> int:
                 idx, h, per_sample_weights=per_slot, mode="sum")
         return None
 
+    def unfused(args, kwargs):
+        """The port's own spmm kernel then its gemm kernel on agg_combine's
+        arguments: the pair the fused kernel replaces."""
+        h, nbr, mask, w = args[:4]
+        return lambda: kernels.gemm(
+            kernels.spmm(h, nbr, mask, mode=kwargs.get("mode", "mean")), w)
+
     rows = []
-    gemm_shapes = {}       # (M,K,N) -> [calls, kernel ms, matmul ms, bound ms]
+    # by shape: gemm (M,K,N), agg_combine (N,F,D,K,O), sddmm (N,F,D,K) ->
+    # [calls, kernel ms, yardstick ms (torch.matmul; spmm + gemm), bound ms]
+    by_shape = {name: {} for name in ("gemm", "agg_combine", "sddmm")}
     for name in GNN_KERNELS:
         fn = originals[name]
         tol = TOL[name]
@@ -670,6 +688,8 @@ def main() -> int:
                 if got.numel() else 0.0
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (name, err)
+            if name == "sddmm":                     # bit for bit
+                assert torch.equal(got, want), (name, err)
             max_err = max(max_err, err)
             one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
             ms += one_ms
@@ -685,9 +705,15 @@ def main() -> int:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / FP32_FLOP_PER_S * 1e3
             bound_ms += max(t_bytes, t_ops)
-            if name == "gemm":
-                shape = (*args[0].shape, args[1].shape[1])
-                acc = gemm_shapes.setdefault(shape, [0, 0.0, 0.0, 0.0])
+            if name in by_shape:
+                if name == "gemm":
+                    shape = (*args[0].shape, args[1].shape[1])
+                else:
+                    shape = (*args[0].shape, *args[1].shape)
+                if name == "agg_combine":
+                    shape += (args[3].shape[1],)
+                    one_lib = device_ms(torch, unfused(args, kwargs))
+                acc = by_shape[name].setdefault(shape, [0, 0.0, 0.0, 0.0])
                 for i, x in enumerate((1, one_ms, one_lib,
                                        max(t_bytes, t_ops))):
                     acc[i] += x
@@ -708,13 +734,24 @@ def main() -> int:
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound_ms:.4f} ms  [{card}]")
 
-    # gemm by shape: where the pass's gemm time goes, against torch.matmul
-    for (m, k, n), (calls, k_ms, lib_ms, b_ms) in sorted(
-            gemm_shapes.items(), key=lambda kv: -kv[1][1]):
-        print(f"gemm ({m}x{k})@({k}x{n}): {calls} calls, kernel "
-              f"{k_ms / calls:.5f} ms a launch, torch.matmul "
-              f"{lib_ms / calls:.5f}, bound {b_ms / calls:.5f} "
-              f"({100 * b_ms / k_ms:.1f} % of bound reached)  [{card}]")
+    # by shape: where the pass's time goes, against torch.matmul (gemm) and
+    # the port's unfused spmm + gemm kernels (agg_combine)
+    for name, shapes in by_shape.items():
+        for shape, (calls, k_ms, lib_ms, b_ms) in sorted(
+                shapes.items(), key=lambda kv: -kv[1][1]):
+            yard = f"{lib_ms / calls:.5f}"
+            if name == "gemm":
+                m, k, n = shape
+                what = f"gemm ({m}x{k})@({k}x{n})"
+                yard = f", torch.matmul {yard}"
+            else:
+                dims = ", ".join(f"{a} {v}" for a, v in zip("NFDKO", shape))
+                what = f"{name} ({dims})"
+                yard = (f", unfused spmm + gemm {yard}"
+                        if name == "agg_combine" else "")
+            print(f"{what}: {calls} calls, kernel {k_ms / calls:.5f} ms a "
+                  f"launch{yard}, bound {b_ms / calls:.5f} "
+                  f"({100 * b_ms / k_ms:.1f} % of bound reached)  [{card}]")
 
     # agg_combine_partial and bf16 gemm on main-path arguments
     (h, nbr, mask, w, _b), kw = recorded["agg_combine"][0]

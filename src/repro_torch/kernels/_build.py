@@ -7,7 +7,9 @@ into ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed
 by a hash of the sources and flags: ``python3 chip_smoke.py`` alone
 builds them.  Each source compiles in its own ``nvcc`` process, all
 started together, then one link.  A failed ``nvcc`` raises with its
-stderr; nothing falls back.
+stderr; nothing falls back.  The headers of :func:`generated` (tables
+that the wrappers own, such as agg_combine's tiles) are written beside
+the objects and hashed with the sources.
 
 Each C entry takes device pointers, int sizes and the caller's stream and
 returns ``cudaGetLastError()``; :func:`raise_on` turns a non-zero code
@@ -39,9 +41,8 @@ SIGNATURES = {
     "repro_sddmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
     "repro_gemm_bf16": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_agg_combine_rows": [_I],
     "repro_agg_combine_f32": [_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -58,12 +59,31 @@ def sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
+def generated() -> dict[str, str]:
+    """Headers made from the wrappers' tables, by file name:
+    ``agg_tiles.inc`` holds one ``REPRO_AGG_TILE(index, BD, BN, TM, BK,
+    STAGES, PW)`` line for each of ``agg_combine.TILES``, which the C
+    entry's switch includes, so the wrapper's table is the one list."""
+    from .agg_combine import TILES
+    tiles = "".join(f"REPRO_AGG_TILE({i}, {', '.join(map(str, t))})\n"
+                    for i, t in enumerate(TILES))
+    return {"agg_tiles.inc": tiles}
+
+
+def write_generated(directory: Path) -> None:
+    for name, text in generated().items():
+        (Path(directory) / name).write_text(text)
+
+
 def build_dir() -> Path:
-    """Directory of the library for the current sources and flags."""
+    """Directory of the library for the current sources, generated
+    headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+    files = [(p.name, p.read_bytes()) for p in sources()]
+    files += [(k, v.encode()) for k, v in sorted(generated().items())]
+    for name, data in files:
+        h.update(name.encode())
+        h.update(data)
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -102,10 +122,12 @@ def build() -> Path:
     nvcc = _nvcc()
     tmp = Path(tempfile.mkdtemp(prefix=".tmp-", dir=BUILD_ROOT))
     try:
+        write_generated(tmp)
         units = [p for p in sources() if p.suffix == ".cu"]
         objs = [tmp / (p.stem + ".o") for p in units]
-        logs = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p),
-                          "-o", str(o)] for p, o in zip(units, objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-I", str(tmp),
+                          "-c", str(p), "-o", str(o)]
+                         for p, o in zip(units, objs)])
         logs += _run_all([[nvcc, "-shared", *map(str, objs),
                            "-o", str(tmp / LIB_NAME)]])
         out_dir.mkdir(parents=True, exist_ok=True)

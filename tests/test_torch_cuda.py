@@ -165,6 +165,117 @@ def test_kernels_rows_do_not_depend_on_batch(cuda):
     s_full = kernels.spmm(h, nbr, mask, mode="mean")
     assert torch.equal(s_full[5:6], kernels.spmm(h, nbr[5:6].contiguous(),
                                                  mask[5:6].contiguous()))
+    # agg_combine at the 512-row layer's widths (F 128, O 64), a slice
+    # from mid-block; sddmm, whose destination rows are a prefix of h, the
+    # first 70 rows alone against the full launch
+    h2 = h[:3072, :128].contiguous()
+    w2, b2 = w[:128, :64].contiguous(), b[:64].contiguous()
+    a_full = kernels.agg_combine(h2, nbr % 3072, mask, w2, b2)
+    assert torch.equal(a_full[6:23], kernels.agg_combine(
+        h2, (nbr[6:23] % 3072).contiguous(), mask[6:23].contiguous(), w2, b2))
+    d_full = kernels.sddmm(h, nbr, mask)
+    assert torch.equal(d_full[:70], kernels.sddmm(
+        h, nbr[:70].contiguous(), mask[:70].contiguous()))
+
+
+def _sampled(rng, n, d, k, device, *, empty=()):
+    """nbr and mask laid out as the sampler pads them: about a third of
+    the slots masked, a masked slot pointing at row 0, and the rows in
+    ``empty`` all masked (degree 0)."""
+    nbr = rng.integers(0, n, (d, k))
+    mask = (rng.random((d, k)) < 0.7).astype(np.float32)
+    mask[list(empty)] = 0.0
+    nbr[mask == 0] = 0
+    return (torch.tensor(nbr, dtype=torch.int32, device=device),
+            torch.tensor(mask, device=device))
+
+
+# (N, F, D, K, O): the two main-path layers, F not a multiple of 4, D not
+# a multiple of the block's rows, K = 1 and K = 40 (> 32 lanes), O = 1,
+# 65 and 200 (two column tiles, the second ragged), F = 3000 (one row a
+# block), F = 0 and K = 0 (a zero aggregate)
+AGG_SHAPES = [(16384, 420, 3072, 10, 128), (3072, 128, 512, 10, 64),
+              (200, 33, 70, 5, 16), (500, 421, 100, 10, 128),
+              (4000, 420, 1, 10, 128), (4000, 420, 17, 10, 128),
+              (4000, 420, 3073, 10, 128), (300, 128, 77, 1, 64),
+              (300, 420, 50, 40, 128), (300, 128, 60, 10, 1),
+              (300, 420, 60, 10, 65), (300, 420, 60, 10, 200),
+              (300, 3000, 33, 10, 128), (300, 0, 60, 10, 128),
+              (300, 0, 60, 10, 64), (300, 420, 60, 0, 128)]
+
+
+@pytest.mark.parametrize("n,f,d,k,o", AGG_SHAPES)
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+def test_agg_combine_kernel_edges(cuda, n, f, d, k, o, mode):
+    """Against the plain version at 2e-5, and bit for bit against the
+    port's unfused pair (the spmm kernel, then the gemm kernel): the fused
+    aggregate is spmm's bits and each output one in-order FMA chain over
+    F, as in gemm."""
+    rng = np.random.default_rng(21)
+    h = _r(rng, n, f, device=cuda)
+    nbr, mask = _sampled(rng, n, d, k, cuda, empty=range(0, d, 7))
+    w = _r(rng, f, o, device=cuda) * 0.1
+    b = _r(rng, o, device=cuda) * 0.1
+    before = kernels.launch_counts()["agg_combine"]
+    got = kernels.agg_combine(h, nbr, mask, w, b, mode=mode)
+    assert kernels.launch_counts()["agg_combine"] == before + 1
+    _close(got, ref.agg_combine_ref(h, nbr, mask, w, b, mode=mode), 2e-5)
+    part = kernels.agg_combine_partial(h, nbr, mask, w, mode=mode)
+    unfused = kernels.gemm(kernels.spmm(h, nbr, mask, mode=mode), w)
+    assert torch.equal(part, unfused)
+    assert torch.equal(got, torch.relu(unfused + b))
+    # all-masked rows: a zero aggregate (mean over degree 0), relu(b) out
+    assert torch.equal(got[::7], torch.relu(b).expand(len(got[::7]), o))
+
+
+@pytest.mark.parametrize("f", [420, 128])
+def test_agg_combine_copy_width_does_not_change_bits(cuda, f):
+    """h 4 bytes past a 16-byte boundary (a row slice) takes the gather's
+    single-float path; the output has the same bits as from an aligned
+    copy of the same rows."""
+    rng = np.random.default_rng(22)
+    buf = _r(rng, 3000 * f + 1, device=cuda)
+    h = buf[1:].view(3000, f)
+    assert h.data_ptr() % 16 == 4
+    nbr, mask = _sampled(rng, 3000, 300, 10, cuda)
+    w, b = _r(rng, f, 128, device=cuda) * 0.1, _r(rng, 128, device=cuda)
+    got = kernels.agg_combine(h, nbr, mask, w, b)
+    assert torch.equal(got, kernels.agg_combine(h.clone(), nbr, mask, w, b))
+    _close(got, ref.agg_combine_ref(h, nbr, mask, w, b), 2e-5)
+
+
+# (N, F, D, K): the two main-path layers, F not a multiple of 4, D = 1,
+# 17 and 3073, K = 1 and 40, F = 3000 (column passes of 128 vectors)
+SDDMM_SHAPES = [(16384, 420, 3072, 10), (3072, 128, 512, 10),
+                (200, 33, 70, 5), (500, 421, 100, 10), (4000, 420, 1, 10),
+                (4000, 420, 17, 10), (4000, 420, 3073, 10),
+                (300, 128, 77, 1), (300, 420, 50, 40), (300, 3000, 33, 10)]
+
+
+@pytest.mark.parametrize("n,f,d,k", SDDMM_SHAPES)
+def test_sddmm_kernel_edges(cuda, n, f, d, k):
+    """Bit for bit against the plain version, all-masked rows included."""
+    rng = np.random.default_rng(23)
+    h = _r(rng, n, f, device=cuda)
+    nbr, mask = _sampled(rng, n, d, k, cuda, empty=range(0, d, 7))
+    before = kernels.launch_counts()["sddmm"]
+    got = kernels.sddmm(h, nbr, mask)
+    assert kernels.launch_counts()["sddmm"] == before + 1
+    assert torch.equal(got, ref.sddmm_ref(h, nbr, mask))
+
+
+@pytest.mark.parametrize("f", [420, 128])
+def test_sddmm_copy_width_does_not_change_bits(cuda, f):
+    """h 4 bytes past a 16-byte boundary takes single-float loads and
+    stores; the output has the same bits as from an aligned copy."""
+    rng = np.random.default_rng(24)
+    buf = _r(rng, 3000 * f + 1, device=cuda)
+    h = buf[1:].view(3000, f)
+    assert h.data_ptr() % 16 == 4
+    nbr, mask = _sampled(rng, 3000, 500, 10, cuda)
+    got = kernels.sddmm(h, nbr, mask)
+    assert torch.equal(got, kernels.sddmm(h.clone(), nbr, mask))
+    assert torch.equal(got, ref.sddmm_ref(h, nbr, mask))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

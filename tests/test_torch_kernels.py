@@ -3,6 +3,9 @@ reference: ``repro.kernels.ref`` and the Pallas kernels in interpret
 mode, on the shapes and at the tolerances of ``tests/test_kernels.py``
 and ``tests/test_fastpath.py``.  Inputs come from numpy seeds and go to
 both packages."""
+import importlib
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +162,50 @@ def test_plain_path_on_cpu_launches_nothing():
         tk.spmm(h, nbr, mask, mode="max")
     with pytest.raises(ValueError):
         tk.sddmm(h[:3], nbr, mask)                 # D > N
+
+
+@pytest.mark.parametrize("f", [1, 33, 128, 420, 3000, 8192])
+@pytest.mark.parametrize("o", [1, 64, 65, 128, 200])
+def test_agg_combine_tile_fits_shared_memory(f, o):
+    """agg_combine's tile comes from (F, O) alone (never D, so a row's
+    bits do not move with the batch), is whole warps, and its aggregate
+    and stages of w fit the 227 KB an H100 block may use, at every F up
+    to 8192."""
+    from repro_torch.kernels.agg_combine import (MAX_SMEM, TILES, agg_tile,
+                                                 smem_bytes, threads)
+    assert list(inspect.signature(agg_tile).parameters) == ["f", "o"]
+    shape = TILES[agg_tile(f, o)]
+    rows, cols, tm, bk, stages, warps = shape
+    assert smem_bytes(shape, f) <= MAX_SMEM
+    assert threads(shape) % 32 == 0 and threads(shape) <= 1024
+    assert rows % tm == 0 and 128 % bk == 0 and stages >= 2 and warps >= 1
+
+
+@pytest.mark.parametrize("f,o,d,blocks,warps", [(420, 128, 3072, 128, 20),
+                                                (128, 64, 512, 64, 12)])
+def test_agg_combine_tile_fills_the_card_at_the_service_layers(f, o, d,
+                                                               blocks, warps):
+    """At the GNN main path's two layers the tile gives the blocks and
+    warps its docstring claims: 128 blocks of 20 warps at the 3,072-row
+    layer (one block an SM, 128 of the H100's 132), 64 of 12 at the
+    512-row layer."""
+    from repro_torch.kernels.agg_combine import TILES, agg_tile, threads
+    shape = TILES[agg_tile(f, o)]
+    assert -(-d // shape[0]) == blocks and threads(shape) == 32 * warps
+
+
+def test_agg_combine_tiles_are_generated_into_the_build(monkeypatch):
+    """The C entry's switch is generated from the wrapper's TILES, one
+    line an index, and the build is keyed by it: another table builds
+    another library."""
+    from repro_torch.kernels import _build
+    agg_combine = importlib.import_module("repro_torch.kernels.agg_combine")
+    lines = _build.generated()["agg_tiles.inc"].splitlines()
+    assert lines == [f"REPRO_AGG_TILE({i}, {', '.join(map(str, t))})"
+                     for i, t in enumerate(agg_combine.TILES)]
+    before = _build.build_dir()
+    monkeypatch.setattr(agg_combine, "TILES", agg_combine.TILES[:2])
+    assert _build.build_dir() != before
 
 
 def test_plain_versions_are_row_invariant():

@@ -5,15 +5,17 @@ path's shapes, beside the library call.
 Run from the repository root on a machine with an H100:
 
     PYTHONPATH=src python tools/torch_kernel_tiles.py [gemm] [flash] \
-        [decode] [rmsnorm]
+        [decode] [rmsnorm] [agg] [sddmm]
 
-(all four when none is named).  For gemm and flash it compiles
-``src/repro_torch/kernels/csrc/{gemm,flash_attention}.cu`` once more into
-a scratch library under ``build/kernel_tiles/``, with one extra C entry
-per tile shape (the kernels' own ``launch_tile`` templates, nothing else
+(all six when none is named).  For gemm, flash, agg and sddmm it
+compiles ``src/repro_torch/kernels/csrc/{gemm,flash_attention,
+agg_combine,sddmm}.cu`` once more into a scratch library under
+``build/kernel_tiles/``, with one extra C entry per tile shape (the
+kernels' own ``launch_tile`` and ``launch`` templates, nothing else
 changed); decode and rmsnorm call the port's library with other values
-of a launch argument.  Each is checked against the plain version and
-timed in device ms a launch under torch.profiler:
+of a launch argument.  Each
+is checked against the plain version and timed in device ms a launch
+under torch.profiler:
 
 * gemm at the four GNN main-path shapes (3072x420 and 3072x128 by 128,
   512x128 by 64, 512x64 by 64), one line per (wide, narrow) tile pair,
@@ -28,7 +30,14 @@ timed in device ms a launch under torch.profiler:
   version and the bound;
 * rmsnorm at the 500 x 3072 prefill rows and the 4 x 3072 decode rows,
   fp32 and bf16, one line per threads-a-row (the C entry's argument),
-  beside ``F.rms_norm`` and the bound.
+  beside ``F.rms_norm`` and the bound;
+* agg_combine at the GNN main path's two layers (N 16384, F 420, D 3072,
+  K 10, O 128 and N 3072, F 128, D 512, K 10, O 64), one line per tile
+  shape (rows, columns, rows a consumer thread, k a stage, stages,
+  producer warps), beside the port's unfused spmm then gemm kernels and
+  the bound;
+* sddmm at the same two layers, one line per warps (destination rows) a
+  block, beside the bound.
 
 A tuning aid for whoever changes the tiles: the port itself runs only the
 shapes its launch functions pick.
@@ -45,6 +54,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "kernel_tiles")
@@ -66,6 +76,18 @@ DECODE_PAGES_PER_SPLIT = (1, 2, 4, 8)
 DECODE_LAYERS, DECODE_ROUNDS = 28, 3
 RMSNORM_THREADS = (96, 128, 192, 256, 384)  # 8, 6, 4, 3, 2 vectors
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
+# GNN main-path layers: (N, F, D, K, O)
+GNN_LAYERS = [(16384, 420, 3072, 10, 128), (3072, 128, 512, 10, 64)]
+# agg_combine tile shapes by O > 64: the port's first, then 8 producer
+# warps, 32 and 16 rows (96 and 192 blocks), 12 rows
+AGG_CANDIDATES = {
+    True: [(24, 128, 3, 16, 3, 12), (24, 128, 3, 16, 3, 8),
+           (32, 128, 4, 16, 3, 12), (16, 128, 2, 16, 3, 12),
+           (12, 128, 3, 16, 3, 8)],
+    False: [(8, 64, 1, 32, 3, 8), (4, 64, 1, 32, 3, 4),
+            (16, 64, 2, 32, 3, 8), (2, 64, 1, 32, 3, 4)]}
+SDDMM_WARPS = (4, 8, 16)                   # the port's first
+FP32_FLOP_PER_S = 67e12                    # H100 SXM data sheet
 FLASH_TILES = {                             # BQ, TR, SPLIT at D = 128
     "32 rows, 4 a thread, 2 parts (the port's)": (32, 4, 2),
     "32 rows, 4 a thread, 1 part": (32, 4, 1),
@@ -74,8 +96,24 @@ FLASH_TILES = {                             # BQ, TR, SPLIT at D = 128
 }
 
 
-def build() -> ctypes.CDLL:
+def build(which: set) -> ctypes.CDLL:
     csrc = str(_build.CSRC)
+    agg = [f'#include "{csrc}/agg_combine.cu"']
+    for i, shape in enumerate(c for cs in AGG_CANDIDATES.values()
+                              for c in cs):
+        agg.append(
+            f'extern "C" int tile_agg_{i}(const void* h, const void* nbr, '
+            f'const void* mask, const void* w, const void* b, void* out, '
+            f'int n, int f, int d, int k, int o, void* st) {{ return '
+            f'launch<{",".join(map(str, shape))}>(h, nbr, mask, w, b, out, n, '
+            f'f, d, k, o, 1, 1, static_cast<cudaStream_t>(st)); }}')
+    sddmm = [f'#include "{csrc}/sddmm.cu"']
+    for warps in SDDMM_WARPS:
+        sddmm.append(
+            f'extern "C" int tile_sddmm_{warps}(const void* h, const void* '
+            f'nbr, const void* mask, void* out, int n, int f, int d, int k, '
+            f'void* st) {{ return launch<{warps}>(h, nbr, mask, out, n, f, d, '
+            f'k, static_cast<cudaStream_t>(st)); }}')
     lines = [f'#include "{csrc}/gemm.cu"']
     for i, (wide, narrow) in enumerate(GEMM_TILES.values()):
         w, n = ",".join(map(str, wide)), ",".join(map(str, narrow))
@@ -97,15 +135,18 @@ def build() -> ctypes.CDLL:
             f'hkv, t, s, causal, scale, a, b_, c, d, '
             f'static_cast<cudaStream_t>(stream)); }}')
     os.makedirs(OUT, exist_ok=True)
+    _build.write_generated(OUT)            # agg_combine.cu's tile table
     nvcc = _build._nvcc()
     cmds, objs = [], []
-    for name, text in (("tiles_gemm", lines), ("tiles_flash", flash)):
+    units = (("gemm", lines), ("flash", flash), ("agg", agg),
+             ("sddmm", sddmm))
+    for name, text in ((f"tiles_{u}", t) for u, t in units if u in which):
         src = os.path.join(OUT, name + ".cu")
         with open(src, "w") as f:
             f.write("\n".join(text) + "\n")
         objs.append(os.path.join(OUT, name + ".o"))
-        cmds.append([nvcc, *_build.NVCC_FLAGS, "-I", csrc, "-c", src, "-o",
-                     objs[-1]])
+        cmds.append([nvcc, *_build.NVCC_FLAGS, "-I", csrc, "-I", OUT, "-c",
+                     src, "-o", objs[-1]])
     _build._run_all(cmds)
     lib = os.path.join(OUT, "libtiles.so")
     _build._run_all([[nvcc, "-shared", *objs, "-o", lib]])
@@ -224,6 +265,100 @@ def sweep_rmsnorm(card: str) -> None:
                   f"launch  [{card}]")
 
 
+def gnn_inputs(gen, n, f, d, k):
+    """h, and nbr and mask laid out as the sampler pads them: about a
+    third of the slots masked, a masked slot pointing at row 0."""
+    h = torch.randn(n, f, device="cuda", generator=gen)
+    nbr = torch.randint(0, n, (d, k), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    mask = (torch.rand(d, k, device="cuda", generator=gen) < 0.7).float()
+    return h, torch.where(mask > 0, nbr, 0), mask
+
+
+def gnn_bytes(h, nbr, mask, prefix: int = 0) -> int:
+    """Bytes of the distinct h rows the unmasked slots (and a destination
+    prefix) need, plus nbr and mask: each read once."""
+    rows = nbr[mask != 0].long()
+    if prefix:
+        rows = torch.cat([rows, torch.arange(prefix, device="cuda")])
+    return (int(torch.unique(rows).numel()) * h.shape[1] + 2 * nbr.numel()) \
+        * 4
+
+
+def sweep_agg(card: str, lib: ctypes.CDLL) -> None:
+    """agg_combine by tile shape at the main path's layers, from the
+    scratch build."""
+    from repro_torch.kernels.agg_combine import (TILES, agg_tile, smem_bytes,
+                                                 threads)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entry = 0
+    for n, f, d, k, o in GNN_LAYERS:
+        h, nbr, mask = gnn_inputs(gen, n, f, d, k)
+        w = torch.randn(f, o, device="cuda", generator=gen) * 0.1
+        b = torch.randn(o, device="cuda", generator=gen) * 0.1
+        out = torch.empty(d, o, device="cuda")
+        want = ref.agg_combine_ref(h, nbr, mask, w, b)
+        t_bytes = (gnn_bytes(h, nbr, mask) + (f * o + o + d * o) * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * (int((mask != 0).sum()) * f + d * f * o) \
+            / FP32_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        shape = f"N {n}, F {f}, D {d}, K {k}, O {o}"
+        for tile in AGG_CANDIDATES[o > 64]:
+            fn = getattr(lib, f"tile_agg_{entry}")
+            entry += 1
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+                [ctypes.c_void_p]
+            call = lambda: fn(  # noqa: E731
+                h.data_ptr(), nbr.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                b.data_ptr(), out.data_ptr(), n, f, d, k, o, stream)
+            assert call() == 0
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+            ms = device_ms(call)
+            rows, cols, tm, bk, stages, warps = tile
+            mark = " (the port's)" if tile == TILES[agg_tile(f, o)] else ""
+            print(f"agg_combine ({shape}) {rows}x{cols} tile, {tm}x4 a "
+                  f"thread, {stages} stages of {bk}, {warps} producer warps, "
+                  f"{threads(tile)} threads, {-(-d // rows)} blocks, "
+                  f"{smem_bytes(tile, f)} B shared{mark}: {ms:.5f} "
+                  f"ms a launch, bound {bound:.5f} ({100 * bound / ms:.1f} "
+                  f"%)  [{card}]")
+        ms = device_ms(lambda: kernels.gemm(kernels.spmm(h, nbr, mask), w))
+        print(f"agg_combine ({shape}) unfused spmm + gemm: {ms:.5f} ms  "
+              f"[{card}]")
+
+
+def sweep_sddmm(card: str, lib: ctypes.CDLL) -> None:
+    """sddmm by warps (destination rows) a block at the main path's
+    layers, from the scratch build."""
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, f, d, k, _ in GNN_LAYERS:
+        h, nbr, mask = gnn_inputs(gen, n, f, d, k)
+        out = torch.empty(d, k, f, device="cuda")
+        want = ref.sddmm_ref(h, nbr, mask)
+        bound = (gnn_bytes(h, nbr, mask, prefix=d) + out.numel() * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        shape = f"N {n}, F {f}, D {d}, K {k}"
+        for warps in SDDMM_WARPS:
+            fn = getattr(lib, f"tile_sddmm_{warps}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+                [ctypes.c_void_p]
+            call = lambda: fn(  # noqa: E731
+                h.data_ptr(), nbr.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                n, f, d, k, stream)
+            assert call() == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+            ms = device_ms(call)
+            mark = " (the port's)" if warps == SDDMM_WARPS[0] else ""
+            print(f"sddmm ({shape}) {warps} warps a block, a warp a row"
+                  f"{mark}: {ms:.5f} ms a launch, bound {bound:.5f} "
+                  f"({100 * bound / ms:.1f} %)  [{card}]")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_tiles: needs a CUDA device", file=sys.stderr)
@@ -232,19 +367,25 @@ def main(argv: list[str]) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
-    which = set(argv) or {"gemm", "flash", "decode", "rmsnorm"}
+    which = set(argv) or {"gemm", "flash", "decode", "rmsnorm", "agg",
+                          "sddmm"}
     if "decode" in which:
         sweep_decode(card)
     if "rmsnorm" in which:
         sweep_rmsnorm(card)
-    if which & {"gemm", "flash"}:
-        sweep_gemm_flash(card, which)
+    if which & {"gemm", "flash", "agg", "sddmm"}:
+        lib = build(which)
+        if "sddmm" in which:
+            sweep_sddmm(card, lib)
+        if "agg" in which:
+            sweep_agg(card, lib)
+        if which & {"gemm", "flash"}:
+            sweep_gemm_flash(card, which, lib)
     return 0
 
 
-def sweep_gemm_flash(card: str, which: set) -> None:
-    """gemm and flash_attention by tile shape, from a scratch build."""
-    lib = build()
+def sweep_gemm_flash(card: str, which: set, lib: ctypes.CDLL) -> None:
+    """gemm and flash_attention by tile shape, from the scratch build."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
