@@ -23,10 +23,12 @@ Phases, each uncaught, so any failure exits non-zero:
    path gave it (recorded in phase 3), with kernel, plain and library
    times on the card (device time under torch.profiler; the kernel's
    back-to-back call time too) and the least time the card could take
-   (``bound_ms``), sddmm held bit for bit; then gemm, agg_combine and
-   sddmm by shape: kernel ms a launch beside ``torch.matmul`` (gemm) or
-   the port's unfused spmm then gemm kernels (agg_combine), and the
-   share of the bound reached;
+   (``bound_ms``), spmm and sddmm held bit for bit; then gemm, spmm,
+   agg_combine and sddmm by shape: kernel ms a launch beside
+   ``torch.matmul`` (gemm), ``embedding_bag`` (spmm) or the port's
+   unfused spmm then gemm kernels (agg_combine), and the share of the
+   bound reached; spmm also cold (each launch on another copy of h, past
+   the L2) beside its warm figure;
 5. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
    d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
    weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
@@ -82,6 +84,7 @@ LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
                      "decode_attention": ("decode_split_kernel",
                                           "decode_combine_kernel")}
 DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
+L2_BYTES = 50 * 2**20                 # the H100's L2
 LM_LOGITS_TOL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM and fp32 FMA
@@ -663,6 +666,18 @@ def main() -> int:
                 idx, h, per_sample_weights=per_slot, mode="sum")
         return None
 
+    def spmm_cold_ms(args, kwargs) -> float:
+        """Device ms a launch with every launch on another copy of h: as
+        many copies as pass twice the L2 together, so each launch finds
+        the rows it gathers in HBM (nbr and mask, 0.1 MB, stay warm)."""
+        h, nbr, mask = args
+        n_copies = max(2, -(-2 * L2_BYTES // (h.numel() * h.element_size())))
+        copies = [h.clone() for _ in range(n_copies)]
+        fn = originals["spmm"]
+        calls = [lambda c=c: fn(c, nbr, mask, **kwargs) for c in copies]
+        ms = device_ms(torch, lambda: [c() for c in calls], reps=3)
+        return ms / n_copies
+
     def unfused(args, kwargs):
         """The port's own spmm kernel then its gemm kernel on agg_combine's
         arguments: the pair the fused kernel replaces."""
@@ -671,9 +686,11 @@ def main() -> int:
             kernels.spmm(h, nbr, mask, mode=kwargs.get("mode", "mean")), w)
 
     rows = []
-    # by shape: gemm (M,K,N), agg_combine (N,F,D,K,O), sddmm (N,F,D,K) ->
-    # [calls, kernel ms, yardstick ms (torch.matmul; spmm + gemm), bound ms]
-    by_shape = {name: {} for name in ("gemm", "agg_combine", "sddmm")}
+    # by shape: gemm (M,K,N), spmm and sddmm (N,F,D,K), agg_combine
+    # (N,F,D,K,O) -> [calls, kernel ms, yardstick ms (torch.matmul;
+    # embedding_bag; spmm + gemm), bound ms, cold kernel ms (spmm)]
+    by_shape = {name: {} for name in ("gemm", "spmm", "agg_combine",
+                                      "sddmm")}
     for name in GNN_KERNELS:
         fn = originals[name]
         tol = TOL[name]
@@ -688,7 +705,7 @@ def main() -> int:
                 if got.numel() else 0.0
             assert torch.allclose(got.float(), want.float(), rtol=tol,
                                   atol=tol), (name, err)
-            if name == "sddmm":                     # bit for bit
+            if name in ("spmm", "sddmm"):           # bit for bit
                 assert torch.equal(got, want), (name, err)
             max_err = max(max_err, err)
             one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
@@ -713,9 +730,10 @@ def main() -> int:
                 if name == "agg_combine":
                     shape += (args[3].shape[1],)
                     one_lib = device_ms(torch, unfused(args, kwargs))
-                acc = by_shape[name].setdefault(shape, [0, 0.0, 0.0, 0.0])
+                cold = spmm_cold_ms(args, kwargs) if name == "spmm" else 0.0
+                acc = by_shape[name].setdefault(shape, [0, 0.0, 0.0, 0.0, 0.0])
                 for i, x in enumerate((1, one_ms, one_lib,
-                                       max(t_bytes, t_ops))):
+                                       max(t_bytes, t_ops), cold)):
                     acc[i] += x
             if t_bytes >= t_ops:
                 by_bytes += t_bytes
@@ -734,12 +752,14 @@ def main() -> int:
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {bound_ms:.4f} ms  [{card}]")
 
-    # by shape: where the pass's time goes, against torch.matmul (gemm) and
-    # the port's unfused spmm + gemm kernels (agg_combine)
+    # by shape: where the pass's time goes, against torch.matmul (gemm),
+    # embedding_bag (spmm) and the port's unfused spmm + gemm kernels
+    # (agg_combine)
     for name, shapes in by_shape.items():
-        for shape, (calls, k_ms, lib_ms, b_ms) in sorted(
+        for shape, (calls, k_ms, lib_ms, b_ms, c_ms) in sorted(
                 shapes.items(), key=lambda kv: -kv[1][1]):
             yard = f"{lib_ms / calls:.5f}"
+            share = f"{100 * b_ms / k_ms:.1f} % of bound reached"
             if name == "gemm":
                 m, k, n = shape
                 what = f"gemm ({m}x{k})@({k}x{n})"
@@ -749,9 +769,13 @@ def main() -> int:
                 what = f"{name} ({dims})"
                 yard = (f", unfused spmm + gemm {yard}"
                         if name == "agg_combine" else "")
+            if name == "spmm":
+                yard = (f" warm, {c_ms / calls:.5f} cold (h past the L2), "
+                        f"embedding_bag {lib_ms / calls:.5f} warm")
+                share = (f"{share} warm, {100 * b_ms / c_ms:.1f} % cold")
             print(f"{what}: {calls} calls, kernel {k_ms / calls:.5f} ms a "
-                  f"launch{yard}, bound {b_ms / calls:.5f} "
-                  f"({100 * b_ms / k_ms:.1f} % of bound reached)  [{card}]")
+                  f"launch{yard}, bound {b_ms / calls:.5f} ({share})  "
+                  f"[{card}]")
 
     # agg_combine_partial and bf16 gemm on main-path arguments
     (h, nbr, mask, w, _b), kw = recorded["agg_combine"][0]

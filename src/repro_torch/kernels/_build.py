@@ -37,7 +37,7 @@ INT_MAX = 2**31 - 1
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
-    "repro_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sddmm_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_gemm_f32": [_P, _P, _P, _I, _I, _I, _P],
     "repro_gemm_bf16": [_P, _P, _P, _I, _I, _I, _P],

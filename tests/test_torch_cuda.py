@@ -10,6 +10,8 @@ Every test skips on a host without CUDA.  Shapes are those of
 full-width llama3.2-3b shapes of the LM path, tolerances the reference's
 own (1e-5 fp32, 2e-2 bf16, 2e-5 agg_combine, 3e-5 attention).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -105,16 +107,107 @@ def test_gemm_copy_width_does_not_change_bits(cuda):
     assert torch.equal(kernels.gemm(a16, b16), kernels.gemm(a16.clone(), b16))
 
 
-@pytest.mark.parametrize("n,f,d,kk", [(50, 32, 10, 4), (300, 96, 64, 7),
-                                      (128, 256, 128, 16), (65536, 420, 6144, 10)])
+# (N, F, D, K): the reference's shapes; the two main-path layers; F = 3
+# and 421 (a float a thread), F = 6 and 130 (two floats); D = 1, 17 and
+# 3073; K = 0, 1, 13 (two rounds of the five gathers a thread holds, then
+# a partial one) and 40 (eight rounds, more slots than a warp has lanes)
+SPMM_SHAPES = [(50, 32, 10, 4), (300, 96, 64, 7), (128, 256, 128, 16),
+               (65536, 420, 6144, 10), (16384, 420, 3072, 10),
+               (3072, 128, 512, 10), (200, 3, 70, 5), (500, 421, 100, 10),
+               (300, 6, 50, 10), (300, 130, 60, 10), (4000, 420, 1, 10),
+               (4000, 420, 17, 10), (4000, 128, 3073, 10),
+               (300, 420, 60, 0), (300, 128, 77, 1), (300, 420, 50, 13),
+               (300, 420, 50, 40)]
+
+
+@pytest.mark.parametrize("n,f,d,kk", SPMM_SHAPES)
 @pytest.mark.parametrize("mode", ["mean", "sum"])
 def test_spmm_kernel_matches_plain_bitwise(cuda, n, f, d, kk, mode):
+    """Bit for bit against the plain version (same rounding order, no
+    fused multiply-add), with random slots and with slots laid out as the
+    sampler pads them (all-masked rows included); one launch a call."""
     rng = np.random.default_rng(1)
     h = _r(rng, n, f, device=cuda)
-    nbr, mask = _ell(rng, n, d, kk, cuda)
-    got = kernels.spmm(h, nbr, mask, mode=mode)
-    # same rounding order as the plain version, no fused multiply-add
-    assert torch.equal(got, ref.spmm_ref(h, nbr, mask, mode=mode))
+    for nbr, mask in (_ell(rng, n, d, kk, cuda),
+                      _sampled(rng, n, d, kk, cuda, empty=range(0, d, 7))):
+        before = kernels.launch_counts()["spmm"]
+        got = kernels.spmm(h, nbr, mask, mode=mode)
+        assert kernels.launch_counts()["spmm"] == before + 1
+        assert torch.equal(got, ref.spmm_ref(h, nbr, mask, mode=mode))
+
+
+@pytest.mark.parametrize("n,f,d,kk", [(16384, 420, 3072, 10),
+                                      (3072, 128, 512, 10), (300, 130, 60, 13)])
+def test_spmm_every_width_gives_the_same_bits(cuda, monkeypatch, n, f, d,
+                                              kk):
+    """Whatever width spmm_width picks (4, 2 or 1 floats a thread), the
+    output is spmm_ref's bits: each is forced in turn at the main path's
+    layers and at an F that takes two floats a thread."""
+    spmm_mod = importlib.import_module("repro_torch.kernels.spmm")
+    rng = np.random.default_rng(6)
+    h = _r(rng, n, f, device=cuda)
+    nbr, mask = _sampled(rng, n, d, kk, cuda, empty=range(0, d, 7))
+    want = {m: ref.spmm_ref(h, nbr, mask, mode=m) for m in ("mean", "sum")}
+    for width in (4, 2, 1):
+        if f % width:
+            continue
+        monkeypatch.setattr(spmm_mod, "spmm_width", lambda f, d: width)
+        for m in ("mean", "sum"):
+            assert torch.equal(kernels.spmm(h, nbr, mask, mode=m),
+                               want[m]), (width, m)
+
+
+@pytest.mark.parametrize("f", [420, 128])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_spmm_copy_width_does_not_change_bits(cuda, f, offset):
+    """h 4 or 8 bytes past a 16-byte boundary (a row view of a wider
+    buffer) takes one- or two-float gathers; the output has the plain
+    version's bits, as from an aligned copy of the same rows."""
+    rng = np.random.default_rng(7)
+    buf = _r(rng, 3000 * f + offset, device=cuda)
+    h = buf[offset:].view(3000, f)
+    assert h.data_ptr() % 16 == 4 * offset
+    nbr, mask = _sampled(rng, 3000, 300, 10, cuda)
+    for mode in ("mean", "sum"):
+        got = kernels.spmm(h, nbr, mask, mode=mode)
+        assert torch.equal(got, kernels.spmm(h.clone(), nbr, mask, mode=mode))
+        assert torch.equal(got, ref.spmm_ref(h, nbr, mask, mode=mode))
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+def test_spmm_index_outside_h_reads_a_zero_row(cuda, mode):
+    """Negative indices and indices at or past N read as a zero row: the
+    plain version on h with a zero row appended, those slots pointed at
+    it, gives the same bits."""
+    rng = np.random.default_rng(8)
+    n, f, d, k = 500, 420, 90, 10
+    h = _r(rng, n, f, device=cuda)
+    nbr, mask = _sampled(rng, n, d, k, cuda)
+    bad = torch.tensor(rng.random((d, k)) < 0.2, device=cuda)
+    wild = torch.tensor(rng.choice([-1, -7, n, n + 3, 2**31 - 1], (d, k)),
+                        dtype=torch.int32, device=cuda)
+    nbr = torch.where(bad, wild, nbr)
+    padded = torch.cat([h, torch.zeros(1, f, device=cuda)])
+    inside = torch.where(bad, torch.full_like(nbr, n), nbr)
+    assert torch.equal(kernels.spmm(h, nbr, mask, mode=mode),
+                       ref.spmm_ref(padded, inside, mask, mode=mode))
+
+
+@pytest.mark.parametrize("f", [420, 421])
+def test_spmm_masked_slot_on_a_nan_row_gives_nan(cuda, f):
+    """Masked slots are multiplied by their mask, never skipped: a masked
+    slot pointing at a row that holds NaN gives NaN, as in the plain
+    version, and the other rows keep their bits."""
+    rng = np.random.default_rng(9)
+    h = _r(rng, 300, f, device=cuda)
+    h[0, 5] = float("nan")
+    nbr, mask = _sampled(rng, 300, 40, 10, cuda)     # masked slots -> row 0
+    for mode in ("mean", "sum"):
+        got = kernels.spmm(h, nbr, mask, mode=mode)
+        want = ref.spmm_ref(h, nbr, mask, mode=mode)
+        assert got[:, 5].isnan().any()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
 @pytest.mark.parametrize("n,f,d,kk", [(60, 32, 20, 3), (130, 64, 40, 8),
@@ -165,6 +258,13 @@ def test_kernels_rows_do_not_depend_on_batch(cuda):
     s_full = kernels.spmm(h, nbr, mask, mode="mean")
     assert torch.equal(s_full[5:6], kernels.spmm(h, nbr[5:6].contiguous(),
                                                  mask[5:6].contiguous()))
+    # spmm at both layers' widths, a mid-slice of rows against the launch
+    for hs in (h, h[:3072, :128].contiguous()):
+        nb = (nbr % hs.shape[0]).contiguous()
+        s_full = kernels.spmm(hs, nb, mask, mode="sum")
+        assert torch.equal(s_full[100:117], kernels.spmm(
+            hs, nb[100:117].contiguous(), mask[100:117].contiguous(),
+            mode="sum"))
     # agg_combine at the 512-row layer's widths (F 128, O 64), a slice
     # from mid-block; sddmm, whose destination rows are a prefix of h, the
     # first 70 rows alone against the full launch

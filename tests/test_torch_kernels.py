@@ -194,6 +194,21 @@ def test_agg_combine_tile_fills_the_card_at_the_service_layers(f, o, d,
     assert -(-d // shape[0]) == blocks and threads(shape) == 32 * warps
 
 
+@pytest.mark.parametrize("f,d", [(0, 10), (3, 7), (421, 100), (130, 5),
+                                 (420, 1), (1, 1), (8192, 3),
+                                 (420, 3072), (128, 512)])
+def test_spmm_width_is_a_valid_mapping(f, d):
+    """spmm's mapping comes from (F, D) alone (never N) and is one the C
+    entry takes: a vector of 4, 2 or 1 floats that divides F; float4s at
+    the 3,072-row layer, two floats at the 512-row layer (16,384 float4s
+    would leave the card mostly idle)."""
+    from repro_torch.kernels.spmm import spmm_width
+    assert list(inspect.signature(spmm_width).parameters) == ["f", "d"]
+    width = spmm_width(f, d)
+    assert width in (4, 2, 1) and f % width == 0
+    assert width == {(420, 3072): 4, (128, 512): 2}.get((f, d), width)
+
+
 def test_agg_combine_tiles_are_generated_into_the_build(monkeypatch):
     """The C entry's switch is generated from the wrapper's TILES, one
     line an index, and the build is keyed by it: another table builds

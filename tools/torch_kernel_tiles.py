@@ -5,11 +5,11 @@ path's shapes, beside the library call.
 Run from the repository root on a machine with an H100:
 
     PYTHONPATH=src python tools/torch_kernel_tiles.py [gemm] [flash] \
-        [decode] [rmsnorm] [agg] [sddmm]
+        [decode] [rmsnorm] [agg] [sddmm] [spmm]
 
-(all six when none is named).  For gemm, flash, agg and sddmm it
-compiles ``src/repro_torch/kernels/csrc/{gemm,flash_attention,
-agg_combine,sddmm}.cu`` once more into a scratch library under
+(all seven when none is named).  For gemm, flash, agg, sddmm and spmm
+it compiles ``src/repro_torch/kernels/csrc/{gemm,flash_attention,
+agg_combine,sddmm,spmm}.cu`` once more into a scratch library under
 ``build/kernel_tiles/``, with one extra C entry per tile shape (the
 kernels' own ``launch_tile`` and ``launch`` templates, nothing else
 changed); decode and rmsnorm call the port's library with other values
@@ -37,7 +37,13 @@ under torch.profiler:
   producer warps), beside the port's unfused spmm then gemm kernels and
   the bound;
 * sddmm at the same two layers, one line per warps (destination rows) a
-  block, beside the bound.
+  block, beside the bound;
+* spmm at the same two layers, warm and cold (each launch on another
+  copy of h, past the L2), held bit for bit: the register path by floats
+  a thread, gathers in flight a thread (SLOTS) and threads a block, and
+  a bulk-copy path (``SPMM_BULK`` below: TMA copies of whole rows into
+  shared memory on mbarriers) by warps (rows in flight) a block, beside
+  ``embedding_bag`` and the bound.
 
 A tuning aid for whoever changes the tiles: the port itself runs only the
 shapes its launch functions pick.
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -87,6 +94,115 @@ AGG_CANDIDATES = {
     False: [(8, 64, 1, 32, 3, 8), (4, 64, 1, 32, 3, 4),
             (16, 64, 2, 32, 3, 8), (2, 64, 1, 32, 3, 4)]}
 SDDMM_WARPS = (4, 8, 16)                   # the port's first
+# spmm's register path: (floats a thread, SLOTS, threads a block), the
+# port's SLOTS and threads (csrc/spmm.cu's kSlots, kThreads) first; the
+# bulk-copy path: warps a block
+SPMM_PORT = (5, 128)
+SPMM_CANDIDATES = [(4, 5, 128), (2, 5, 128), (1, 5, 128), (4, 5, 256),
+                   (4, 5, 64), (4, 10, 256), (4, 10, 128), (4, 10, 64),
+                   (4, 8, 128), (4, 6, 128), (4, 4, 128), (4, 3, 128),
+                   (4, 2, 128), (2, 10, 128), (1, 10, 128)]
+SPMM_BULK_WARPS = (1, 2, 4)
+L2_BYTES = 50 * 2**20                      # the H100's L2
+# spmm by TMA bulk copies, a sweep variant beside spmm.cu's register path.
+# A warp owns a destination row at a time (rows strided over the grid),
+# with two stages of K x F floats in shared memory: lane j starts the copy
+# of slot j's row (F * 4 bytes) on the stage's mbarrier, and the warp
+# sums the stage in slot order, lanes over float4 columns, while the next
+# row's copies land in the other stage.  Same arithmetic as the
+# register path (products and sums rounded on their own, in slot order).
+# Takes F % 4 == 0, h 16-byte aligned and K <= 32 only.
+SPMM_BULK = r'''
+namespace bulk {
+using namespace repro_torch;
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+spmm_bulk_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
+                 const float* __restrict__ mask, float* __restrict__ out,
+                 int n, int f, int d, int k, int mean) {
+  extern __shared__ __align__(128) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int stage = k * f;
+  float* buf = smem + static_cast<size_t>(warp) * 2 * stage;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem + static_cast<size_t>(WARPS) * 2 * stage) + 2 * warp;
+  if (lane == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int stride = gridDim.x * WARPS, first = blockIdx.x * WARPS + warp;
+  auto issue = [&](int row, int s) {          // the whole warp
+    const int64_t src = lane < k ? gather_row(
+        nbr[static_cast<int64_t>(row) * k + lane], n) : -1;
+    const unsigned live = __ballot_sync(~0u, src >= 0);
+    if (lane == 0) mbar_expect_tx(bar + s, __popc(live) * f * 4);
+    if (src >= 0)
+      bulk_copy(buf + s * stage + lane * f, h + src * f, f * 4, bar + s);
+  };
+  if (first < d) issue(first, 0);
+  if (first + stride < d) issue(first + stride, 1);
+  int i = 0;
+  for (int row = first; row < d; row += stride, ++i) {
+    const int s = i & 1;
+    const int64_t base = static_cast<int64_t>(row) * k;
+    const int idx = lane < k ? nbr[base + lane] : 0;
+    const float m = lane < k ? mask[base + lane] : 0.f;
+    float deg = 0.f;
+    for (int j = 0; j < k; ++j) deg = __fadd_rn(deg, __shfl_sync(~0u, m, j));
+    const float div = fmaxf(deg, 1.f);
+    mbar_wait(bar + s, (i >> 1) & 1);
+    const float* st = buf + s * stage;
+    for (int c0 = 0; c0 < f; c0 += 128) {
+      const int c = c0 + lane * 4;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int j = 0; j < k; ++j) {
+        const bool ok = gather_row(__shfl_sync(~0u, idx, j), n) >= 0;
+        const float mj = __shfl_sync(~0u, m, j);
+        const float4 v = ok && c < f ? load4(st + j * f + c)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        a[0] = __fadd_rn(a[0], __fmul_rn(v.x, mj));
+        a[1] = __fadd_rn(a[1], __fmul_rn(v.y, mj));
+        a[2] = __fadd_rn(a[2], __fmul_rn(v.z, mj));
+        a[3] = __fadd_rn(a[3], __fmul_rn(v.w, mj));
+      }
+      if (mean)
+        for (int e = 0; e < 4; ++e) a[e] = __fdiv_rn(a[e], div);
+      if (c < f)
+        store4(out + static_cast<int64_t>(row) * f + c,
+               make_float4(a[0], a[1], a[2], a[3]));
+    }
+    __syncwarp();
+    if (row + 2 * stride < d) issue(row + 2 * stride, s);
+  }
+}
+
+template <int WARPS>
+int launch_bulk(const void* h, const void* nbr, const void* mask, void* out,
+                int n, int f, int d, int k, int mean, cudaStream_t st) {
+  if (f % 4 != 0 || k > 32 || reinterpret_cast<uintptr_t>(h) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = spmm_bulk_kernel<WARPS>;
+  const size_t smem = sizeof(float) * WARPS * 2 * static_cast<size_t>(k) * f
+                      + 16 * WARPS;
+  int rc = allow_shared(kernel, smem);
+  if (rc != 0) return rc;
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32,
+                                                smem);
+  const int want = (d + WARPS - 1) / WARPS;
+  const int blocks = want < per_sm * sms ? want : per_sm * sms;
+  kernel<<<blocks, WARPS * 32, smem, st>>>(
+      static_cast<const float*>(h), static_cast<const int*>(nbr),
+      static_cast<const float*>(mask), static_cast<float*>(out), n, f, d, k,
+      mean);
+  return launch_status();
+}
+}  // namespace bulk
+'''
 FP32_FLOP_PER_S = 67e12                    # H100 SXM data sheet
 FLASH_TILES = {                             # BQ, TR, SPLIT at D = 128
     "32 rows, 4 a thread, 2 parts (the port's)": (32, 4, 2),
@@ -114,6 +230,21 @@ def build(which: set) -> ctypes.CDLL:
             f'nbr, const void* mask, void* out, int n, int f, int d, int k, '
             f'void* st) {{ return launch<{warps}>(h, nbr, mask, out, n, f, d, '
             f'k, static_cast<cudaStream_t>(st)); }}')
+    spmm = [f'#include "{csrc}/spmm.cu"', SPMM_BULK]
+    for width, slots, threads in SPMM_CANDIDATES:
+        spmm.append(
+            f'extern "C" int tile_spmm_{width}_{slots}_{threads}(const void* '
+            f'h, const void* nbr, const void* mask, void* out, int n, int f, '
+            f'int d, int k, int mean, void* st) {{ return launch<{width},'
+            f'{slots},{threads}>(h, nbr, mask, out, n, f, d, k, mean, '
+            f'static_cast<cudaStream_t>(st)); }}')
+    for warps in SPMM_BULK_WARPS:
+        spmm.append(
+            f'extern "C" int tile_spmm_bulk_{warps}(const void* h, '
+            f'const void* nbr, const void* mask, void* out, int n, int f, '
+            f'int d, int k, int mean, void* st) {{ return '
+            f'bulk::launch_bulk<{warps}>(h, nbr, mask, out, n, f, d, k, '
+            f'mean, static_cast<cudaStream_t>(st)); }}')
     lines = [f'#include "{csrc}/gemm.cu"']
     for i, (wide, narrow) in enumerate(GEMM_TILES.values()):
         w, n = ",".join(map(str, wide)), ",".join(map(str, narrow))
@@ -139,7 +270,7 @@ def build(which: set) -> ctypes.CDLL:
     nvcc = _build._nvcc()
     cmds, objs = [], []
     units = (("gemm", lines), ("flash", flash), ("agg", agg),
-             ("sddmm", sddmm))
+             ("sddmm", sddmm), ("spmm", spmm))
     for name, text in ((f"tiles_{u}", t) for u, t in units if u in which):
         src = os.path.join(OUT, name + ".cu")
         with open(src, "w") as f:
@@ -147,7 +278,9 @@ def build(which: set) -> ctypes.CDLL:
         objs.append(os.path.join(OUT, name + ".o"))
         cmds.append([nvcc, *_build.NVCC_FLAGS, "-I", csrc, "-I", OUT, "-c",
                      src, "-o", objs[-1]])
-    _build._run_all(cmds)
+    logs = _build._run_all(cmds)
+    with open(os.path.join(OUT, "build.log"), "w") as f:
+        f.write("\n".join(logs))
     lib = os.path.join(OUT, "libtiles.so")
     _build._run_all([[nvcc, "-shared", *objs, "-o", lib]])
     return ctypes.CDLL(lib)
@@ -159,17 +292,24 @@ def device_ms(fn, reps: int = 30) -> float:
 
 
 def device_ms_by_kernel(fn, reps: int = 30) -> dict[str, float]:
-    """Mean device time of one call by kernel name (torch.profiler)."""
+    """Mean device time of one call by kernel name (torch.profiler).  The
+    profiler now and then records no device time for a run; every ``fn``
+    here launches work on the card, so such a run is taken again (up to
+    three times)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key: e.self_device_time_total / 1e3 / reps
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+        if sum(by.values()) > 0:
+            break
+    return by
 
 
 def sweep_decode(card: str) -> None:
@@ -359,6 +499,66 @@ def sweep_sddmm(card: str, lib: ctypes.CDLL) -> None:
                   f"({100 * bound / ms:.1f} %)  [{card}]")
 
 
+def sweep_spmm(card: str, lib: ctypes.CDLL) -> None:
+    """spmm's register path by (floats a thread, SLOTS, threads a block)
+    and its bulk-copy path by warps a block, at the main path's layers,
+    from the scratch build: mean mode warm, and cold with each launch on
+    another copy of h; every variant held bit for bit in both modes."""
+    from repro_torch.kernels.spmm import spmm_width
+    with open(os.path.join(OUT, "build.log")) as log:
+        entry = ""
+        for line in log:
+            if "Compiling entry function" in line:
+                m = re.search(r"\d+(spmm[a-z_]*_kernel)I(.*?)EEv", line)
+                args = m and re.sub(r"Li(\d+)E", r"\1,", m[2]).strip(",")
+                entry = m and f"{m[1]}<{args}>"
+            elif entry and ("registers" in line or "spill" in line):
+                print(f"  {entry}: {line.strip()}")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    variants = [(f"tile_spmm_{w}_{s}_{t}", (w, s, t),
+                 f"{w} floats a thread, {s} slots in flight, {t} threads a "
+                 "block") for w, s, t in SPMM_CANDIDATES]
+    variants += [(f"tile_spmm_bulk_{w}", None, f"bulk copies, {w} warps (rows"
+                  " in flight x 2) a block") for w in SPMM_BULK_WARPS]
+    for n, f, d, k, _ in GNN_LAYERS:
+        h, nbr, mask = gnn_inputs(gen, n, f, d, k)
+        copies = [h.clone() for _ in range(
+            max(2, -(-2 * L2_BYTES // (h.numel() * 4))))]
+        out = torch.empty(d, f, device="cuda")
+        want = {m: ref.spmm_ref(h, nbr, mask, mode="mean" if m else "sum")
+                for m in (0, 1)}
+        bound = (gnn_bytes(h, nbr, mask) + out.numel() * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        shape = f"N {n}, F {f}, D {d}, K {k}"
+        port = (spmm_width(f, d), *SPMM_PORT)
+        for name, tile, what in variants:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+                [ctypes.c_void_p]
+            call = lambda x, m=1: fn(  # noqa: E731
+                x.data_ptr(), nbr.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                n, f, d, k, m, stream)
+            for m in (0, 1):
+                assert call(h, m) == 0
+                torch.cuda.synchronize()
+                assert torch.equal(out, want[m]), (name, m)
+            warm = device_ms(lambda: call(h))
+            cold = device_ms(lambda: [call(c) for c in copies],
+                             reps=3) / len(copies)
+            mark = " (the port's)" if tile == port else ""
+            print(f"spmm ({shape}) {what}{mark}: warm {warm:.5f} ms a "
+                  f"launch, cold {cold:.5f}, bound {bound:.5f} "
+                  f"({100 * bound / warm:.1f} % warm, {100 * bound / cold:.1f}"
+                  f" % cold)  [{card}]")
+        per_slot = mask / torch.clamp(mask.sum(1), min=1.0)[:, None]
+        idx = nbr.long()
+        ms = device_ms(lambda: torch.nn.functional.embedding_bag(
+            idx, h, per_sample_weights=per_slot, mode="sum"))
+        print(f"spmm ({shape}) embedding_bag (mean): {ms:.5f} ms a launch "
+              f"warm  [{card}]")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_tiles: needs a CUDA device", file=sys.stderr)
@@ -368,13 +568,15 @@ def main(argv: list[str]) -> int:
                           text=True).stdout.strip()
     print(card)
     which = set(argv) or {"gemm", "flash", "decode", "rmsnorm", "agg",
-                          "sddmm"}
+                          "sddmm", "spmm"}
     if "decode" in which:
         sweep_decode(card)
     if "rmsnorm" in which:
         sweep_rmsnorm(card)
-    if which & {"gemm", "flash", "agg", "sddmm"}:
+    if which & {"gemm", "flash", "agg", "sddmm", "spmm"}:
         lib = build(which)
+        if "spmm" in which:
+            sweep_spmm(card, lib)
         if "sddmm" in which:
             sweep_sddmm(card, lib)
         if "agg" in which:
