@@ -29,7 +29,25 @@ Phases, each uncaught, so any failure exits non-zero:
    unfused spmm then gemm kernels (agg_combine), and the share of the
    bound reached; spmm also cold (each launch on another copy of h, past
    the L2) beside its warm figure;
-5. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
+5. the same group through the CSSD array and its serving runtime
+   (``examples/serve_gnn.py --chaos``): a 4-shard, 2-way replicated
+   array (``cache_pages=4096``) loaded by a chunked ``update_graph``
+   through a runtime client, each model deployed with ``put_weights``;
+   each model's group run directly on the array (bit for bit with phase
+   3, its launches and its time); then every model's 32 requests by
+   ``weights_ref`` from 8 client threads into the threaded
+   ``ServingRuntime`` (groups of at most 16), launch counts zeroed just
+   before and read just after and equal to the direct run's a group;
+   every reply must be a result equal to phase 3's bit for bit.  Then
+   chaos: a ``ShardSupervisor`` watches the array while one shard's
+   device is killed with requests in flight (every reply still bit for
+   bit); it must drain and rebuild the shard (the drain's delay after
+   the kill, ``detect_s`` and ``restore_s`` printed), and a round at
+   full redundancy follows; the ``stats`` RPC
+   must carry the shards, failed shards, flow, QoS and engine blocks.
+   Last, the same groups over remote shards behind RoP links
+   (``make_rop_endpoints``), bit for bit;
+6. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
    d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
    weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
    of 500-token prompts and 32 new tokens, 4 at a time, with the launch
@@ -43,7 +61,7 @@ Phases, each uncaught, so any failure exits non-zero:
    engine with the three wrappers swapped for their plain versions:
    last-position logits of one prefill and one decode step within 1e-3,
    and the share of generated tokens that agree;
-6. a ``kernels`` JSON line for all seven kernels, then ``{"ok": true,
+7. a ``kernels`` JSON line for all seven kernels, then ``{"ok": true,
    "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
@@ -56,6 +74,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -72,6 +91,8 @@ MODELS = ("gcn", "gin", "ngcf")
 GROUP_REPEATS = 5
 DEVICE = "cuda"
 GNN_KERNELS = ("agg_combine", "spmm", "gemm", "sddmm")
+# the CSSD array behind the serving runtime (examples/serve_gnn.py --chaos)
+ARRAY_SHARDS, ARRAY_REPLICATION, ARRAY_CLIENTS = 4, 2, 8
 
 # the LM path: repro/launch/serve.py's engine at llama3.2-3b's full width
 LM_ARCH = "llama3.2-3b"
@@ -248,6 +269,221 @@ def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
     n = int(lengths.clamp(min=0, max=cap).sum())       # positions read
     return ((2 * n * hkv * d + 2 * q.numel()) * 4
             + (pt.numel() + lengths.numel()) * 4, 4.0 * n * q.shape[1] * d)
+
+
+def serve_round(rt, setups, reqs, fused, during=None) -> float:
+    """Every model's requests of phase 3, submitted by weights_ref from
+    ``ARRAY_CLIENTS`` client threads (each submits its share, then waits
+    on it); every reply must be a result equal to phase 3's fused one bit
+    for bit.  ``during`` runs on this thread once every request is
+    submitted and the first has come back, while the rest are in flight.
+    Raises the first failure a client met; returns the round's seconds."""
+    jobs = [(m, i) for i in range(len(reqs)) for m in MODELS]
+    errors, submitted, first = [], threading.Barrier(ARRAY_CLIENTS + 1), \
+        threading.Event()
+
+    def client(k):
+        try:
+            cl = rt.client()
+            ids = [(m, i, cl.submit("run", dfg=setups[m][0],
+                                    batch=reqs[i]["targets"],
+                                    seed=reqs[i]["seed"], weights_ref=m))
+                   for m, i in jobs[k::ARRAY_CLIENTS]]
+        except BaseException as e:  # noqa: BLE001 — raised on the main thread
+            errors.append(e)
+            ids = []
+        submitted.wait()
+        for m, i, cid in ids:
+            try:
+                got = cl.result(cid, timeout=600)["Result"]
+                np.testing.assert_array_equal(
+                    got, fused[m][i]["Result"],
+                    err_msg=f"{m} request {i} through the runtime")
+            except BaseException as e:  # noqa: BLE001 — raised on the main thread
+                errors.append(e)
+                return
+            finally:
+                first.set()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ARRAY_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        submitted.wait()
+        if during is not None:
+            first.wait(timeout=600)
+            during()
+    finally:
+        for th in threads:
+            th.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
+
+
+def wait_healthy(sup, store, deadline_s: float) -> dict:
+    """The supervisor's snapshot once it has handled an incident and every
+    shard is live and healthy again; raises past the deadline."""
+    t_end = time.monotonic() + deadline_s
+    while time.monotonic() < t_end:
+        snap = sup.snapshot()
+        if (snap["incidents"] and not any(store.failed_shards)
+                and all(st == "healthy" for st in snap["states"])):
+            return snap
+        time.sleep(0.01)
+    raise AssertionError(f"the array did not heal: {sup.snapshot()}")
+
+
+def array_phase(torch, card, edges, emb, setups, reqs, fused) -> None:
+    """Phase 5: phase 3's group served through the CSSD array and its
+    runtime (see the module docstring)."""
+    from repro_torch import kernels
+    from repro_torch.core.service import HolisticGNNService
+    from repro_torch.kernels.ops import program_config
+    from repro_torch.serve import HealthPolicy, ServingRuntime, ShardSupervisor
+    from repro_torch.store import make_rop_endpoints
+
+    n_req = len(MODELS) * len(reqs)
+    deployed = {m: {k: v.cpu().numpy() for k, v in setups[m][1].items()}
+                for m in MODELS}
+    svc = HolisticGNNService(h_threshold=64, pad_to=64, cache_pages=4096,
+                             n_shards=ARRAY_SHARDS,
+                             replication=ARRAY_REPLICATION, device=DEVICE)
+    rt = ServingRuntime(svc, n_queues=ARRAY_CLIENTS, max_group=16,
+                        max_pending=512)
+    sup = None
+    try:
+        rt.start()
+        boot = rt.client()
+        t0 = time.perf_counter()
+        boot.call("update_graph", edge_array=edges, embeddings=emb,
+                  chunked=True, timeout=600)
+        print(f"array: {ARRAY_SHARDS} shards x {ARRAY_REPLICATION} replicas, "
+              f"chunked update_graph through the runtime "
+              f"{time.perf_counter() - t0:.3f} s")
+        program_config(svc.xbuilder, "hetero")
+        for m in MODELS:
+            boot.call("put_weights", name=m, weights=deployed[m], timeout=600)
+        serve_round(rt, setups, reqs, fused)           # warm: plans, cache
+        # each model's group of 32 run directly on the array: its launches
+        # (the per-group yardstick for the runtime's) and its time
+        per_group, direct = {}, []
+        for m in MODELS:
+            kernels.reset_launch_counts()
+            for got, want in zip(svc.run_batch(setups[m][0], reqs,
+                                               weights_ref=m), fused[m]):
+                np.testing.assert_array_equal(got["Result"], want["Result"])
+            per_group[m] = kernels.launch_counts()
+            times, engine = [], []
+            for _ in range(GROUP_REPEATS):
+                t0 = time.perf_counter()
+                svc.run_batch(setups[m][0], reqs, weights_ref=m)
+                times.append(time.perf_counter() - t0)
+                engine.append(sum(t for op, _, t in svc.engine.timings
+                                  if op == "__dfg_jit__"))
+            direct.append(f"{m} {min(times) * 1e3:.3f} / "
+                          f"{np.median(times) * 1e3:.3f} (engine "
+                          f"{np.median(engine) * 1e3:.3f})")
+        print(f"array direct run_batch of {len(reqs)} requests, ms best / "
+              f"median of {GROUP_REPEATS} (engine median): "
+              f"{', '.join(direct)}  [{card}]")
+        # groups the scheduler forms, by model
+        groups = dict.fromkeys(MODELS, 0)
+        model_of = {setups[m][0]: m for m in MODELS}
+        run_batch = svc.run_batch
+
+        def counted(dfg, requests, **kwargs):
+            groups[model_of[dfg]] += 1
+            return run_batch(dfg, requests, **kwargs)
+
+        svc.run_batch = counted
+        try:
+            kernels.reset_launch_counts()
+            secs = serve_round(rt, setups, reqs, fused)
+            launches = kernels.launch_counts()
+        finally:
+            del svc.run_batch
+        print(f"array main path launches: {launches}; groups {groups}")
+        assert all(launches[k] > 0 for k in GNN_KERNELS), launches
+        want = {k: sum(groups[m] * per_group[m][k] for m in MODELS)
+                for k in GNN_KERNELS}
+        assert {k: launches[k] for k in GNN_KERNELS} == want, (launches, want)
+        print("array: launches a group through the runtime equal a direct "
+              f"run_batch's: {per_group}")
+        qos = rt.scheduler.qos.snapshot()
+        print(f"array: {n_req} requests ({len(MODELS)} models x {len(reqs)}) "
+              f"from {ARRAY_CLIENTS} clients through the runtime in "
+              f"{secs * 1e3:.3f} ms, {n_req / secs:.1f} requests/s, "
+              f"{sum(groups.values())} groups (max 16); latency over "
+              f"the last {qos['window_n']} requests p50 "
+              f"{qos['p50_latency_s'] * 1e3:.3f} ms, p99 "
+              f"{qos['p99_latency_s'] * 1e3:.3f} ms; every result equals "
+              f"phase 3's bit for bit  [{card}]")
+
+        sup = ShardSupervisor(svc.store, HealthPolicy(
+            probe_interval_s=0.01, rebuild_retry_s=0.1)).start()
+        victim = ARRAY_SHARDS - 1
+
+        killed_at = []
+
+        def kill():
+            ep = svc.store.endpoints[victim]
+            ep.local_store.dev.fail()
+            killed_at.append(time.monotonic())
+            print(f"array chaos: shard {victim}'s device killed with "
+                  f"requests in flight")
+
+        secs = serve_round(rt, setups, reqs, fused, during=kill)
+        print(f"array chaos: {n_req} requests in {secs * 1e3:.3f} ms, "
+              f"{n_req / secs:.1f} requests/s, every result bit for bit  "
+              f"[{card}]")
+        snap = wait_healthy(sup, svc.store, deadline_s=120.0)
+        inc = snap["last_incident"]
+        assert inc["shard"] == victim and inc["drained"], inc
+        print(f"array chaos: incident {inc['cause']} on shard "
+              f"{inc['shard']}: drained {inc['t_drained'] - killed_at[0]:.6f}"
+              f" s after the kill; detect_s {inc['detect_s']:.6f} (first "
+              f"error to drain), restore_s {inc['restore_s']:.6f} (drain to "
+              f"healthy)  [{card}]")
+        secs = serve_round(rt, setups, reqs, fused)
+        print(f"array healed: {n_req} requests in {secs * 1e3:.3f} ms, "
+              f"{n_req / secs:.1f} requests/s at full redundancy, every "
+              f"result bit for bit  [{card}]")
+        st = boot.call("stats", timeout=600)
+        assert len(st["shards"]) == ARRAY_SHARDS, st["shards"]
+        assert st["replication"] == {"r": ARRAY_REPLICATION,
+                                     "failed_shards": []}, st["replication"]
+        assert {"flow", "qos", "engine", "health"} <= set(st), sorted(st)
+        print(f"array stats: qos groups {st['qos']['groups']}, average "
+              f"group {st['qos']['avg_group_size']:.2f}, errors "
+              f"{st['qos']['errors']}; flow {st['flow']}; engine plan cache "
+              f"{st['engine']['jit_cache']}")
+        assert st["qos"]["errors"] == 0, st["qos"]
+    finally:
+        if sup is not None:
+            sup.stop()
+        rt.stop()
+        svc.close()
+
+    rop = HolisticGNNService(
+        h_threshold=64, pad_to=64, cache_pages=4096,
+        endpoints=make_rop_endpoints(ARRAY_SHARDS, h_threshold=64),
+        replication=ARRAY_REPLICATION, device=DEVICE)
+    try:
+        rop.update_graph(edges, emb, chunked=True)
+        program_config(rop.xbuilder, "hetero")
+        for m in MODELS:
+            for got, want in zip(rop.run_batch(setups[m][0], reqs,
+                                               weights=setups[m][1]),
+                                 fused[m]):
+                np.testing.assert_array_equal(got["Result"],
+                                              want["Result"])
+        print(f"array over RoP shard endpoints: {len(MODELS)} groups of "
+              f"{len(reqs)}, every result bit for bit")
+    finally:
+        rop.close()
 
 
 def lm_phase(torch, card: str) -> list[dict]:
@@ -795,10 +1031,13 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
-    # ------------------------------------------------ 5. LM path, full width
+    # ------------------------------------------------ 5. array + runtime
+    array_phase(torch, card, edges, emb, setups, reqs, fused)
+
+    # ------------------------------------------------ 6. LM path, full width
     rows += lm_phase(torch, card)
 
-    # ------------------------------------------------ 6. result lines
+    # ------------------------------------------------ 7. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

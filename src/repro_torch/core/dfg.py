@@ -15,6 +15,7 @@ package loads in the other.  The engine runs eagerly on torch tensors.
 from __future__ import annotations
 
 import json
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -200,6 +201,9 @@ class Engine:
                              f"{jit_cache_size}")
         self._jit_cache: OrderedDict = OrderedDict()
         self._jit_cache_size = jit_cache_size
+        # the serving runtime's scheduler and immediate-pool threads may
+        # run the engine at once: lookup, insert and eviction hold a lock
+        self._cache_lock = threading.Lock()
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_evictions = 0
@@ -270,19 +274,20 @@ class Engine:
                 sig.append((r, "static", repr(v)))
         key = (dfg.save(), self.registry.version, fuse, tuple(sig),
                tuple(suffix_outs), None)
-        hit = self._jit_cache.get(key)
-        if hit is not None:
-            self._jit_cache.move_to_end(key)
-            self._cache_hits += 1
-        else:
-            self._cache_misses += 1
-            resolved = [self.registry.resolve(n.op) for n in suffix]
-            hit = ([(n, fn) for n, (_, fn) in zip(suffix, resolved)],
-                   [(n.op, d) for n, (d, _) in zip(suffix, resolved)])
-            self._jit_cache[key] = hit
-            while len(self._jit_cache) > self._jit_cache_size:
-                self._jit_cache.popitem(last=False)
-                self._cache_evictions += 1
+        with self._cache_lock:
+            hit = self._jit_cache.get(key)
+            if hit is not None:
+                self._jit_cache.move_to_end(key)
+                self._cache_hits += 1
+            else:
+                self._cache_misses += 1
+                resolved = [self.registry.resolve(n.op) for n in suffix]
+                hit = ([(n, fn) for n, (_, fn) in zip(suffix, resolved)],
+                       [(n.op, d) for n, (d, _) in zip(suffix, resolved)])
+                self._jit_cache[key] = hit
+                while len(self._jit_cache) > self._jit_cache_size:
+                    self._jit_cache.popitem(last=False)
+                    self._cache_evictions += 1
         plan, trace = hit
         self.trace.extend(trace)
         t0 = time.perf_counter()

@@ -30,9 +30,8 @@ the number of rows (``kernels/ref.py``, ``kernels/csrc``), and masked
 padding slots contribute exact zeros.  ``tests/test_torch_service.py``
 asserts bit-equality.
 
-Counterpart of ``repro/serve/batcher.py`` (its composition layer only: the
-scheduler, runtime and supervisor are later work).  The sampling code is
-the reference's, verbatim; ``fingerprint_weights`` also hashes tensors.
+Counterpart of ``repro/serve/batcher.py``.  The sampling code is the
+reference's, verbatim; ``fingerprint_weights`` also hashes tensors.
 """
 from __future__ import annotations
 

@@ -671,3 +671,41 @@ def test_paged_lm_on_the_card_matches_the_cpu(cuda):
     assert runs["cuda"][0] == runs["cpu"][0]
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         _close(a, b, 1e-4)
+
+
+def test_replicated_array_service_on_the_card_matches_the_cpu(cuda):
+    """A 2-shard, 2-way replicated array service on the card, under
+    Hetero, against the CPU single-device service on the same graph and
+    weights: every model within 2e-5, served by the GNN kernels."""
+    from repro_torch.core import gnn
+    from repro_torch.core.service import HolisticGNNService, make_service_dfg
+    from repro_torch.kernels.ops import program_config
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, 400, 3000), rng.zipf(1.4, 3000) % 400],
+                     axis=1).astype(np.int64)
+    emb = rng.standard_normal((400, 24)).astype(np.float32)
+    reqs = [{"targets": rng.integers(0, 400, 6).tolist(), "seed": i}
+            for i in range(5)]
+    cpu = HolisticGNNService(h_threshold=16, pad_to=32, device="cpu")
+    card = HolisticGNNService(h_threshold=16, pad_to=32, n_shards=2,
+                              replication=2, device=cuda)
+    try:
+        for svc in (cpu, card):
+            svc.update_graph(edges, emb)
+            program_config(svc.xbuilder, "hetero")
+        kernels.reset_launch_counts()
+        for model in ("gcn", "gin", "ngcf"):
+            params = gnn.init_params(model, [24, 16, 8], seed=1, device="cpu")
+            weights = {k: v.numpy() for k, v in
+                       gnn.dfg_feeds(model, params, None, []).items()
+                       if k != "H"}
+            dfg = make_service_dfg(model, 2, [5, 5]).save()
+            for a, b in zip(card.run_batch(dfg, reqs, weights=weights),
+                            cpu.run_batch(dfg, reqs, weights=weights)):
+                np.testing.assert_allclose(a["Result"], b["Result"],
+                                           rtol=2e-5, atol=2e-5)
+        counts = kernels.launch_counts()
+        assert all(counts[k] > 0 for k in ("agg_combine", "spmm", "gemm",
+                                           "sddmm")), counts
+    finally:
+        card.close()

@@ -16,7 +16,10 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 COPIES = ["concurrency.py", "store/blockdev.py", "store/sampler.py",
-          "store/embcache.py", "store/graphstore.py", "rpc/transport.py",
+          "store/embcache.py", "store/graphstore.py", "store/placement.py",
+          "store/endpoint.py", "store/sharded.py", "store/ingest.py",
+          "serve/scheduler.py", "serve/runtime.py", "serve/supervisor.py",
+          "rpc/transport.py",
           "rpc/server.py", "rpc/client.py", "rpc/queues.py", "core/registry.py",
           *sorted(f"configs/{p.name}" for p in
                   (REPO / "src" / "repro" / "configs").glob("*.py"))]

@@ -222,16 +222,19 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_features_raise_naming_the_roadmap():
-    for kw in ({"n_shards": 2}, {"replication": 2}, {"devs": [None]},
-               {"endpoints": []}, {"mesh": object()}, {"model_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The SPMD engine is the one service feature still unported (the
+    array, firehose and shard admin RPCs: ``tests/test_torch_array.py``);
+    ``dev=`` with an array raises the reference's ``ValueError``."""
+    for kw in ({"mesh": object()}, {"model_parallel": 2},
+               {"mesh": object(), "n_shards": 2}):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, 'SPMD engine'"):
             HolisticGNNService(device="cpu", **kw)
-    svc = HolisticGNNService(device="cpu")
-    for call in (svc.open_firehose, svc.flush_firehose, svc.close_firehose,
-                 lambda: svc.fail_shard(0), lambda: svc.rebuild_shard(0),
-                 svc.probe_shards, lambda: svc.reshard(add=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    from repro_torch.store import BlockDevice
+    with pytest.raises(ValueError, match="dev= is single-device only"):
+        HolisticGNNService(device="cpu", dev=BlockDevice(), n_shards=2)
+    with pytest.raises(ValueError, match="dev= is single-device only"):
+        JService(dev=BlockDevice(), n_shards=2)
 
 
 def test_put_weights_and_model_only_dfg():
