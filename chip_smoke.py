@@ -29,7 +29,19 @@ Phases, each uncaught, so any failure exits non-zero:
    unfused spmm then gemm kernels (agg_combine), and the share of the
    bound reached; spmm also cold (each launch on another copy of h, past
    the L2) beside its warm figure;
-5. the same group through the CSSD array and its serving runtime
+5. the SPMD engine: phase 3's group under Hetero on a service built with
+   ``mesh=make_host_mesh(shape=(d, m), devices=["cuda:0"] * (d * m))``
+   for each (d, m) of MESH_SHAPES, every slot on the one card.  Per mesh
+   and model: ``run_batch`` against phase 3's within 2e-5, bit for bit at
+   (1, 1); at SERIAL_MESH, against the meshed serial ``run`` of each
+   request bit for bit; launch counts (zeroed just before, read just
+   after) equal to phase 3's times d*m (sddmm 0 where d > 1: the data-
+   striped SDDMM is the reference's plain step); the engine's mesh in
+   ``stats``; group ms best and median of 5, engine ms and the card's
+   busy share.  Then every slot's kernel call replayed against its plain
+   version (spmm and sddmm bit for bit), with device ms by slice shape
+   against the bound;
+6. the same group through the CSSD array and its serving runtime
    (``examples/serve_gnn.py --chaos``): a 4-shard, 2-way replicated
    array (``cache_pages=4096``) loaded by a chunked ``update_graph``
    through a runtime client, each model deployed with ``put_weights``;
@@ -47,7 +59,7 @@ Phases, each uncaught, so any failure exits non-zero:
    must carry the shards, failed shards, flow, QoS and engine blocks.
    Last, the same groups over remote shards behind RoP links
    (``make_rop_endpoints``), bit for bit;
-6. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
+7. the LM path at full width: ``serve`` of llama3.2-3b (28 layers,
    d_model 3072, 24 query heads over 8 KV heads, vocab 128,256; random
    weights from seed 0) on a 512-page pool of 16-slot pages, 8 requests
    of 500-token prompts and 32 new tokens, 4 at a time, with the launch
@@ -61,8 +73,8 @@ Phases, each uncaught, so any failure exits non-zero:
    engine with the three wrappers swapped for their plain versions:
    last-position logits of one prefill and one decode step within 1e-3,
    and the share of generated tokens that agree;
-7. a ``kernels`` JSON line for all seven kernels, then ``{"ok": true,
-   "device": ...}`` last.
+8. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``), then ``{"ok": true, "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -93,6 +105,11 @@ DEVICE = "cuda"
 GNN_KERNELS = ("agg_combine", "spmm", "gemm", "sddmm")
 # the CSSD array behind the serving runtime (examples/serve_gnn.py --chaos)
 ARRAY_SHARDS, ARRAY_REPLICATION, ARRAY_CLIENTS = 4, 2, 8
+# the SPMD engine: (data, model) meshes of slots on the one card, and the
+# mesh whose run_batch is held to its serial run bit for bit
+MESH_SHAPES = ((1, 1), (1, 2), (2, 2), (1, 4), (2, 4))
+SERIAL_MESH = (2, 4)
+MESH_SLOT = "cuda:0"                  # the device of every slot
 
 # the LM path: repro/launch/serve.py's engine at llama3.2-3b's full width
 LM_ARCH = "llama3.2-3b"
@@ -106,6 +123,7 @@ LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
                                           "decode_combine_kernel")}
 DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
 L2_BYTES = 50 * 2**20                 # the H100's L2
+PROFILE_TRIES = 3                     # profiler windows before giving up
 LM_LOGITS_TOL = 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM and fp32 FMA
@@ -168,34 +186,44 @@ def kernel_name(symbol: str) -> str:
 def profiled(torch, fn, reps: int = 1):
     """The card's work during ``reps`` calls of ``fn`` under torch.profiler
     (its key_averages entries) and the host ms of that window, which ends
-    in a synchronize (the profiler slows the host somewhat)."""
+    in a synchronize (the profiler slows the host somewhat).  The profiler
+    now and then records no device time for a window; every ``fn`` here
+    launches work on the card, so such a window is taken again, up to
+    PROFILE_TRIES windows in all.  The entries are empty only if every
+    window lost them.  Only the card's activity is recorded: host op
+    events add nothing to the device time and slow the windows of the
+    plain versions, whose loops launch many small kernels."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return ([e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA], wall * 1e3)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            break
+    return events, wall * 1e3
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of one call of ``fn``: the summed time of every
     kernel and copy the card ran over ``reps`` calls (torch.profiler),
     after one warm-up call.  Host overhead between launches is not in it.
-    The profiler now and then records no device time for a run; every
-    ``fn`` here launches work on the card, so such a run is taken again
-    (up to three times)."""
+    Where every profiler window lost the card's events, the time is taken
+    with CUDA events instead (host gaps between launches included), and a
+    line says so: a time is never reported that was not measured."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        events, _ = profiled(torch, fn, reps)
-        ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
-        if ms > 0:
-            break
-    return ms
+    events, _ = profiled(torch, fn, reps)
+    if events:
+        return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    print(f"device_ms: torch.profiler recorded no device time in "
+          f"{PROFILE_TRIES} windows; this time is from CUDA events")
+    return call_ms(torch, fn, reps)
 
 
 def call_ms(torch, fn, reps: int = 20) -> float:
@@ -212,6 +240,35 @@ def call_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def gnn_plain(ref) -> dict:
+    """Each GNN kernel wrapper's plain version; agg_combine's takes the
+    bias or not (``agg_combine_partial``'s product)."""
+    return {
+        "agg_combine": lambda h, n, k, w, b=None, mode="mean":
+            ref.agg_combine_ref(h, n, k, w, b, mode=mode),
+        "spmm": lambda h, n, k, mode="mean": ref.spmm_ref(h, n, k, mode=mode),
+        "gemm": lambda a, b: ref.gemm_ref(a, b).to(a.dtype),
+        "sddmm": ref.sddmm_ref,
+    }
+
+
+def gnn_library(torch, name, args, kwargs):
+    """One PyTorch call computing a GNN kernel's function on its
+    arguments (``torch.matmul``, ``embedding_bag``), or None."""
+    if name == "gemm":
+        a, b = args
+        return lambda: torch.matmul(a, b)
+    if name == "spmm":
+        h, nbr, mask = args
+        per_slot = mask                  # mean: fold 1/deg into the weights
+        if kwargs.get("mode", "mean") == "mean":
+            per_slot = mask / torch.clamp(mask.sum(1), min=1.0)[:, None]
+        idx = nbr.long()
+        return lambda: torch.nn.functional.embedding_bag(
+            idx, h, per_sample_weights=per_slot, mode="sum")
+    return None
 
 
 def gathered_rows(torch, nbr, mask, prefix: int = 0) -> int:
@@ -244,8 +301,91 @@ def call_cost(torch, name: str, args) -> tuple[float, float]:
                 + d * k * f * 4), 2.0 * nnz * f
     w = args[3]
     o = w.shape[1]
-    return (gathered_rows(torch, nbr, mask) * f * 4 + ell + f * o * 4 + o * 4
+    bias = o * 4 if len(args) > 4 and args[4] is not None else 0
+    return (gathered_rows(torch, nbr, mask) * f * 4 + ell + f * o * 4 + bias
             + d * o * 4), 2.0 * nnz * f + 2.0 * d * f * o
+
+
+def signature(name, args, kwargs) -> str:
+    """A GNN kernel call's shape: (MxK)@(KxN) for gemm, else its N, F, D,
+    K (and O) with the aggregation mode where one is passed."""
+    if name == "gemm":
+        (m, k), n = args[0].shape, args[1].shape[1]
+        return f"({m}x{k})@({k}x{n})"
+    dims = (*args[0].shape, *args[1].shape)
+    if name == "agg_combine":
+        dims += (args[3].shape[1],)
+    text = ", ".join(f"{a} {v}" for a, v in zip("NFDKO", dims))
+    return f"({text})" + (f" {kwargs['mode']}" if "mode" in kwargs else "")
+
+
+def replay(torch, card, name, fn, calls, launches, mesh=None):
+    """One GNN kernel's recorded calls of a main-path run, held to its
+    plain version and timed.  Every call is checked at TOL[name] (spmm and
+    sddmm bit for bit) and counted into the bound.  Then the calls of each
+    shape are timed together, every recorded call in each window: the
+    kernel, its plain version and the library call as device ms under
+    torch.profiler, and the kernel back to back (CUDA events, host
+    included).  Prints the kernel's line (prefixed with the mesh where one
+    is given) and returns its ``kernels`` row (keyed by ``mesh``) and, by
+    shape, {"calls", "ms", "lib_ms", "bound"} summed over its calls."""
+    from repro_torch.kernels import ref
+    plain, tol = gnn_plain(ref)[name], TOL[name]
+    shapes = {}
+    max_err = by_bytes = by_ops = 0.0
+    for args, kwargs in calls:
+        got = fn(*args, **kwargs)
+        want = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        assert torch.allclose(got.float(), want.float(), rtol=tol,
+                              atol=tol), (mesh, name, err)
+        if name in ("spmm", "sddmm"):                   # bit for bit
+            assert torch.equal(got, want), (mesh, name, err)
+        max_err = max(max_err, err)
+        nbytes, flops = call_cost(torch, name, args)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        if t_bytes >= t_ops:
+            by_bytes += t_bytes
+        else:
+            by_ops += t_ops
+        s = shapes.setdefault(signature(name, args, kwargs),
+                              {"calls": [], "bound": 0.0})
+        s["calls"].append((args, kwargs))
+        s["bound"] += max(t_bytes, t_ops)
+
+    ms = back_ms = plain_ms = 0.0
+    lib_ms = 0.0 if name in ("gemm", "spmm") else None
+    for s in shapes.values():
+        group = s["calls"]
+        s["ms"] = device_ms(torch, lambda: [fn(*a, **k) for a, k in group])
+        ms += s["ms"]
+        back_ms += call_ms(torch, lambda: [fn(*a, **k) for a, k in group])
+        plain_ms += device_ms(                  # one window: host-bound
+            torch, lambda: [plain(*a, **k) for a, k in group], reps=1)
+        if lib_ms is not None:
+            libs = [gnn_library(torch, name, a, k) for a, k in group]
+            s["lib_ms"] = device_ms(torch, lambda: [lib() for lib in libs])
+            lib_ms += s["lib_ms"]
+    bound_ms = sum(s["bound"] for s in shapes.values())
+    src, replaces = KERNEL_SOURCES[name]
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": lib_ms}
+    if mesh is not None:
+        row["mesh"] = list(mesh)
+    tag = f"spmd {mesh[0]}x{mesh[1]} " if mesh is not None else ""
+    print(f"{tag}{name}: {len(calls)} calls over {len(shapes)} shapes, max "
+          f"abs err {max_err:.3g} (tol {tol}), kernel {ms:.4f} ms a pass on "
+          f"the card ({back_ms:.4f} ms back to back, host included), plain "
+          f"{plain_ms:.4f} ms, library "
+          f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+          f"{bound_ms:.4f} ms  [{card}]")
+    return row, shapes
 
 
 def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
@@ -337,7 +477,7 @@ def wait_healthy(sup, store, deadline_s: float) -> dict:
 
 
 def array_phase(torch, card, edges, emb, setups, reqs, fused) -> None:
-    """Phase 5: phase 3's group served through the CSSD array and its
+    """Phase 6: phase 3's group served through the CSSD array and its
     runtime (see the module docstring)."""
     from repro_torch import kernels
     from repro_torch.core.service import HolisticGNNService
@@ -486,8 +626,132 @@ def array_phase(torch, card, edges, emb, setups, reqs, fused) -> None:
         rop.close()
 
 
+def spmd_phase(torch, card, edges, emb, setups, reqs, fused,
+               per_model) -> list[dict]:
+    """Phase 5: phase 3's group on the SPMD engine, over each mesh of
+    MESH_SHAPES with every slot on the one card (see the module
+    docstring).  Returns the ``kernels`` rows of each mesh shape, keyed
+    by ``mesh``."""
+    from repro_torch import kernels
+    from repro_torch.core.service import HolisticGNNService
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import program_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # what the slots call: AggCombinePartial is the agg_combine kernel
+    # with its epilogue off
+    entry = {"agg_combine": "agg_combine_partial", "spmm": "spmm",
+             "gemm": "gemm", "sddmm": "sddmm"}
+
+    t_phase = time.perf_counter()
+    rows = []
+    for d, m in MESH_SHAPES:
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        svc = HolisticGNNService(h_threshold=64, pad_to=64, device=DEVICE,
+                                 mesh=mesh)
+        svc.update_graph(edges, emb)
+        program_config(svc.xbuilder, "hetero")
+
+        # the SPMD path (its first groups: plans are built in them, from
+        # shapes alone): counts zeroed just before, read just after; each
+        # slot's kernel calls recorded to replay against the plain versions
+        recorded = {name: [] for name in GNN_KERNELS}
+        originals = {name: getattr(ops, attr) for name, attr in entry.items()}
+
+        def recorder(name, fn):
+            def wrapped(*args, **kwargs):
+                recorded[name].append((args, kwargs))
+                return fn(*args, **kwargs)
+            return wrapped
+
+        for name, fn in originals.items():
+            setattr(ops, entry[name], recorder(name, fn))
+        try:
+            kernels.reset_launch_counts()
+            got, per = {}, {}
+            for mdl in MODELS:
+                before = kernels.launch_counts()
+                got[mdl] = svc.run_batch(setups[mdl][0], reqs,
+                                         weights=setups[mdl][1])
+                per[mdl] = {k: v - before[k]
+                            for k, v in kernels.launch_counts().items()}
+            launches = kernels.launch_counts()
+        finally:
+            for name, fn in originals.items():
+                setattr(ops, entry[name], fn)
+        tag = f"spmd {d}x{m}"
+        print(f"{tag} main path launches: {launches}")
+        for mdl in MODELS:
+            want = {k: per_model[mdl][k] * d * m for k in GNN_KERNELS}
+            if d > 1:        # data-striped SDDMM is the reference's plain step
+                want["sddmm"] = 0
+            assert {k: per[mdl][k] for k in GNN_KERNELS} == want, \
+                (tag, mdl, per[mdl], want)
+        assert per["gcn"]["agg_combine"] > 0, per["gcn"]  # not the fallback
+        assert all(launches[k] > 0 for k in GNN_KERNELS
+                   if k != "sddmm" or d == 1), launches
+        st = svc.stats()["engine"]
+        assert st["mesh"] == {"data": d, "model": m}, st
+
+        for mdl in MODELS:
+            dfg, weights = setups[mdl]
+            err = 0.0
+            for a, b in zip(got[mdl], fused[mdl]):
+                assert a["Result"].shape == (TARGETS, DIMS[-1])
+                assert np.isfinite(a["Result"]).all()
+                if (d, m) == (1, 1):                # no collective, no pad
+                    np.testing.assert_array_equal(a["Result"], b["Result"])
+                else:
+                    np.testing.assert_allclose(a["Result"], b["Result"],
+                                               rtol=SERVICE_TOL,
+                                               atol=SERVICE_TOL)
+                err = max(err, float(np.abs(a["Result"] - b["Result"]).max()))
+            same = "bit for bit" if (d, m) == (1, 1) else \
+                f"max abs err {err:.3g} (tol {SERVICE_TOL})"
+            if (d, m) == SERIAL_MESH:
+                for a, r in zip(got[mdl], reqs):
+                    serial = svc.run(dfg, r["targets"], weights=weights,
+                                     seed=r["seed"])["Result"][:TARGETS]
+                    np.testing.assert_array_equal(serial, a["Result"])
+                same += f"; fused == serial bitwise for {GROUP} requests"
+            times, engine = [], []
+            for _ in range(GROUP_REPEATS):
+                t0 = time.perf_counter()
+                svc.run_batch(dfg, reqs, weights=weights)
+                times.append(time.perf_counter() - t0)
+                engine.append(sum(t for op, _, t in svc.engine.timings
+                                  if op == "__dfg_jit__"))
+            busy, wall, _ = profile_split(
+                torch, lambda: svc.run_batch(dfg, reqs, weights=weights), {})
+            print(f"{tag} {mdl}: against phase 3's run_batch {same}; "
+                  f"launches {({k: per[mdl][k] for k in GNN_KERNELS})}")
+            print(f"{tag} {mdl}: run_batch group {min(times) * 1e3:.3f} ms "
+                  f"best of {GROUP_REPEATS} (median "
+                  f"{np.median(times) * 1e3:.3f} ms); engine median "
+                  f"{np.median(engine) * 1e3:.3f} ms  [{card}]")
+            print(f"{tag} {mdl}: under torch.profiler, one group: card "
+                  f"{busy_text(busy, wall)}  [{card}]")
+
+        # each slot's kernel calls against the plain versions, timed by
+        # slice shape with every recorded call in each window
+        for name in (k for k in GNN_KERNELS if launches[k]):
+            row, shapes = replay(torch, card, name, originals[name],
+                                 recorded[name], launches[name], mesh=(d, m))
+            rows.append(row)
+            for sig, s in shapes.items():
+                n = len(s["calls"])
+                print(f"{tag} {name} {sig}: {n} calls, kernel "
+                      f"{s['ms'] / n:.5f} ms a launch, bound "
+                      f"{s['bound'] / n:.5f} ({100 * s['bound'] / s['ms']:.1f}"
+                      f" % of bound reached)  [{card}]")
+        svc.close()
+    print(f"spmd phase: {len(MESH_SHAPES)} meshes x {len(MODELS)} models in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def lm_phase(torch, card: str) -> list[dict]:
-    """Phase 5: the paged-KV LM serving path at llama3.2-3b's full width.
+    """Phase 7: the paged-KV LM serving path at llama3.2-3b's full width.
     Returns the ``kernels`` rows of its three kernels."""
     import torch.nn.functional as F
     from repro_torch import kernels
@@ -574,8 +838,8 @@ def lm_phase(torch, card: str) -> list[dict]:
     # where the time goes: one prefill, then one decode step at batch 4
     def show(what, fn):
         busy, wall, split = profile_split(torch, fn, LM_KERNEL_SYMBOLS)
-        print(f"lm {what} under torch.profiler: card busy {busy:.3f} ms of "
-              f"{wall:.3f} ms ({100 * busy / wall:.2f} %); device ms by "
+        print(f"lm {what} under torch.profiler: card "
+              f"{busy_text(busy, wall)}; device ms by "
               f"kernel: {split}  [{card}]")
 
     eng = engine(4 * -(-(LM_PROMPT + 1) // LM_PAGE_SIZE))
@@ -732,11 +996,12 @@ def lm_phase(torch, card: str) -> list[dict]:
     return rows
 
 
-def profile_split(torch, fn, symbols: dict) -> tuple[float, float, dict]:
+def profile_split(torch, fn, symbols: dict):
     """(device-busy ms, wall ms, {kernel: ms}) of one call of ``fn`` under
     torch.profiler; the split sums device time by kernel, each under the
     names its symbols are part of, the rest (products, copies,
-    elementwise) under "other"."""
+    elementwise) under "other".  Busy ms is None where every profiler
+    window lost the card's events."""
     events, wall = profiled(torch, fn)
     split = {name: 0.0 for name in symbols}
     split["other"] = 0.0
@@ -744,8 +1009,15 @@ def profile_split(torch, fn, symbols: dict) -> tuple[float, float, dict]:
         name = next((n for n, syms in symbols.items()
                      if any(sym in e.key for sym in syms)), "other")
         split[name] += e.self_device_time_total / 1e3
-    return sum(split.values()), wall, {k: round(v, 3)
-                                       for k, v in split.items()}
+    busy = sum(split.values()) if events else None
+    return busy, wall, {k: round(v, 3) for k, v in split.items()}
+
+
+def busy_text(busy, wall) -> str:
+    """The card's busy share of a profiled window, or "not measured"."""
+    if busy is None:
+        return (f"busy not measured (no device events) in {wall:.3f} ms")
+    return f"busy {busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.2f} %)"
 
 
 def main() -> int:
@@ -832,8 +1104,12 @@ def main() -> int:
         setattr(ops, name, recorder(name, fn))
     try:
         kernels.reset_launch_counts()
-        fused = {m: svc.run_batch(setups[m][0], reqs, weights=setups[m][1])
-                 for m in MODELS}
+        fused, per_model = {}, {}
+        for m in MODELS:
+            before = kernels.launch_counts()
+            fused[m] = svc.run_batch(setups[m][0], reqs, weights=setups[m][1])
+            per_model[m] = {k: v - before[k]
+                            for k, v in kernels.launch_counts().items()}
         launches = kernels.launch_counts()
     finally:
         for name, fn in originals.items():
@@ -864,8 +1140,8 @@ def main() -> int:
               f"sampling, padding and copies  [{card}]")
         busy, wall, _ = profile_split(
             torch, lambda: svc.run_batch(dfg, reqs, weights=weights), {})
-        print(f"{m}: under torch.profiler the card was busy {busy:.3f} ms of "
-              f"a {wall:.3f} ms group ({100 * busy / wall:.2f} %)  [{card}]")
+        print(f"{m}: under torch.profiler, one group: card "
+              f"{busy_text(busy, wall)}  [{card}]")
         shell = octa.run_batch(dfg, reqs, weights=weights)
         err = max(float(np.abs(a["Result"] - b["Result"]).max())
                   for a, b in zip(fused[m], shell))
@@ -880,28 +1156,6 @@ def main() -> int:
               f" fused == serial bitwise for {GROUP} requests")
 
     # ------------------------------------------------ 4. kernels vs plain
-    plain = {
-        "agg_combine": lambda h, n, k, w, b, mode="mean":
-            ref.agg_combine_ref(h, n, k, w, b, mode=mode),
-        "spmm": lambda h, n, k, mode="mean": ref.spmm_ref(h, n, k, mode=mode),
-        "gemm": lambda a, b: ref.gemm_ref(a, b).to(a.dtype),
-        "sddmm": ref.sddmm_ref,
-    }
-
-    def library(name, args, kwargs):
-        if name == "gemm":
-            a, b = args
-            return lambda: torch.matmul(a, b)
-        if name == "spmm":
-            h, nbr, mask = args
-            per_slot = mask                  # mean: fold 1/deg into the weights
-            if kwargs.get("mode", "mean") == "mean":
-                per_slot = mask / torch.clamp(mask.sum(1), min=1.0)[:, None]
-            idx = nbr.long()
-            return lambda: torch.nn.functional.embedding_bag(
-                idx, h, per_sample_weights=per_slot, mode="sum")
-        return None
-
     def spmm_cold_ms(args, kwargs) -> float:
         """Device ms a launch with every launch on another copy of h: as
         many copies as pass twice the L2 together, so each launch finds
@@ -921,96 +1175,34 @@ def main() -> int:
         return lambda: kernels.gemm(
             kernels.spmm(h, nbr, mask, mode=kwargs.get("mode", "mean")), w)
 
-    rows = []
-    # by shape: gemm (M,K,N), spmm and sddmm (N,F,D,K), agg_combine
-    # (N,F,D,K,O) -> [calls, kernel ms, yardstick ms (torch.matmul;
-    # embedding_bag; spmm + gemm), bound ms, cold kernel ms (spmm)]
-    by_shape = {name: {} for name in ("gemm", "spmm", "agg_combine",
-                                      "sddmm")}
+    rows, by_shape = [], {}
     for name in GNN_KERNELS:
-        fn = originals[name]
-        tol = TOL[name]
-        ms = plain_ms = bound_ms = calls_ms = 0.0
-        lib_ms = 0.0 if name in ("gemm", "spmm") else None
-        max_err, by_bytes, by_ops = 0.0, 0.0, 0.0
-        for args, kwargs in recorded[name]:
-            got = fn(*args, **kwargs)
-            want = plain[name](*args, **kwargs)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max()) \
-                if got.numel() else 0.0
-            assert torch.allclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol), (name, err)
-            if name in ("spmm", "sddmm"):           # bit for bit
-                assert torch.equal(got, want), (name, err)
-            max_err = max(max_err, err)
-            one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
-            ms += one_ms
-            calls_ms += call_ms(torch, lambda: fn(*args, **kwargs))
-            plain_ms += device_ms(torch,
-                                  lambda: plain[name](*args, **kwargs),
-                                  reps=5)
-            lib = library(name, args, kwargs)
-            one_lib = device_ms(torch, lib) if lib is not None else 0.0
-            if lib is not None:
-                lib_ms += one_lib
-            nbytes, flops = call_cost(torch, name, args)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
-            bound_ms += max(t_bytes, t_ops)
-            if name in by_shape:
-                if name == "gemm":
-                    shape = (*args[0].shape, args[1].shape[1])
-                else:
-                    shape = (*args[0].shape, *args[1].shape)
-                if name == "agg_combine":
-                    shape += (args[3].shape[1],)
-                    one_lib = device_ms(torch, unfused(args, kwargs))
-                cold = spmm_cold_ms(args, kwargs) if name == "spmm" else 0.0
-                acc = by_shape[name].setdefault(shape, [0, 0.0, 0.0, 0.0, 0.0])
-                for i, x in enumerate((1, one_ms, one_lib,
-                                       max(t_bytes, t_ops), cold)):
-                    acc[i] += x
-            if t_bytes >= t_ops:
-                by_bytes += t_bytes
-            else:
-                by_ops += t_ops
-        src, replaces = KERNEL_SOURCES[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                     "library_ms": lib_ms})
-        print(f"{name}: {len(recorded[name])} calls, max abs err {max_err:.3g} "
-              f"(tol {tol}), kernel {ms:.4f} ms on the card ({calls_ms:.4f} "
-              f"ms back to back, host included), plain {plain_ms:.4f} ms, "
-              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
-              f"bound {bound_ms:.4f} ms  [{card}]")
+        row, by_shape[name] = replay(torch, card, name, originals[name],
+                                     recorded[name], launches[name])
+        rows.append(row)
 
     # by shape: where the pass's time goes, against torch.matmul (gemm),
     # embedding_bag (spmm) and the port's unfused spmm + gemm kernels
     # (agg_combine)
     for name, shapes in by_shape.items():
-        for shape, (calls, k_ms, lib_ms, b_ms, c_ms) in sorted(
-                shapes.items(), key=lambda kv: -kv[1][1]):
-            yard = f"{lib_ms / calls:.5f}"
-            share = f"{100 * b_ms / k_ms:.1f} % of bound reached"
+        for sig, s in sorted(shapes.items(), key=lambda kv: -kv[1]["ms"]):
+            group = s["calls"]
+            n = len(group)
+            yard = ""
+            share = f"{100 * s['bound'] / s['ms']:.1f} % of bound reached"
             if name == "gemm":
-                m, k, n = shape
-                what = f"gemm ({m}x{k})@({k}x{n})"
-                yard = f", torch.matmul {yard}"
-            else:
-                dims = ", ".join(f"{a} {v}" for a, v in zip("NFDKO", shape))
-                what = f"{name} ({dims})"
-                yard = (f", unfused spmm + gemm {yard}"
-                        if name == "agg_combine" else "")
-            if name == "spmm":
-                yard = (f" warm, {c_ms / calls:.5f} cold (h past the L2), "
-                        f"embedding_bag {lib_ms / calls:.5f} warm")
-                share = (f"{share} warm, {100 * b_ms / c_ms:.1f} % cold")
-            print(f"{what}: {calls} calls, kernel {k_ms / calls:.5f} ms a "
-                  f"launch{yard}, bound {b_ms / calls:.5f} ({share})  "
+                yard = f", torch.matmul {s['lib_ms'] / n:.5f}"
+            elif name == "agg_combine":
+                pairs = [unfused(a, k) for a, k in group]
+                pair_ms = device_ms(torch, lambda: [u() for u in pairs])
+                yard = f", unfused spmm + gemm {pair_ms / n:.5f}"
+            elif name == "spmm":
+                cold = sum(spmm_cold_ms(a, k) for a, k in group)
+                yard = (f" warm, {cold / n:.5f} cold (h past the L2), "
+                        f"embedding_bag {s['lib_ms'] / n:.5f} warm")
+                share = f"{share} warm, {100 * s['bound'] / cold:.1f} % cold"
+            print(f"{name} {sig}: {n} calls, kernel {s['ms'] / n:.5f} ms a "
+                  f"launch{yard}, bound {s['bound'] / n:.5f} ({share})  "
                   f"[{card}]")
 
     # agg_combine_partial and bf16 gemm on main-path arguments
@@ -1031,13 +1223,17 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
-    # ------------------------------------------------ 5. array + runtime
+    # ------------------------------------------------ 5. SPMD engine
+    rows += spmd_phase(torch, card, edges, emb, setups, reqs, fused,
+                       per_model)
+
+    # ------------------------------------------------ 6. array + runtime
     array_phase(torch, card, edges, emb, setups, reqs, fused)
 
-    # ------------------------------------------------ 6. LM path, full width
+    # ------------------------------------------------ 7. LM path, full width
     rows += lm_phase(torch, card)
 
-    # ------------------------------------------------ 7. result lines
+    # ------------------------------------------------ 8. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from typing import Any
 import torch
 
 from .registry import KernelRegistry
+from .spmd import build_sharded_program, mesh_descriptor
 
 
 @dataclass
@@ -185,15 +186,20 @@ class Engine:
 
     Both paths first apply the aggregate-combine fusion pass whenever a
     fused ``AggCombine`` C-kernel is resolvable (``fuse=None`` -> auto).
+
+    **SPMD** (``mesh=``, a ``launch.mesh.Mesh`` of device slots): the
+    planned path runs the suffix over the mesh instead of the plan walk —
+    hidden/embedding dims striped across the ``model`` axis, super-batch
+    rows across ``data``, psum/all_gather at combine boundaries (see
+    ``core/spmd.py``).  The eager prefix (BatchPre) is unchanged; the mesh
+    joins the plan-cache key, so one engine can serve meshed and
+    un-meshed programs side by side, and ``mesh`` can be re-pointed.
     """
 
     def __init__(self, registry: KernelRegistry, *, mesh=None,
                  jit_cache_size: int = 32):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the SPMD engine (mesh=) is not ported yet: see ROADMAP.md, "
-                "'SPMD engine'")
         self.registry = registry
+        self.mesh = mesh
         self.trace: list[tuple[str, str]] = []     # (op, device) per executed node
         self.timings: list[tuple[str, str, float]] = []
         if jit_cache_size < 1:
@@ -265,15 +271,21 @@ class Engine:
                           if i not in produced})
         suffix_outs = [src for src in dict.fromkeys(dfg._outs.values())
                        if src in produced]
-        sig = []
+        arr_refs, sig, static_env = [], [], {}
         for r in in_refs:
             v = env[r]
             if hasattr(v, "shape") and hasattr(v, "dtype"):
+                arr_refs.append(r)
                 sig.append((r, tuple(v.shape), str(v.dtype)))
             else:                       # non-array feeds key by value
+                static_env[r] = v
                 sig.append((r, "static", repr(v)))
+        mesh = self.mesh
+        mesh_key = None
+        if mesh is not None:
+            mesh_key = (mesh_descriptor(mesh), tuple(mesh.devices.flat))
         key = (dfg.save(), self.registry.version, fuse, tuple(sig),
-               tuple(suffix_outs), None)
+               tuple(suffix_outs), mesh_key)
         with self._cache_lock:
             hit = self._jit_cache.get(key)
             if hit is not None:
@@ -282,8 +294,14 @@ class Engine:
             else:
                 self._cache_misses += 1
                 resolved = [self.registry.resolve(n.op) for n in suffix]
-                hit = ([(n, fn) for n, (_, fn) in zip(suffix, resolved)],
-                       [(n.op, d) for n, (d, _) in zip(suffix, resolved)])
+                trace = [(n.op, d) for n, (d, _) in zip(suffix, resolved)]
+                if mesh is None:
+                    plan = [(n, fn) for n, (_, fn) in zip(suffix, resolved)]
+                else:
+                    plan = build_sharded_program(
+                        suffix, resolved, arr_refs, static_env, suffix_outs,
+                        env, mesh, self.registry)
+                hit = (plan, trace)
                 self._jit_cache[key] = hit
                 while len(self._jit_cache) > self._jit_cache_size:
                     self._jit_cache.popitem(last=False)
@@ -291,8 +309,11 @@ class Engine:
         plan, trace = hit
         self.trace.extend(trace)
         t0 = time.perf_counter()
-        for node, fn in plan:
-            _apply(node, fn, env)
+        if callable(plan):                           # the sharded program
+            env.update(zip(suffix_outs, plan(*(env[r] for r in arr_refs))))
+        else:
+            for node, fn in plan:
+                _apply(node, fn, env)
         _block([env[r] for r in suffix_outs])
         self.timings.append(("__dfg_jit__", "jit", time.perf_counter() - t0))
         return {name: env[src] for name, src in dfg._outs.items()}

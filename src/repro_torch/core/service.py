@@ -11,9 +11,9 @@ device, and the engine binds and executes the model's C-operations by
 device priority.  Weights arrive as NumPy feed dicts (as over RPC) or as
 tensors and are kept on the device; results come back as NumPy.
 
-The SPMD engine (``mesh=`` / ``model_parallel=``) is not ported yet;
-asking for it raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item.
+``mesh=`` / ``model_parallel=`` run the model portion on the SPMD
+engine (``core/spmd.py``) over a (data, model) mesh of device slots
+(``launch/mesh.py``), whose slots may share one card.
 """
 from __future__ import annotations
 
@@ -23,11 +23,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..launch.mesh import device_pool, make_host_mesh
 from ..store.blockdev import BlockDevice
 from ..store.graphstore import GraphStore
 from ..store.sampler import sample_batch
 from .dfg import DFG, Engine
 from .registry import KernelRegistry
+from .spmd import mesh_descriptor
 from .xbuilder import XBuilder, Bitstream, SHELL_DEVICE
 from . import gnn
 
@@ -66,12 +68,24 @@ class HolisticGNNService:
         ``fail_shard`` / ``rebuild_shard`` RPCs.  ``flow`` (a
         ``store.sharded.FlowControl``) tunes the array's flow control.
 
-        ``mesh`` and ``model_parallel`` select the reference's SPMD
-        engine, which is not ported: asking raises."""
+        ``mesh`` (a ``launch.mesh.Mesh`` of device slots, each of the
+        service device's type) switches the engine's planned path to
+        SPMD execution: hidden/embedding dims striped across the mesh's
+        ``model`` axis, super-batch rows across ``data``
+        (``core/spmd.py``).  ``model_parallel=M`` is the convenience
+        knob: it builds a host mesh over the service device's pool
+        (``launch.mesh.device_pool``: the visible cards, or 8 CPU slots)
+        with the model axis pinned to M (``make_host_mesh``).
+        ``jit_cache_size`` bounds the engine's LRU plan cache."""
         self.device = resolve_device(device)
-        if mesh is not None or model_parallel is not None:
-            raise NotImplementedError("the SPMD engine is not ported yet: "
-                                      "see ROADMAP.md, 'SPMD engine'")
+        if mesh is None and model_parallel is not None:
+            mesh = make_host_mesh(model=int(model_parallel),
+                                  devices=device_pool(self.device))
+        if mesh is not None:
+            kinds = sorted({d.type for d in mesh.devices.flat})
+            if kinds != [self.device.type]:
+                raise ValueError(f"mesh slots on {kinds} for a service on "
+                                 f"{self.device.type!r}")
         if endpoints is not None or devs is not None or n_shards > 1 \
                 or replication > 1:
             if dev is not None:
@@ -101,7 +115,8 @@ class HolisticGNNService:
         for name, fn in gnn.extra_shell_kernels().items():
             self.registry.register_op(name, SHELL_DEVICE, fn)
         self._register_batchpre()
-        self.engine = Engine(self.registry, jit_cache_size=jit_cache_size)
+        self.engine = Engine(self.registry, mesh=mesh,
+                             jit_cache_size=jit_cache_size)
         self.pad_to = pad_to
         self._programs: dict[str, object] = {}   # markup -> ServiceProgram
         self._weight_store: dict[str, dict] = {} # weights_ref -> feed dict
@@ -521,9 +536,11 @@ class HolisticGNNService:
         return out
 
     def engine_stats(self) -> dict:
-        """Engine counters: the bounded plan cache (``mesh`` stays None:
-        the SPMD engine is not ported)."""
-        return {"mesh": None, "jit_cache": self.engine.cache_stats()}
+        """Engine execution-plane counters: mesh placement (None when the
+        compute plane is unsharded) + the bounded plan cache."""
+        mesh = self.engine.mesh
+        desc = None if mesh is None else dict(mesh_descriptor(mesh))
+        return {"mesh": desc, "jit_cache": self.engine.cache_stats()}
 
     def close(self) -> None:
         """Release array resources (remote shard hosts stop their poll

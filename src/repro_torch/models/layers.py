@@ -4,10 +4,11 @@ attention / MLP / embedding building blocks, on tensors.
 Counterpart of ``repro/models/layers.py`` for the decoder LMs whose
 layers are attention and MLP.  Parameters are declared as ``ParamDef``
 trees (nested dicts and tuples, as in the reference) and materialised on
-a device.  There is no mesh in the port yet, so the reference's
-``shard()`` constraints are the identity and are left out, and the
-PartitionSpecs of each ``ParamDef`` with them; ``tp`` stays an argument
-of the defs because it decides head padding.
+a device.  The port's mesh (``launch/mesh.py``) serves the GNN engine
+only; the LM path is not sharded, so the reference's ``shard()``
+constraints are the identity and are left out, and the PartitionSpecs
+of each ``ParamDef`` with them; ``tp`` stays an argument of the defs
+because it decides head padding.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``

@@ -709,3 +709,87 @@ def test_replicated_array_service_on_the_card_matches_the_cpu(cuda):
                                            "sddmm")), counts
     finally:
         card.close()
+
+
+# slice shapes of the SPMD path at full width (N, F, D, O): layer 1 at
+# F = 420 / m over D = 3072 / d, layer 2 at F = 128 / m over D = 512 / d,
+# for the meshes (1, 4), (2, 2) and (2, 4)
+SPMD_SHAPES = [(16384, 105, 3072, 128), (16384, 210, 1536, 128),
+               (16384, 105, 1536, 128), (3072, 32, 512, 64),
+               (3072, 64, 256, 64), (3072, 32, 256, 64)]
+
+
+@pytest.mark.parametrize("n,f,d,o", SPMD_SHAPES)
+def test_slice_shaped_kernels_match_plain(cuda, n, f, d, o):
+    """What a slot of the SPMD engine gives agg_combine_partial, spmm and
+    gemm: F a slice of the model axis (105 is odd: scalar gathers, spmm
+    width 1), D a block of the data axis, and w a contiguous row slice of
+    a padded weight (the last of m blocks, so not at the buffer's start)."""
+    rng = np.random.default_rng(18)
+    m = 4 if f % 4 else 2
+    h = _r(rng, n, f, device=cuda)
+    nbr, mask = _ell(rng, n, d, 10, cuda)
+    w_full = _r(rng, f * m, o, device=cuda) * 0.1
+    w = w_full[(m - 1) * f:]
+    assert w.is_contiguous() and w.data_ptr() != w_full.data_ptr()
+    before = kernels.launch_counts()
+    _close(kernels.agg_combine_partial(h, nbr, mask, w),
+           ref.agg_combine_ref(h, nbr, mask, w, None), 2e-5)
+    for mode in ("mean", "sum"):
+        assert torch.equal(kernels.spmm(h, nbr, mask, mode=mode),
+                           ref.spmm_ref(h, nbr, mask, mode=mode))
+    a = kernels.spmm(h, nbr, mask)
+    _close(kernels.gemm(a, w), ref.gemm_ref(a, w), 1e-5)
+    after = kernels.launch_counts()
+    assert (after["agg_combine"] - before["agg_combine"],
+            after["spmm"] - before["spmm"],
+            after["gemm"] - before["gemm"]) == (1, 3, 1)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("model", ["gcn", "gin", "ngcf"])
+def test_meshed_engine_on_the_card_matches_unmeshed(cuda, model, shape):
+    """The SPMD engine over slots on the one card, under Hetero, against
+    the unmeshed card service on the same graph and weights: within 2e-5
+    (bit for bit at (1, 1)), with each kernel launched d*m times as often
+    (sddmm not at d > 1, where the data-striped SDDMM is a plain step).
+    Widths 26 and 18 are odd slices on the 4-way model axis."""
+    from repro_torch.core import gnn
+    from repro_torch.core.service import HolisticGNNService, make_service_dfg
+    from repro_torch.kernels.ops import program_config
+    from repro_torch.launch.mesh import make_host_mesh
+    d, m = shape
+    rng = np.random.default_rng(0)
+    edges = np.stack([rng.integers(0, 600, 4000), rng.zipf(1.4, 4000) % 600],
+                     axis=1).astype(np.int64)
+    emb = rng.standard_normal((600, 26)).astype(np.float32)
+    reqs = [{"targets": rng.integers(0, 600, 6).tolist(), "seed": i}
+            for i in range(5)]
+    plain = HolisticGNNService(h_threshold=16, pad_to=32, device=cuda)
+    meshed = HolisticGNNService(
+        h_threshold=16, pad_to=32, device=cuda,
+        mesh=make_host_mesh(shape=shape, devices=[cuda] * (d * m)))
+    params = gnn.init_params(model, [26, 18, 10], seed=1, device="cpu")
+    weights = {k: v.numpy() for k, v in
+               gnn.dfg_feeds(model, params, None, []).items() if k != "H"}
+    dfg = make_service_dfg(model, 2, [5, 5]).save()
+    counts = []
+    for svc in (plain, meshed):
+        svc.update_graph(edges, emb)
+        program_config(svc.xbuilder, "hetero")
+        svc.run_batch(dfg, reqs, weights=weights)          # warm: the plan
+        kernels.reset_launch_counts()
+        counts.append((svc.run_batch(dfg, reqs, weights=weights),
+                       kernels.launch_counts()))
+    (want, n_plain), (got, n_mesh) = counts
+    for a, b in zip(got, want):
+        if shape == (1, 1):
+            np.testing.assert_array_equal(a["Result"], b["Result"])
+        else:
+            np.testing.assert_allclose(a["Result"], b["Result"],
+                                       rtol=2e-5, atol=2e-5)
+    for k in ("agg_combine", "spmm", "gemm", "sddmm"):
+        scale = 0 if k == "sddmm" and d > 1 else d * m
+        assert n_mesh[k] == n_plain[k] * scale, (k, n_mesh, n_plain)
+    assert n_mesh["agg_combine" if model == "gcn" else "spmm"] > 0
+    assert meshed.stats()["engine"]["mesh"] == {"data": d, "model": m}

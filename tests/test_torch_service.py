@@ -222,14 +222,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_features_raise_naming_the_roadmap():
-    """The SPMD engine is the one service feature still unported (the
-    array, firehose and shard admin RPCs: ``tests/test_torch_array.py``);
-    ``dev=`` with an array raises the reference's ``ValueError``."""
-    for kw in ({"mesh": object()}, {"model_parallel": 2},
-               {"mesh": object(), "n_shards": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, 'SPMD engine'"):
-            HolisticGNNService(device="cpu", **kw)
+    """Every service feature is ported: ``mesh=`` and ``model_parallel=``
+    build a meshed engine on the CPU (``tests/test_torch_spmd.py``), the
+    array, firehose and shard admin RPCs ``tests/test_torch_array.py``;
+    ``model_parallel=3`` and ``dev=`` with an array raise the reference's
+    ``ValueError``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(shape=(1, 2), devices=["cpu"] * 2)
+    for kw, want in (({"mesh": mesh}, {"data": 1, "model": 2}),
+                     ({"model_parallel": 2}, {"data": 4, "model": 2}),
+                     ({"mesh": mesh, "n_shards": 2}, {"data": 1, "model": 2})):
+        svc = HolisticGNNService(device="cpu", **kw)
+        assert svc.engine.mesh is not None
+        assert svc.stats()["engine"]["mesh"] == want
+        svc.close()
+    with pytest.raises(ValueError, match="must divide device count 8"):
+        HolisticGNNService(device="cpu", model_parallel=3)
     from repro_torch.store import BlockDevice
     with pytest.raises(ValueError, match="dev= is single-device only"):
         HolisticGNNService(device="cpu", dev=BlockDevice(), n_shards=2)
