@@ -73,14 +73,35 @@ Phases, each uncaught, so any failure exits non-zero:
    engine with the three wrappers swapped for their plain versions:
    last-position logits of one prefill and one decode step within 1e-3,
    and the share of generated tokens that agree;
-8. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
-   keyed by ``mesh``), then ``{"ok": true, "device": ...}`` last.
+8. the dense-cache LM path (``ModelAPI.prefill`` / ``decode``) at
+   gemma3-12b's published widths (d_model 3840, 16 query heads over 8
+   KV heads of 256, d_ff 15,360, vocab 262,144, window 1024; bf16
+   activations and caches, fp32 parameters from seed 0), depth cut from
+   48 layers to one period (5 local + 1 global): a 1,536-token prompt at
+   batch 4 into caches of 2,048 (past the window, so the local layers'
+   rings take the roll), then 32 decode steps, launch counts zeroed
+   just before and read just after; prefill and decode rates and the
+   card's busy share; the cached logits against the model's own full
+   forward (teacher-forced over all 1,568 tokens) and against the same
+   run on the plain versions, within 2e-2; rmsnorm, flash_attention
+   (windowed and causal, bf16) and decode_attention (bf16, over the
+   dense cache viewed as pages) against their plain versions on the
+   run's arguments, with device ms against the bound and SDPA (band or
+   length mask) or ``F.rms_norm``.  Then minicpm3-4b (MLA), phi3.5-moe
+   (16 experts, top 2), internvl2-76b (1,024 patches) and
+   seamless-m4t-large-v2 at their published widths, 2 layers each: one
+   prefill of 2 x 256 tokens and 8 steps, their launches and their
+   logits against the plain versions';
+9. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``, and the dense path's, keyed by ``path``), then
+   ``{"ok": true, "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -126,9 +147,33 @@ L2_BYTES = 50 * 2**20                 # the H100's L2
 PROFILE_TRIES = 3                     # profiler windows before giving up
 LM_LOGITS_TOL = 1e-3
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM and fp32 FMA
+# the dense-cache LM path (ModelAPI.prefill / decode): gemma3-12b at its
+# published widths, depth cut from 48 layers to one period (5 local + 1
+# global); a 1,536-token prompt (past the 1,024 window) into caches of
+# 2,048, then 32 steps (the rings wrap again)
+DENSE_ARCH, DENSE_LAYERS = "gemma3-12b", 6
+DENSE_BATCH, DENSE_PROMPT, DENSE_SEQ, DENSE_STEPS = 4, 1536, 2048, 32
+# the other attention families at their published widths, 2 layers each
+# (seamless: 2 encoder and 2 decoder layers): one prefill and 8 steps
+DENSE_FAMILIES = ("minicpm3-4b", "phi3.5-moe-42b-a6.6b", "internvl2-76b",
+                  "seamless-m4t-large-v2")
+FAMILY_LAYERS, FAMILY_BATCH, FAMILY_PROMPT, FAMILY_STEPS = 2, 2, 256, 8
+FAMILY_SEQ = 512                      # cache seq beyond the prompt and patches
+DENSE_FP32_STEPS = 8                  # the same path in fp32: decode steps
+# end-to-end logits (the cached path against the full forward, kernels
+# against plain versions): fp32 element by element, at the LM phase's
+# kernels-vs-plain tolerance; bf16 against the logits' scale, max |a - b|
+# <= 2e-2 * max |b|, since the two round products to bf16 at different
+# points and 34 M logits reach far into the tail of that rounding (run
+# 19a: 0.072 at logits up to 12.2, argmax agreement 100 %; fp32 on the
+# same path 3.0e-5).  Each kernel call is held to 2e-2 element by element.
+DENSE_FP32_TOL = 1e-3
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
+# bf16 tensor cores (the rate a bound for bf16 operands is held to)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
        "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
@@ -389,9 +434,9 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
 
 
 def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
-    """(bytes, fp32 flops) one LM kernel call needs: each input read once,
-    each output written once; attention counts the key positions this
-    call's mask and lengths leave visible."""
+    """(bytes, flops) one LM kernel call needs: each input read once, each
+    output written once, at its element size; attention counts the key
+    positions this call's mask, window and lengths leave visible."""
     if name == "rmsnorm":
         x, w = args
         return 2 * x.numel() * x.element_size() + w.numel() * 4, 4.0 * x.numel()
@@ -399,16 +444,30 @@ def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
         q, k, v = args
         b, hq, t, d = q.shape
         s = k.shape[2]
-        pairs = (sum(min(i + 1, s) for i in range(t))
-                 if kwargs.get("causal", True) else t * s)
-        return ((2 * q.numel() + k.numel() + v.numel()) * 4,
+        causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
+        pairs = 0
+        for i in range(t):
+            hi = min(i, s - 1) if causal else s - 1
+            lo = max(0, i - window + 1) if window > 0 else 0
+            pairs += max(0, hi - lo + 1)
+        return ((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                 4.0 * b * hq * pairs * d)
     q, k_pages, _, pt, lengths = args
     hkv, d = k_pages.shape[2], k_pages.shape[3]
     cap = pt.shape[1] * k_pages.shape[1]
     n = int(lengths.clamp(min=0, max=cap).sum())       # positions read
-    return ((2 * n * hkv * d + 2 * q.numel()) * 4
+    return ((2 * n * hkv * d + 2 * q.numel()) * q.element_size()
             + (pt.numel() + lengths.numel()) * 4, 4.0 * n * q.shape[1] * d)
+
+
+def bound_ms_of(torch, name: str, args, kwargs) -> tuple[float, float]:
+    """(bytes ms, operations ms): the call's bytes over HBM's rate and its
+    flops over the peak for its operands' type (fp32 FMA, or bf16 tensor
+    cores)."""
+    nbytes, flops = lm_call_cost(name, args, kwargs)
+    rate = BF16_FLOP_PER_S if args[0].dtype == torch.bfloat16 \
+        else FP32_FLOP_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
 
 
 def serve_round(rt, setups, reqs, fused, during=None) -> float:
@@ -750,10 +809,95 @@ def spmd_phase(torch, card, edges, emb, setups, reqs, fused,
     return rows
 
 
+@contextlib.contextmanager
+def wrappers_as(ops, fns: dict):
+    """``ops``' kernel wrappers replaced by ``fns`` (name -> function) for
+    the block: the models call their kernels as attributes of ``ops``."""
+    old = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in old.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
+def recording(torch, ops, names):
+    """Record each named wrapper's calls in the block, one entry per
+    distinct argument layout: {name: {layout: [args, kwargs, count]}}."""
+    recorded = {name: {} for name in names}
+
+    def recorder(name, fn):
+        def wrapped(*args, **kwargs):
+            key = tuple((tuple(a.shape), a.dtype, a.stride())
+                        if isinstance(a, torch.Tensor) else a for a in args)
+            key += tuple(sorted(kwargs.items()))
+            entry = recorded[name].setdefault(key, [args, kwargs, 0])
+            entry[2] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with wrappers_as(ops, {n: recorder(n, getattr(ops, n)) for n in names}):
+        yield recorded
+
+
+def lm_library(torch, name, args, kwargs):
+    """One PyTorch call computing an LM kernel's function on its
+    arguments: ``F.rms_norm``; SDPA causal, or under the window's band
+    mask; for decode_attention over a dense cache's page view (each
+    sequence one chain of pages in order; a paged pool has no one-call
+    equivalent), SDPA over that cache under a length mask.  KV heads are
+    repeated outside the timed call."""
+    import torch.nn.functional as F
+    if name == "rmsnorm":
+        x, w = args
+        w = w.to(x.dtype)
+        return lambda: F.rms_norm(x, (x.shape[-1],), w,
+                                  kwargs.get("eps", 1e-6))
+    if name == "flash_attention":
+        q, k, v = args
+        rep = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        window = kwargs.get("window", 0)
+        if window <= 0:
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=kwargs.get("causal", True))
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        band = (i >= j) & (i - j < window)
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=band)
+    q, kp, vp, pt, lengths = args
+    b, hq, d = q.shape
+    hkv = kp.shape[2]
+    k, v = (p.view(b, -1, hkv, d).permute(0, 2, 1, 3).repeat_interleave(
+        hq // hkv, 1) for p in (kp, vp))
+    assert torch.equal(pt[:, 0], torch.arange(b, device=q.device,
+                                              dtype=pt.dtype) * pt.shape[1])
+    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+
+
+def hold_to_plain(torch, name, fn, plain_fn, args, kwargs) -> float:
+    """One recorded kernel call against its plain version on the same
+    arguments: 2e-2 for bf16, else TOL[name]; returns the max abs err."""
+    got = fn(*args, **kwargs)
+    want = plain_fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL[name]
+    err = float((got.float() - want.float()).abs().max())
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol), \
+        (name, tuple(got.shape), err)
+    return err
+
+
 def lm_phase(torch, card: str) -> list[dict]:
     """Phase 7: the paged-KV LM serving path at llama3.2-3b's full width.
     Returns the ``kernels`` rows of its three kernels."""
-    import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops, ref
@@ -792,31 +936,14 @@ def lm_phase(torch, card: str) -> list[dict]:
     torch.cuda.synchronize()
 
     # the main path: record one call per distinct argument layout, count all
-    recorded = {name: {} for name in LM_KERNELS}
     originals = {name: getattr(ops, name) for name in LM_KERNELS}
-
-    def recorder(name, fn):
-        def wrapped(*args, **kwargs):
-            key = tuple((tuple(a.shape), a.dtype, a.stride())
-                        if isinstance(a, torch.Tensor) else a for a in args)
-            key += tuple(sorted(kwargs.items()))
-            entry = recorded[name].setdefault(key, [args, kwargs, 0])
-            entry[2] += 1
-            return fn(*args, **kwargs)
-        return wrapped
-
-    for name, fn in originals.items():
-        setattr(ops, name, recorder(name, fn))
-    try:
+    with recording(torch, ops, LM_KERNELS) as recorded:
         kernels.reset_launch_counts()
         done, stats = serve(cfg, num_requests=LM_REQUESTS,
                             prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
                             page_size=LM_PAGE_SIZE, num_pages=LM_PAGES,
                             params=params, device=DEVICE)
         launches = kernels.launch_counts()
-    finally:
-        for name, fn in originals.items():
-            setattr(ops, name, fn)
     print(f"lm main path launches: {launches}")
     assert all(launches[k] > 0 for k in LM_KERNELS), launches
     assert len(done) == LM_REQUESTS
@@ -855,20 +982,6 @@ def lm_phase(torch, card: str) -> list[dict]:
              "flash_attention": ref.attention_ref,
              "decode_attention": ref.decode_attention_ref}
 
-    def library(name, args, kwargs):
-        if name == "rmsnorm":
-            x, w = args
-            w = w.to(x.dtype)
-            return lambda: F.rms_norm(x, (x.shape[-1],), w,
-                                      kwargs.get("eps", 1e-6))
-        if name == "flash_attention":
-            q, k, v = args
-            rep = q.shape[1] // k.shape[1]
-            k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-            return lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=kwargs.get("causal", True))
-        return None                     # paged decode: no one-call yardstick
-
     def decode_cold_ms(fn, args) -> float:
         """Device ms a launch with every launch on another layer's pools:
         the call's q, page table and lengths against layers 0..L-1 of the
@@ -892,14 +1005,8 @@ def lm_phase(torch, card: str) -> list[dict]:
         calls_ms = warm_ms = 0.0
         lib_ms = None if name == "decode_attention" else 0.0
         for args, kwargs, count in recorded[name].values():
-            got = fn(*args, **kwargs)
-            want = plain[name](*args, **kwargs)
-            torch.cuda.synchronize()
-            tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL[name]
-            err = float((got.float() - want.float()).abs().max())
-            assert torch.allclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol), (name, err)
-            max_err = max(max_err, err)
+            max_err = max(max_err, hold_to_plain(torch, name, fn,
+                                                 plain[name], args, kwargs))
             one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
             if name == "decode_attention":        # the cold figure counts
                 warm_ms += count * one_ms
@@ -911,13 +1018,12 @@ def lm_phase(torch, card: str) -> list[dict]:
             ms += count * one_ms
             plain_ms += count * one_plain
             calls_ms += count * call_ms(torch, lambda: fn(*args, **kwargs))
-            lib = library(name, args, kwargs)
+            lib = None if name == "decode_attention" \
+                else lm_library(torch, name, args, kwargs)
             one_lib = device_ms(torch, lib) if lib is not None else 0.0
             if lib is not None:
                 lib_ms += count * one_lib
-            nbytes, flops = lm_call_cost(name, args, kwargs)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            t_bytes, t_ops = bound_ms_of(torch, name, args, kwargs)
             bound_ms += count * max(t_bytes, t_ops)
             if t_bytes >= t_ops:
                 by_bytes += count * t_bytes
@@ -967,18 +1073,13 @@ def lm_phase(torch, card: str) -> list[dict]:
 
     # the same engine on the plain versions: logits and generated tokens
     kernel_logits = one_prefill_and_decode()
-    for name in LM_KERNELS:
-        setattr(ops, name, plain[name])
-    try:
+    with wrappers_as(ops, plain):
         plain_logits = one_prefill_and_decode()
         plain_done, _ = serve(cfg, num_requests=LM_REQUESTS,
                               prompt_len=LM_PROMPT, max_new=LM_NEW, seed=0,
                               page_size=LM_PAGE_SIZE, num_pages=LM_PAGES,
                               params=params, device=DEVICE,
                               log=lambda *_: None)
-    finally:
-        for name, fn in originals.items():
-            setattr(ops, name, fn)
     for what, a, b in zip(("prefill", "decode"), kernel_logits, plain_logits):
         err = float((a - b).abs().max())
         print(f"lm {what} last-position logits, kernels vs plain: max abs "
@@ -993,6 +1094,311 @@ def lm_phase(torch, card: str) -> list[dict]:
           f"{stats['tokens']} ({100 * same / stats['tokens']:.1f} %)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
+    return rows
+
+
+def dense_inputs(torch, cfg, b: int, prompt: int, steps: int) -> dict:
+    """Tokens (B, prompt + steps) from seed 1, and the VLM's patches or the
+    encoder-decoder's frames, on the card."""
+    rng = np.random.default_rng(1)
+    out = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                               (b, prompt + steps)),
+                                  dtype=torch.int32, device=DEVICE)}
+    if cfg.family == "vlm":
+        out["patches"] = torch.tensor(rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model), dtype=np.float32),
+            device=DEVICE)
+    if cfg.family == "encdec":
+        out["frames"] = torch.tensor(rng.standard_normal(
+            (b, prompt, cfg.d_model), dtype=np.float32), device=DEVICE)
+    return out
+
+
+def dense_generate(torch, api, params, inp, prompt: int, steps: int,
+                   seq: int):
+    """``api.prefill`` of the prompt (and patches or frames) into fresh
+    caches of ``seq`` positions beyond the patches, then ``steps`` calls
+    of ``api.decode`` fed the next tokens of ``inp`` (teacher-forced).
+    Returns each call's logits (B, V) in fp32, the prefill's and each
+    step's seconds (host clock to a synchronize), the caches and the
+    lengths they hold."""
+    from repro_torch.models import layers as L
+    cfg = api.cfg
+    b = inp["tokens"].shape[0]
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    caches = L.init_tree(api.cache_defs(b, seq + prefix), 0, DEVICE)
+    batch = {k: v for k, v in inp.items() if k != "tokens"}
+    batch["tokens"] = inp["tokens"][:, :prompt]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = api.prefill(params, batch, caches)
+    logits = [out[0][:, 0].float()]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    extra = {"enc_out": out[2]} if cfg.family == "encdec" else {}
+    lengths = torch.full((b,), prompt + prefix, dtype=torch.int32,
+                         device=DEVICE)
+    step_s = []
+    for i in range(prompt, prompt + steps):
+        t0 = time.perf_counter()
+        lg, caches = api.decode(params, {"tokens": inp["tokens"][:, i:i + 1],
+                                         "lengths": lengths, **extra},
+                                caches)
+        logits.append(lg[:, 0].float())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        lengths = lengths + 1
+    return logits, prefill_s, step_s, (caches, lengths, extra)
+
+
+def dense_rows(torch, card, recorded, originals, plain) -> list[dict]:
+    """Each dense-path kernel's recorded calls held to its plain version
+    (2e-2 in bf16) and timed as device ms against its bound and its
+    one-call library equivalent, summed over the main path's launches;
+    flash_attention gives a row for its windowed and its causal calls."""
+    rows = []
+    groups = []
+    for name in LM_KERNELS:
+        calls = list(recorded[name].values())
+        if name == "flash_attention":
+            for w in sorted({kw.get("window", 0) for _, kw, _ in calls}):
+                groups.append((name, w, [c for c in calls
+                                         if c[1].get("window", 0) == w]))
+        else:
+            groups.append((name, None, calls))
+    for name, window, calls in groups:
+        fn = originals[name]
+        n = ms = plain_ms = lib_ms = bound = by_bytes = by_ops = 0.0
+        max_err = 0.0
+        for args, kwargs, count in calls:
+            max_err = max(max_err, hold_to_plain(torch, name, fn, plain[name],
+                                                 args, kwargs))
+            n += count
+            ms += count * device_ms(torch, lambda: fn(*args, **kwargs))
+            plain_ms += count * device_ms(
+                torch, lambda: plain[name](*args, **kwargs), reps=3)
+            lib_ms += count * device_ms(
+                torch, lm_library(torch, name, args, kwargs))
+            t_bytes, t_ops = bound_ms_of(torch, name, args, kwargs)
+            bound += count * max(t_bytes, t_ops)
+            by_bytes += count * t_bytes * (t_bytes >= t_ops)
+            by_ops += count * t_ops * (t_ops > t_bytes)
+        src, replaces = KERNEL_SOURCES[name]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": int(n),
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound,
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "library_ms": lib_ms, "path": "dense"}
+        tag = name
+        if window is not None:
+            row["window"] = window
+            tag = f"{name} (window {window})"
+        rows.append(row)
+        print(f"dense {tag}: {int(n)} launches over {len(calls)} argument "
+              f"layouts, max abs err {max_err:.3g} (tol {TOL_BF16} bf16); "
+              f"summed over the main path: kernel {ms:.4f} ms on the card "
+              f"({ms / n:.5f} a launch), plain {plain_ms:.4f}, library "
+              f"{lib_ms:.4f} ({lib_ms / n:.5f} a launch), bound "
+              f"{bound:.4f} ({bound / n:.5f} a launch, by {row['bound_by']};"
+              f" {100 * bound / ms:.1f} % of bound reached)  [{card}]")
+    return rows
+
+
+def compare_logits(torch, what, got, want, *, tol=None, scale_tol=None):
+    """Logits (B, positions, V) against a yardstick's: within ``tol``
+    element by element (rtol = atol), or within ``scale_tol`` times the
+    yardstick's largest logit, or not gated where neither is given;
+    prints the max abs diff, its 99.9th percentile and the argmax
+    agreement."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    scale = float(want.abs().max())
+    tail = float(torch.quantile(diff.flatten()[::97], 0.999))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    gate = (f"tol {tol}, rtol = atol" if tol is not None else
+            f"tol {scale_tol} x max |logit| = {scale_tol * scale:.4g}"
+            if scale_tol is not None else "not gated")
+    print(f"dense {what} over {got.shape[1]} positions: max abs diff "
+          f"{err:.4g} ({gate}; logits up to {scale:.3g}), 99.9th percentile "
+          f"{tail:.3g}, argmax agreement {100 * agree:.1f} %")
+    if tol is not None:
+        assert torch.allclose(got, want, rtol=tol, atol=tol), (what, err)
+    elif scale_tol is not None:
+        assert err <= scale_tol * scale, (what, err, scale)
+
+
+def dense_phase(torch, card) -> list[dict]:
+    """Phase 8: the dense-cache LM path (``ModelAPI.prefill`` / ``decode``)
+    on gemma3-12b at its published widths, then the other attention
+    families (see the module docstring).  Returns the ``kernels`` rows of
+    the gemma3 run, keyed ``"path": "dense"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build, layers as L, transformer as T
+
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref}
+    t_phase = time.perf_counter()
+    cfg = ARCHS[DENSE_ARCH].replace(num_layers=DENSE_LAYERS)
+    api = build(cfg)
+    before = torch.cuda.memory_allocated()
+    params = api.init_params(0, DEVICE)
+    torch.cuda.synchronize()
+    print(f"dense: {DENSE_ARCH} {cfg.num_layers} of "
+          f"{ARCHS[DENSE_ARCH].num_layers} layers {cfg.period_pattern}, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x"
+          f" {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, window {cfg.window_size}: "
+          f"{(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB of fp32 "
+          f"parameters, {cfg.dtype} activations and caches")
+    inp = dense_inputs(torch, cfg, DENSE_BATCH, DENSE_PROMPT, DENSE_STEPS)
+    run = lambda steps: dense_generate(torch, api, params, inp,  # noqa: E731
+                                       DENSE_PROMPT, steps, DENSE_SEQ)
+    run(2)                              # warm: cuBLAS's bf16 plans, allocator
+
+    # the main path: counts zeroed just before, read just after
+    originals = {name: getattr(ops, name) for name in LM_KERNELS}
+    with recording(torch, ops, LM_KERNELS) as recorded:
+        kernels.reset_launch_counts()
+        logits, pre_s, step_s, state = run(DENSE_STEPS)
+        launches = kernels.launch_counts()
+    print(f"dense main path launches: {launches}")
+    assert all(launches[k] > 0 for k in LM_KERNELS), launches
+    for name in LM_KERNELS:
+        assert sum(c for _, _, c in recorded[name].values()) \
+            == launches[name], name
+    windows = sorted({kw.get("window", 0)
+                      for _, kw, _ in recorded["flash_attention"].values()})
+    assert windows == [0, cfg.window_size], windows
+    for lg in logits:
+        assert lg.shape == (DENSE_BATCH, cfg.vocab_size)
+        assert torch.isfinite(lg).all()
+    step = np.asarray(step_s)
+    print(f"dense prefill: {DENSE_BATCH} x {DENSE_PROMPT} tokens in "
+          f"{pre_s * 1e3:.3f} ms, "
+          f"{DENSE_BATCH * DENSE_PROMPT / pre_s:.1f} tokens/s  [{card}]")
+    print(f"dense decode: {len(step)} steps at batch {DENSE_BATCH}, best "
+          f"{step.min() * 1e3:.3f} ms, median {np.median(step) * 1e3:.3f} ms"
+          f" a step, {DENSE_BATCH * len(step) / step.sum():.1f} tokens/s  "
+          f"[{card}]")
+
+    # where the time goes: one prefill, one more decode step
+    caches, lengths, _ = state
+    batch = {"tokens": inp["tokens"][:, :DENSE_PROMPT]}
+    fresh = L.init_tree(api.cache_defs(DENSE_BATCH, DENSE_SEQ), 0, DEVICE)
+    for what, fn in (
+            ("prefill", lambda: api.prefill(params, batch, fresh)),
+            ("decode step", lambda: api.decode(
+                params, {"tokens": inp["tokens"][:, -1:],
+                         "lengths": lengths}, caches))):
+        busy, wall, split = profile_split(torch, fn, LM_KERNEL_SYMBOLS)
+        print(f"dense {what} under torch.profiler: card "
+              f"{busy_text(busy, wall)}; device ms by kernel: {split}  "
+              f"[{card}]")
+    del fresh, caches
+
+    # the cached path against the model's own full forward, teacher-forced
+    # over all DENSE_PROMPT + DENSE_STEPS tokens; then in fp32 on the same
+    # parameters, where rounding cannot hide a fault of the path
+    def full_forward(model_cfg, steps):
+        x = L.embed_apply(params["embed"],
+                          inp["tokens"][:, :DENSE_PROMPT + steps], model_cfg)
+        x, _, _ = T.decoder_forward(params, model_cfg, x)
+        return L.logits_apply(params["embed"], x[:, DENSE_PROMPT - 1:],
+                              model_cfg).float()
+
+    cached = torch.stack(logits, dim=1)
+    compare_logits(torch, "bf16 cached vs full forward", cached,
+                   full_forward(cfg, DENSE_STEPS), scale_tol=TOL_BF16)
+    api32 = build(cfg.replace(dtype="float32"))
+    cached32 = torch.stack(dense_generate(
+        torch, api32, params, inp, DENSE_PROMPT, DENSE_FP32_STEPS,
+        DENSE_SEQ)[0], dim=1)
+    compare_logits(torch, "fp32 cached vs full forward", cached32,
+                   full_forward(api32.cfg, DENSE_FP32_STEPS),
+                   tol=DENSE_FP32_TOL)
+    del api32, cached32
+
+    # every kernel against its plain version, timed against its bound
+    rows = dense_rows(torch, card, recorded, originals, plain)
+    del recorded
+
+    # the same run on the plain versions
+    with wrappers_as(ops, plain):
+        plain_logits = torch.stack(run(DENSE_STEPS)[0], dim=1)
+    compare_logits(torch, "bf16 kernels vs plain versions", cached,
+                   plain_logits, scale_tol=TOL_BF16)
+    print(f"dense {DENSE_ARCH}: {time.perf_counter() - t_phase:.1f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, api, inp, logits, plain_logits, cached
+    torch.cuda.empty_cache()
+
+    # the other attention families, two layers each at published widths
+    for name in DENSE_FAMILIES:
+        t0 = time.perf_counter()
+        base = ARCHS[name]
+        cut = {"num_layers": FAMILY_LAYERS}
+        if base.family == "encdec":
+            cut["enc_layers"] = FAMILY_LAYERS
+        cfg = base.replace(**cut)
+        api = build(cfg)
+        params = api.init_params(0, DEVICE)
+        inp = dense_inputs(torch, cfg, FAMILY_BATCH, FAMILY_PROMPT,
+                           FAMILY_STEPS)
+        generate = lambda api_, p_: dense_generate(  # noqa: E731
+            torch, api_, p_, inp, FAMILY_PROMPT, FAMILY_STEPS, FAMILY_SEQ)[0]
+        with recording(torch, ops, LM_KERNELS) as recorded:
+            kernels.reset_launch_counts()
+            logits, pre_s, step_s, _ = dense_generate(
+                torch, api, params, inp, FAMILY_PROMPT, FAMILY_STEPS,
+                FAMILY_SEQ)
+            launches = kernels.launch_counts()
+        assert launches["rmsnorm"] > 0, (name, launches)
+        if cfg.mla is not None:         # MLA's attention is plain torch
+            assert launches["flash_attention"] == 0 and \
+                launches["decode_attention"] == 0, (name, launches)
+        else:
+            assert launches["flash_attention"] > 0 and \
+                launches["decode_attention"] > 0, (name, launches)
+        for lg in logits:
+            assert lg.shape == (FAMILY_BATCH, cfg.vocab_size)
+            assert torch.isfinite(lg).all()
+        errs = {k: max((hold_to_plain(torch, k, originals[k], plain[k], a, kw)
+                        for a, kw, _ in recorded[k].values()), default=0.0)
+                for k in LM_KERNELS}
+        del recorded
+        shape = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
+        if cfg.family == "vlm":
+            shape += f", {cfg.num_patches} patches"
+        if cfg.family == "encdec":
+            shape += f", {cfg.enc_layers} encoder layers"
+        print(f"dense {name} ({shape}): prefill {FAMILY_BATCH} x "
+              f"{FAMILY_PROMPT} in {pre_s * 1e3:.3f} ms, decode median "
+              f"{np.median(step_s) * 1e3:.3f} ms a step (first run, cold); "
+              f"launches {launches}; each kernel call against its plain "
+              f"version, max abs err {errs} (tol {TOL_BF16})  [{card}]")
+        # end to end against the plain versions: in bf16, but not for a
+        # capacity MoE, where one rounding flip reroutes a token and, past
+        # an expert's capacity, drops others; and in fp32 for every family
+        with wrappers_as(ops, plain):
+            plain_logits = generate(api, params)
+        compare_logits(torch, f"{name} bf16 kernels vs plain versions",
+                       torch.stack(logits, 1), torch.stack(plain_logits, 1),
+                       scale_tol=None if cfg.moe is not None else TOL_BF16)
+        api32 = build(cfg.replace(dtype="float32"))
+        logits32 = torch.stack(generate(api32, params), 1)
+        with wrappers_as(ops, plain):
+            plain32 = torch.stack(generate(api32, params), 1)
+        compare_logits(torch, f"{name} fp32 kernels vs plain versions",
+                       logits32, plain32, tol=DENSE_FP32_TOL)
+        print(f"dense {name}: {time.perf_counter() - t0:.1f} s")
+        del params, api, api32, inp, logits, plain_logits, logits32, plain32
+        torch.cuda.empty_cache()
+    print(f"dense phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -1233,7 +1639,10 @@ def main() -> int:
     # ------------------------------------------------ 7. LM path, full width
     rows += lm_phase(torch, card)
 
-    # ------------------------------------------------ 8. result lines
+    # ------------------------------------------------ 8. dense-cache LM path
+    rows += dense_phase(torch, card)
+
+    # ------------------------------------------------ 9. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

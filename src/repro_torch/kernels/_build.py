@@ -46,9 +46,13 @@ SIGNATURES = {
     "repro_rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, *[_L] * 12, _P],
+                                  _I, _F, *[_L] * 12, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, *[_L] * 12, _P],
     "repro_decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _F, _P],
+    "repro_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

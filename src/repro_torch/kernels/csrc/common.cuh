@@ -171,28 +171,31 @@ __device__ __forceinline__ void copy_elem(__nv_bfloat16* dst,
 }
 
 // Whether every row of a matrix at p with a row stride of ld elements
-// starts on a 4-element boundary (16 bytes of fp32, 8 of bf16), so that
-// load_tile_full may copy it: decided from the pointer and the stride.
-template <typename T>
+// starts on a VEC-element boundary (by default 4: 16 bytes of fp32, 8 of
+// bf16), so that load_tile_full may copy it: decided from the pointer and
+// the stride.
+template <typename T, int VEC = 4>
 __device__ __forceinline__ bool rows_aligned(const T* p, int64_t ld) {
-  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0 &&
-         ld % 4 == 0;
+  return reinterpret_cast<uintptr_t>(p) % (VEC * sizeof(T)) == 0 &&
+         ld % VEC == 0;
 }
 
 // Start the copy of a ROWS x COLS tile of T that lies wholly inside the
-// matrix, rows aligned (rows_aligned): one cp.async per 4 elements and no
-// checks.  dst has a row stride of LDS elements, src one of ld.
-template <typename T, int ROWS, int COLS, int LDS, int THREADS>
+// matrix, rows aligned (rows_aligned<T, VEC>): one cp.async per VEC
+// elements (4 by default; at most 16 bytes) and no checks.  dst has a row
+// stride of LDS elements, src one of ld.
+template <typename T, int ROWS, int COLS, int LDS, int THREADS, int VEC = 4>
 __device__ __forceinline__ void load_tile_full(T* dst, const T* src,
                                                int64_t ld, int tid) {
-  static_assert(COLS % 4 == 0 && LDS % 4 == 0, "tiles in chunks of 4");
-  constexpr int kBytes = 4 * static_cast<int>(sizeof(T));
-  constexpr int kPerRow = COLS / 4, kChunks = ROWS * kPerRow;
+  static_assert(COLS % VEC == 0 && LDS % VEC == 0, "tiles in chunks of VEC");
+  constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
+  static_assert(kBytes <= 16, "a cp.async moves at most 16 bytes");
+  constexpr int kPerRow = COLS / VEC, kChunks = ROWS * kPerRow;
 #pragma unroll
   for (int it = 0; it < (kChunks + THREADS - 1) / THREADS; ++it) {
     const int i = tid + it * THREADS;
     if (kChunks % THREADS != 0 && i >= kChunks) break;
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const int r = i / kPerRow, c = (i % kPerRow) * VEC;
     cp_async<kBytes>(dst + r * LDS + c, src + r * ld + c);
   }
 }
@@ -200,32 +203,33 @@ __device__ __forceinline__ void load_tile_full(T* dst, const T* src,
 // Start the copy of a ROWS x COLS tile of T into shared memory (row stride
 // LDS elements) from global memory at src (row stride ld elements), of
 // which the first rows_valid rows and cols_valid columns exist; the rest
-// of the tile is zeroed.  Four elements go in one cp.async wherever the
-// source address is aligned to their size, so the copy width follows the
-// pointer and the row stride, never the number of rows; ragged and
-// unaligned chunks go element by element.  The bits that land are the
-// same either way, and the same as load_tile_full's.
-template <typename T, int ROWS, int COLS, int LDS, int THREADS>
+// of the tile is zeroed.  VEC elements (4 by default) go in one cp.async
+// wherever the source address is aligned to their size, so the copy width
+// follows the pointer and the row stride, never the number of rows;
+// ragged and unaligned chunks go element by element.  The bits that land
+// are the same either way, and the same as load_tile_full's.
+template <typename T, int ROWS, int COLS, int LDS, int THREADS, int VEC = 4>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ld,
                                           int rows_valid, int cols_valid,
                                           int tid) {
-  static_assert(COLS % 4 == 0 && LDS % 4 == 0, "tiles in chunks of 4");
-  constexpr int kBytes = 4 * static_cast<int>(sizeof(T));
-  constexpr int kPerRow = COLS / 4, kChunks = ROWS * kPerRow;
+  static_assert(COLS % VEC == 0 && LDS % VEC == 0, "tiles in chunks of VEC");
+  constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
+  static_assert(kBytes <= 16, "a cp.async moves at most 16 bytes");
+  constexpr int kPerRow = COLS / VEC, kChunks = ROWS * kPerRow;
 #pragma unroll
   for (int it = 0; it < (kChunks + THREADS - 1) / THREADS; ++it) {
     const int i = tid + it * THREADS;
     if (kChunks % THREADS != 0 && i >= kChunks) break;
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const int r = i / kPerRow, c = (i % kPerRow) * VEC;
     T* d = dst + r * LDS + c;
     const T* s = src + r * ld + c;
-    if (r < rows_valid && c + 4 <= cols_valid &&
+    if (r < rows_valid && c + VEC <= cols_valid &&
         reinterpret_cast<uintptr_t>(s) % kBytes == 0) {
       cp_async<kBytes>(d, s);
       continue;
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < VEC; ++e) {
       if (r < rows_valid && c + e < cols_valid) copy_elem(d + e, s + e);
       else zero_as(d + e);
     }

@@ -1,4 +1,5 @@
-// Paged single-token attention, fp32, for sm_90a (one decode step):
+// Paged single-token attention, for sm_90a (one decode step), on fp32 or
+// bf16 q and pages (fp32 arithmetic, the output in q's type):
 // out[b,h,:] = softmax_j(q[b,h,:] . K[b,j,h/G,:] / sqrt(D)) @ V[b,:,h/G,:]
 // over the positions j < lengths[b], where position j of sequence b lives
 // in slot j % ps of physical page page_table[b, j / ps] of the
@@ -35,43 +36,59 @@
 //   with no position, as the TPU kernel's flush gives).
 //
 // Split boundaries sit at multiples of SL, which depends on the pools'
-// ps and D only, and the merge order is fixed: a sequence's output bits
-// do not depend on the batch it rides in or on the page table's padded
-// width.  Pages past the sequence's end are never read; a page id
-// outside the pool masks its slots, as before.
+// ps, D and element size only, and the merge order is fixed: a
+// sequence's output bits do not depend on the batch it rides in or on
+// the page table's padded width.  Pages past the sequence's end are never
+// read; a page id outside the pool masks its slots, as before.
+//
+// bf16 pools (the dense LM path's caches, viewed as pages) stay bf16 in
+// shared memory: a row is D * 2 bytes, a bulk copy where that is a
+// multiple of 16 (D % 8 == 0), rows padded to 8 elements; q widens to
+// fp32 as it is loaded into registers, each K and V load widens 4
+// elements, and the combine rounds the output once, to nearest.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLaneChunks = 4;     // 4-float chunks of q a lane holds a head
+constexpr int kLaneChunks = 4;     // 4-element chunks of q a lane holds a head
 
 // Positions of sequence b that the page table can hold.
 __device__ __forceinline__ int visible(const int* lengths, int b, int cap) {
   return min(max(lengths[b], 0), cap);
 }
 
-// Floats of shared memory below the V rows: the split's K rows, which the
-// P @ V partials of every slot group reuse once the scores are taken.
-__host__ __device__ __forceinline__ int k_region(int sl, int lds, int gt) {
-  const int partials = (kThreads / (lds / 4)) * gt * lds;
-  return sl * lds > partials ? sl * lds : partials;
+// Elements of a shared-memory row of T: D rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ int row_elems(int d) {
+  constexpr int v = 16 / sizeof(T);
+  return (d + v - 1) / v * v;
 }
 
-template <int GT>
+// Bytes of shared memory below the V rows: the split's K rows, which the
+// fp32 P @ V partials of every slot group reuse once the scores are taken.
+template <typename T>
+__host__ __device__ __forceinline__ int k_region(int sl, int lds, int gt) {
+  const int rows = sl * lds * static_cast<int>(sizeof(T));
+  const int partials =
+      (kThreads / (lds / 4)) * gt * lds * static_cast<int>(sizeof(float));
+  return rows > partials ? rows : partials;
+}
+
+template <typename T, int GT>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
-                    const float* __restrict__ vp, const int* __restrict__ pt,
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp, const int* __restrict__ pt,
                     const int* __restrict__ lengths, float* __restrict__ ws,
                     int n_pool, int ps, int hkv, int group, int d, int pp,
                     int pps, int n_split, int lps, float scale) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t landed[2];                  // K rows, V rows (TMA)
-  const int sl = pps * ps, lds = (d + 3) & ~3, chunks = lds / 4;
-  float* ks = smem;                               // [sl][lds]
-  float* vs = ks + k_region(sl, lds, GT);         // [sl][lds]
-  float* sc = vs + sl * lds;                      // [GT][sl]
+  const int sl = pps * ps, lds = row_elems<T>(d), chunks = lds / 4;
+  T* ks = reinterpret_cast<T*>(smem);             // [sl][lds]
+  T* vs = reinterpret_cast<T*>(smem + k_region<T>(sl, lds, GT));  // [sl][lds]
+  float* sc = reinterpret_cast<float*>(vs + sl * lds);            // [GT][sl]
   int* pg = reinterpret_cast<int*>(sc + GT * sl);  // [pps] page ids
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -90,7 +107,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   if (tid < pps) pg[tid] = live_page ? page : -1;
   // rows go by TMA bulk copies where every row is 16-byte aligned, else
   // by 4-byte cp.async; the bulk path's barriers wait for the live rows
-  const bool bulk = d % 4 == 0 && pps <= 32 &&
+  const bool bulk = (d * sizeof(T)) % 16 == 0 && pps <= 32 &&
                     reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(vp) % 16 == 0;
   if (bulk && warp == 0) {
@@ -98,7 +115,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
         0xffffffffu, (tid < pps && live_page) ? min(max(nv - tid * ps, 0), ps)
                                               : 0);
     if (lane == 0) {
-      const unsigned bytes = static_cast<unsigned>(rows) * d * sizeof(float);
+      const unsigned bytes = static_cast<unsigned>(rows) * d * sizeof(T);
       repro_torch::mbar_init(&landed[0], 1);
       repro_torch::mbar_init(&landed[1], 1);
       repro_torch::fence_mbar_init();
@@ -110,7 +127,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   // q of the block's heads into registers before the copies start: lane
   // `sub` of a slot's group holds chunks sub, sub + LPS, ... (zero past D)
   const int sub = lane & (lps - 1);
-  const float* qb =
+  const T* qb =
       q + (static_cast<int64_t>(b) * hkv * group + h * group + g0) * d;
   float4 qr[GT][kLaneChunks];
 #pragma unroll
@@ -121,7 +138,8 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        v[e] = (g < gn && e0 + e < d) ? qb[g * d + e0 + e] : 0.f;
+        v[e] = (g < gn && e0 + e < d)
+                   ? repro_torch::load_f32(qb[g * d + e0 + e]) : 0.f;
       qr[g][j] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
@@ -135,15 +153,15 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   // lands first and the scores overlap V's copy
 #pragma unroll
   for (int half = 0; bulk && half < 2; ++half) {
-    const float* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
-    float* dst = half ? vs : ks;
+    const T* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
+    T* dst = half ? vs : ks;
     for (int i = lane * kWarps + warp; i < nv; i += kThreads) {
       const int pid = pg[i / ps];
       if (pid >= 0) {
         repro_torch::bulk_copy(
             dst + i * lds,
             src + (static_cast<int64_t>(pid) * ps + i % ps) * slot_stride,
-            d * sizeof(float), &landed[half]);
+            d * sizeof(T), &landed[half]);
       } else {
         for (int e = 0; e < d; e += 4)
           repro_torch::store4(dst + i * lds + e,
@@ -153,16 +171,16 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
     if (half == 0) __syncthreads();               // every K copy queued
   }
   for (int half = 0; !bulk && half < 2; ++half) {      // a warp a row
-    const float* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
-    float* dst = half ? vs : ks;
+    const T* src = (half ? vp : kp) + static_cast<int64_t>(h) * d;
+    T* dst = half ? vs : ks;
     for (int i = warp; i < nv; i += kWarps) {
-      float* drow = dst + i * lds;
+      T* drow = dst + i * lds;
       const int pid = pg[i / ps];
-      const float* srow =
+      const T* srow =
           src + (static_cast<int64_t>(pid) * ps + i % ps) * slot_stride;
       for (int e = lane; e < lds; e += 32) {
-        if (pid >= 0 && e < d) repro_torch::cp_async<4>(drow + e, srow + e);
-        else drow[e] = 0.f;
+        if (pid >= 0 && e < d) repro_torch::copy_elem(drow + e, srow + e);
+        else repro_torch::zero_as(drow + e);
       }
     }
     repro_torch::cp_async_commit();               // K, then V: two groups
@@ -181,7 +199,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
     float dot[2][GT];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const float* krow = ks + min(i0 + u * step, nv - 1) * lds;
+      const T* krow = ks + min(i0 + u * step, nv - 1) * lds;
 #pragma unroll
       for (int g = 0; g < GT; ++g) dot[u][g] = 0.f;
 #pragma unroll
@@ -262,7 +280,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
         acc[g].w = fmaf(pr, v4.w, acc[g].w);
       }
     }
-    float* red = ks;                              // [n_grp][GT][lds]
+    float* red = reinterpret_cast<float*>(smem);  // [n_grp][GT][lds]
 #pragma unroll
     for (int g = 0; g < GT; ++g)
       *reinterpret_cast<float4*>(red + (grp * GT + g) * lds + 4 * c) = acc[g];
@@ -271,14 +289,16 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   for (int idx = tid; idx < gn * d; idx += kThreads) {
     const int g = idx / d, e = idx % d;
     float a = 0.f;
-    for (int r = 0; r < n_grp; ++r) a += ks[(r * GT + g) * lds + e];
+    for (int r = 0; r < n_grp; ++r)
+      a += reinterpret_cast<const float*>(smem)[(r * GT + g) * lds + e];
     ws[((head0 + g) * n_split + s) * (d + 2) + 2 + e] = a;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ ws,
-                      const int* __restrict__ lengths, float* __restrict__ out,
+                      const int* __restrict__ lengths, T* __restrict__ out,
                       int hq, int d, int cap, int sl, int n_split) {
   extern __shared__ float ml[];                   // [2][used]: m then l
   const int bq = blockIdx.x;                      // b * Hq + query head
@@ -300,28 +320,29 @@ decode_combine_kernel(const float* __restrict__ ws,
     float a = 0.f;
 #pragma unroll 8
     for (int s = 0; s < used; ++s) a = fmaf(ml[s], w[s * (d + 2) + 2 + e], a);
-    out[static_cast<int64_t>(bq) * d + e] = a / fmaxf(l, 1e-30f);
+    repro_torch::store_as(out + static_cast<int64_t>(bq) * d + e,
+                          a / fmaxf(l, 1e-30f));
   }
 }
 
-template <int GT>
+template <typename T, int GT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* page_table, const void* lengths, void* out, void* ws,
            int b, int hkv, int group, int d, int n_pool, int ps, int pp,
            int pps, float scale, cudaStream_t stream) {
-  const int lds = (d + 3) & ~3, chunks = lds / 4;
+  const int lds = row_elems<T>(d), chunks = lds / 4;
   int lps = 1;                                    // lanes a key slot
   while (lps * kLaneChunks < chunks) lps *= 2;
   const int sl = pps * ps, n_split = (pp + pps - 1) / pps;
-  const size_t bytes = sizeof(float) *
-      (k_region(sl, lds, GT) + sl * lds + GT * sl) + sizeof(int) * pps;
+  const size_t bytes = k_region<T>(sl, lds, GT) + sizeof(T) * sl * lds +
+                       sizeof(float) * GT * sl + sizeof(int) * pps;
   if (n_split > 0) {                              // else: no position
-    int rc = repro_torch::allow_shared(decode_split_kernel<GT>, bytes);
+    int rc = repro_torch::allow_shared(decode_split_kernel<T, GT>, bytes);
     if (rc != 0) return rc;
     const dim3 grid(b * hkv * ((group + GT - 1) / GT), n_split);
-    decode_split_kernel<GT><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages),
+    decode_split_kernel<T, GT><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),
+        static_cast<const T*>(v_pages),
         static_cast<const int*>(page_table), static_cast<const int*>(lengths),
         static_cast<float*>(ws), n_pool, ps, hkv, group, d, pp, pps, n_split,
         lps, scale);
@@ -329,31 +350,45 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     if (rc != 0) return rc;
   }
   const size_t ml_bytes = sizeof(float) * 2 * n_split;
-  const int rc = repro_torch::allow_shared(decode_combine_kernel, ml_bytes);
+  const int rc = repro_torch::allow_shared(decode_combine_kernel<T>,
+                                           ml_bytes);
   if (rc != 0) return rc;
-  decode_combine_kernel<<<b * hkv * group, kThreads, ml_bytes, stream>>>(
+  decode_combine_kernel<T><<<b * hkv * group, kThreads, ml_bytes, stream>>>(
       static_cast<const float*>(ws), static_cast<const int*>(lengths),
-      static_cast<float*>(out), hkv * group, d, pp * ps, sl, n_split);
+      static_cast<T*>(out), hkv * group, d, pp * ps, sl, n_split);
   return repro_torch::launch_status();
+}
+
+template <typename T>
+int run(const void* q, const void* k_pages, const void* v_pages,
+        const void* page_table, const void* lengths, void* out, void* ws,
+        int b, int hkv, int group, int d, int n_pool, int ps, int pp,
+        int pages_per_split, float scale, void* stream) {
+  if (d < 1 || d > 4 * kThreads || pages_per_split < 1 ||
+      pages_per_split > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // G <= 4 exactly, else chunks of 8 query heads a block
+  const auto fn = group == 1 ? &launch<T, 1> : group == 2 ? &launch<T, 2>
+                : group == 3 ? &launch<T, 3> : group == 4 ? &launch<T, 4>
+                : &launch<T, 8>;
+  return fn(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, group,
+            d, n_pool, ps, pp, pages_per_split, scale,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // ws holds b * Hq * ceil(pp / pages_per_split) * (d + 2) floats; d <= 512
 // and pages_per_split <= 128.
-extern "C" int repro_decode_attention_f32(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* lengths, void* out, void* ws, int b,
-    int hkv, int group, int d, int n_pool, int ps, int pp,
-    int pages_per_split, float scale, void* stream) {
-  if (d < 1 || d > 4 * kThreads || pages_per_split < 1 ||
-      pages_per_split > kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // G <= 4 exactly, else chunks of 8 query heads a block
-  const auto run = group == 1 ? &launch<1> : group == 2 ? &launch<2>
-                 : group == 3 ? &launch<3> : group == 4 ? &launch<4>
-                 : &launch<8>;
-  return run(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, group,
-             d, n_pool, ps, pp, pages_per_split, scale,
-             static_cast<cudaStream_t>(stream));
-}
+#define REPRO_DECODE_ENTRY(NAME, T)                                          \
+  extern "C" int NAME(                                                      \
+      const void* q, const void* k_pages, const void* v_pages,              \
+      const void* page_table, const void* lengths, void* out, void* ws,     \
+      int b, int hkv, int group, int d, int n_pool, int ps, int pp,         \
+      int pages_per_split, float scale, void* stream) {                     \
+    return run<T>(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, \
+                  group, d, n_pool, ps, pp, pages_per_split, scale, stream); \
+  }
+
+REPRO_DECODE_ENTRY(repro_decode_attention_f32, float)
+REPRO_DECODE_ENTRY(repro_decode_attention_bf16, __nv_bfloat16)

@@ -5,23 +5,25 @@ Replaces the Pallas kernel ``repro/kernels/decode_attention.py::
 _decode_kernel`` (``pallas_call`` at ``decode_attention.py:90``).  CUDA
 source: ``csrc/decode_attention.cu``.
 
-One new token per sequence: q (B,Hq,D) fp32 against the (P,ps,Hkv,D) K
-and V page pools through page_table (B,PP) int32, masked by lengths (B,)
-int32.  Bound on the H100: bytes (each of the sequence's K and V rows is
-read once for 4*G*D flops per position).  Each sequence's pages are split
-over blocks (flash-decoding): a block owns ``pages_per_split(ps, D)``
-pages of one (batch, KV head), brings their K and V rows into shared
-memory with TMA bulk copies and writes a partial (m, l, acc) for its
-query heads; a combine kernel, launched by the same C call, merges the
-splits in order.
+One new token per sequence: q (B,Hq,D) against the (P,ps,Hkv,D) K and
+V page pools through page_table (B,PP) int32, masked by lengths (B,)
+int32; q and the pools are all fp32 or all bf16 (the dense LM path's
+caches, viewed as pages), fp32 inside, the output in q's dtype.
+Bound on the H100: bytes (each of the sequence's K and V rows is read
+once for 4*G*D flops per position).  Each sequence's pages are split
+over blocks (flash-decoding): a block owns ``pages_per_split(ps, D,
+element size)`` pages of one (batch, KV head), brings their K and V rows
+into shared memory with TMA bulk copies and writes a partial (m, l, acc)
+for its query heads; a combine kernel, launched by the same C call,
+merges the splits in order.
 The grid comes from the page table's width; each block reads its
 sequence's length on the card, so the wrapper never reads ``lengths`` on
 the host.  Pages at or past ``lengths[b]`` are never read, so the page
 table's padding may name any page.  Split boundaries depend on the
-pools' page size and head dim only, so a sequence's output bits do not
-depend on its batch or on the table's padded width.  The TPU kernel's
-scalar-prefetched page table becomes a plain load of the page ids by
-each block.
+pools' page size, head dim and element size only, so a sequence's
+output bits do not depend on its batch or on the table's padded width.
+The TPU kernel's scalar-prefetched page table becomes a plain load of
+the page ids by each block.
 """
 from __future__ import annotations
 
@@ -35,16 +37,20 @@ launches = 0
 PAGES_PER_SPLIT = 4           # pages a block owns: 64 positions at ps = 16
 SPLIT_SMEM = 160 * 1024       # at most this many bytes of K and V rows a block
 MAX_HEAD_DIM = 512
+_ENTRY = {torch.float32: "repro_decode_attention_f32",
+          torch.bfloat16: "repro_decode_attention_bf16"}
 
 
-def pages_per_split(ps: int, d: int) -> int:
+def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
     """Pages of a split: PAGES_PER_SPLIT, halved while the split's K and V
-    rows (D rounded up to 4 floats) would take more than SPLIT_SMEM bytes
-    of shared memory.  A function of the pools' page size and head dim
-    only, so the split boundaries of a sequence never move with its batch
-    or with the page table's width."""
+    rows (D elements of ``elem_size`` bytes, rounded up to 16 bytes) would
+    take more than SPLIT_SMEM bytes of shared memory.  A function of the
+    pools' page size, head dim and element size only, so the split
+    boundaries of a sequence never move with its batch or with the page
+    table's width."""
+    per = 16 // elem_size
     n = PAGES_PER_SPLIT
-    while n > 1 and 2 * n * ps * (-(-d // 4) * 4) * 4 > SPLIT_SMEM:
+    while n > 1 and 2 * n * ps * (-(-d // per) * per) * elem_size > SPLIT_SMEM:
         n //= 2
     return n
 
@@ -62,10 +68,11 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          "kernel takes CUDA tensors and the plain version "
                          "CPU ones")
     dev, f32, i32 = q.device, torch.float32, torch.int32
-    _build.check("decode_attention", "q", q, dtype=f32, ndim=3, device=dev)
-    _build.check("decode_attention", "k_pages", k_pages, dtype=f32, ndim=4,
+    dt = q.dtype if q.dtype in _ENTRY else f32
+    _build.check("decode_attention", "q", q, dtype=dt, ndim=3, device=dev)
+    _build.check("decode_attention", "k_pages", k_pages, dtype=dt, ndim=4,
                  device=dev)
-    _build.check("decode_attention", "v_pages", v_pages, dtype=f32, ndim=4,
+    _build.check("decode_attention", "v_pages", v_pages, dtype=dt, ndim=4,
                  device=dev)
     _build.check("decode_attention", "page_table", page_table, dtype=i32,
                  ndim=2, device=dev)
@@ -87,12 +94,12 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    pps = pages_per_split(ps, d)
+    pps = pages_per_split(ps, d, q.element_size())
     n_split = -(-pp // pps)
     ws = torch.empty(b * hq * n_split * (d + 2), dtype=f32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
-        rc = lib.repro_decode_attention_f32(
+        rc = getattr(lib, _ENTRY[dt])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             ws.data_ptr(), b, hkv, hq // hkv, d, n_pool, ps, pp, pps,

@@ -1,14 +1,19 @@
-"""Flash attention (causal or full, online softmax) for prefill, on Hopper.
+"""Flash attention (causal, full or sliding-window; online softmax) for
+prefill, on Hopper.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
 _flash_kernel`` (``pallas_call`` at ``flash_attention.py:98``).  CUDA
 source: ``csrc/flash_attention.cu``.
 
-q (B,Hq,T,D), k/v (B,Hkv,S,D) fp32, GQA by index (query head h reads KV
-head h // (Hq/Hkv)); causal means key j is visible to query i when
-j <= i.  Bound on the H100: operations at prefill shapes (about
-4*T*S*D/2 fp32 flops per head against 67 TFLOP/s; TF32 would miss the
-reference's 3e-5).  One block per (batch*head, 32 queries; 16 at
+q (B,Hq,T,D), k/v (B,Hkv,S,D), all fp32 or all bf16 (the TPU kernel
+takes any float dtype, widens to fp32 on load and writes q's dtype; so
+does this one), GQA by index (query head h reads KV head h // (Hq/Hkv));
+causal means key j is visible to query i when j <= i, and ``window > 0``
+adds i - j < window (gemma3's local layers).  Bound on the H100:
+operations at prefill shapes (about 4*T*S*D/2 flops per head over the
+visible pairs, against 67 TFLOP/s of fp32, or the bf16 peak for bf16
+inputs; TF32 would miss the reference's 3e-5); a window also skips the
+key tiles below it.  One block per (batch*head, 32 queries; 16 at
 D = 256) walks the key tiles up to the diagonal with the softmax state
 in registers (the TPU kernel carried it across its in-order grid
 instead), in two parts that take alternate key tiles and combine their
@@ -30,6 +35,8 @@ from .ref import attention_ref
 launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)     # head dims with a compiled kernel
+_ENTRY = {torch.float32: "repro_flash_attention_f32",
+          torch.bfloat16: "repro_flash_attention_bf16"}
 QUERY_TILE = 16                        # fewest query rows a block (D = 256)
 
 
@@ -37,9 +44,9 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"flash_attention: {name} is on {t.device}, "
                          f"expected {device}")
-    if t.dtype != torch.float32:
+    if t.dtype not in _ENTRY:
         raise TypeError(f"flash_attention: {name} has dtype {t.dtype}; the "
-                        "kernel takes float32")
+                        f"kernel takes {' or '.join(map(str, _ENTRY))}")
     if t.dim() != 4 or t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name} must be 4-d with a "
                          f"contiguous last dim, got {tuple(t.shape)} "
@@ -47,17 +54,22 @@ def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q (B,Hq,T,D); k,v (B,Hkv,S,D) with Hq % Hkv == 0 -> (B,Hq,T,D)."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,Hq,T,D); k,v (B,Hkv,S,D) with Hq % Hkv == 0 -> (B,Hq,T,D) in
+    q's dtype; ``window > 0`` hides keys ``window`` or more positions
+    before the query."""
     global launches
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device}; the "
                          "kernel takes CUDA tensors and the plain version "
                          "CPU ones")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.device)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attention: dtypes q {q.dtype} k {k.dtype} "
+                        f"v {v.dtype} differ")
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if (tuple(v.shape) != tuple(k.shape) or k.shape[0] != b
@@ -76,10 +88,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = [x for tensor in (q, k, v, out) for x in tensor.stride()[:3]]
     lib = _build.library()
     with torch.cuda.device(q.device):
-        rc = lib.repro_flash_attention_f32(
+        rc = getattr(lib, _ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, t, s, d, int(causal), 1.0 / d ** 0.5, *strides,
-            _build.stream(q.device))
+            hkv, t, s, d, int(causal), max(int(window), 0), 1.0 / d ** 0.5,
+            *strides, _build.stream(q.device))
     _build.raise_on(rc, "flash_attention")
     launches += 1
     return out

@@ -82,19 +82,22 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """(B,H,T,D) x (B,Hkv,S,D) -> (B,H,T,D); GQA by head repeat (head h
-    reads KV head h // (H/Hkv)); causal means key j is visible to query i
-    when j <= i."""
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B,H,T,D) x (B,Hkv,S,D) -> (B,H,T,D) in q's dtype, fp32 inside; GQA
+    by head repeat (head h reads KV head h // (H/Hkv)); causal means key j
+    is visible to query i when j <= i, and ``window > 0`` adds
+    i - j < window."""
     hq, t, d = q.shape[1:]
     rep = hq // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * d ** -0.5
+    tt = torch.arange(t, device=q.device)[:, None]
+    ss = torch.arange(k.shape[2], device=q.device)[None, :]
     if causal:
-        tt = torch.arange(t, device=q.device)[:, None]
-        ss = torch.arange(k.shape[2], device=q.device)[None, :]
         s = torch.where(tt >= ss, s, NEG_INF)
+    if window > 0:
+        s = torch.where(tt - ss < window, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bhsd->bhtd", p, v.float()).to(q.dtype)
 

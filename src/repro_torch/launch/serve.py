@@ -51,7 +51,7 @@ class PagedLM:
         period = len(self.cfg.period_pattern)
         if idx < self.cfg.n_periods * period:
             pos, per = idx % period, idx // period
-            return L.tree_map(lambda x: x[per], self.params["stack"][pos]), \
+            return L.take_layer(self.params["stack"][pos], per), \
                 self.cfg.period_pattern[pos]
         pos = idx - self.cfg.n_periods * period
         return self.params["rem"][pos], self.cfg.remainder_kinds[pos]

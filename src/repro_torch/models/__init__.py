@@ -1,4 +1,5 @@
-"""LM models on tensors: the attention/MLP decoder LMs (see ``api``)."""
+"""LM models on tensors: the attention-mixer families, decoder,
+VLM and encoder-decoder (see ``api``)."""
 from . import layers
 from .api import ModelAPI, build
 

@@ -1,7 +1,9 @@
-"""Model API for the LM path: parameter defs and parameters on a device.
+"""Unified model API for the LM paths: parameter defs, parameters on a
+device, cache defs, and the prefill/decode functions over dense caches.
 
 Counterpart of ``repro/models/api.py`` (``ModelAPI.param_defs``,
-``init_params``, ``build``).  Two ways to get parameters:
+``init_params``, ``cache_defs``, ``prefill``, ``decode``, ``build``).  Two
+ways to get parameters:
 
 * :meth:`ModelAPI.init_params` materialises the reference's shapes,
   inits, scales and dtypes on a device from an explicit
@@ -10,8 +12,9 @@ Counterpart of ``repro/models/api.py`` (``ModelAPI.param_defs``,
   (nested dicts and tuples of arrays, the stacked period axis kept) into
   the port, so both packages compute the same function.
 
-Encoder-decoder families and the train/prefill/decode functions over a
-dense cache wait for their ROADMAP items.
+Caches are ``layers.init_tree(api.cache_defs(b, s), 0, device)``; prefill
+and decode write them in place and return them.  Training and the
+dry-run specs wait for their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from . import encdec as E
 from . import layers as L
 from . import transformer as T
+from .vlm import vlm_prefill
 
 
 @dataclass
@@ -33,7 +38,7 @@ class ModelAPI:
 
     def param_defs(self):
         if self.cfg.family == "encdec":
-            raise T._not_ported("the encoder-decoder family")
+            return E.encdec_param_defs(self.cfg, self.tp)
         return T.decoder_param_defs(self.cfg, self.tp)
 
     def init_params(self, seed: int = 0, device=None):
@@ -55,6 +60,36 @@ class ModelAPI:
                 device=dev, dtype=getattr(torch, d.dtype))
 
         return L.tree_map(leaf, self.param_defs(), tree)
+
+    # ---------------------------------------------------------------- cache
+    def cache_defs(self, batch: int, seq: int, *, long_mode: bool = False):
+        """ParamDefs of the dense caches (zeros, ``cfg.dtype``); a VLM's
+        seq covers its patches, which are part of the prefill."""
+        if self.cfg.family == "encdec":
+            return E.encdec_cache_defs(self.cfg, batch, seq, tp=self.tp)
+        return T.decoder_cache_defs(self.cfg, batch, seq, tp=self.tp,
+                                    long_mode=long_mode)
+
+    # ------------------------------------------------------------ functions
+    def prefill(self, params, batch, caches):
+        """(last logits, caches), and the encoder's output for encdec."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return E.encdec_prefill(params, cfg, batch["frames"],
+                                    batch["tokens"], caches)
+        if cfg.family == "vlm":
+            return vlm_prefill(params, cfg, batch["patches"],
+                               batch["tokens"], caches)
+        return T.lm_prefill(params, cfg, batch["tokens"], caches)
+
+    def decode(self, params, batch, caches):
+        """One step: (logits, caches)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return E.encdec_decode(params, cfg, batch["tokens"], caches,
+                                   batch["lengths"], batch["enc_out"])
+        return T.lm_decode(params, cfg, batch["tokens"], caches,
+                           batch["lengths"])
 
 
 def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:

@@ -1,27 +1,42 @@
-"""Model substrate for the LM path: ParamDef-driven parameters and the
-attention / MLP / embedding building blocks, on tensors.
+"""Model substrate for the LM paths: ParamDef-driven parameters and the
+attention / MLA / MLP / MoE / embedding building blocks, on tensors.
 
-Counterpart of ``repro/models/layers.py`` for the decoder LMs whose
-layers are attention and MLP.  Parameters are declared as ``ParamDef``
-trees (nested dicts and tuples, as in the reference) and materialised on
-a device.  The port's mesh (``launch/mesh.py``) serves the GNN engine
-only; the LM path is not sharded, so the reference's ``shard()``
-constraints are the identity and are left out, and the PartitionSpecs
-of each ``ParamDef`` with them; ``tp`` stays an argument of the defs
+Counterpart of ``repro/models/layers.py``.  Parameters are declared as
+``ParamDef`` trees (nested dicts and tuples, as in the reference) and
+materialised on a device.  The port's mesh (``launch/mesh.py``) serves
+the GNN engine only; the LM path is not sharded, so the reference's
+``shard()`` constraints are the identity and are left out, and the
+PartitionSpecs of each ``ParamDef`` with them (``moe_apply`` is the
+reference's no-mesh branch); ``tp`` stays an argument of the defs
 because it decides head padding.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``
-is the rmsnorm kernel, and ``_sdpa`` on a CUDA tensor is the
-flash_attention kernel.  On CPU tensors both are their plain versions.
+is the rmsnorm kernel, and on a CUDA tensor ``_sdpa`` is the
+flash_attention kernel (prefill, encoder, cross-attention; causal, full
+or windowed) or the decode_attention kernel over the dense cache viewed
+as pages (decode, and the local layers' ring), and raises for anything
+else.  On CPU tensors both are their plain versions.  MLA's attention
+(two score products summed, a rope key shared by the heads, a value dim
+unlike the qk dim) and MoE's dispatch and combine match neither kernel;
+the reference computes them in ``jnp`` outside any Pallas kernel, so
+they stay plain torch on the card, like the projections.
 
-JAX promotes a bf16 activation times an fp32 weight to fp32, and torch's
-matmul does not promote: :func:`einsum` casts both operands to the
-promoted type first, where the reference's einsums promote.
+The dense caches are written in place: ``attn_apply`` and ``mla_apply``
+put the new KV rows into the cache tensors they are given (a scatter for
+per-sequence offsets, ``copy_`` for a prefill or the ring's roll) and
+return the same tree, where the reference returns an updated copy.
+
+The dense path casts each weight to the activation's dtype before its
+product, as the reference does (bf16 products for a bf16 model).
+``PagedLM`` promotes instead, as JAX promotes a bf16 activation times an
+fp32 weight to fp32: :func:`einsum` casts both operands to the promoted
+type first.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from math import gcd
 
 import numpy as np
 import torch
@@ -85,6 +100,12 @@ def stack_defs(defs, n: int):
     return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape)), defs)
 
 
+def take_layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: a view of each leaf, so a cache
+    written through it is written in the stack."""
+    return tree_map(lambda a: a[i], tree)
+
+
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` with JAX's dtype promotion (bf16 x fp32 -> fp32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
@@ -94,8 +115,8 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ norms
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * w in fp32, in x's dtype: the rmsnorm
-    kernel on the card."""
-    return K.rmsnorm(x, w, eps=eps)
+    kernel on the card (over a contiguous copy of a strided x)."""
+    return K.rmsnorm(x.contiguous(), w, eps=eps)
 
 
 def norm_def(d: int) -> ParamDef:
@@ -156,6 +177,17 @@ def attn_defs(cfg, tp: int) -> dict:
     }
 
 
+def _head_mask(out: torch.Tensor, h_real: int, kvh: int = 1) -> torch.Tensor:
+    """Zero the padded heads of (..., H_pad, hd) attention output: real
+    head i occupies slot (i // g) * g_pad + (i % g)."""
+    hp = out.shape[-2]
+    if hp == h_real:
+        return out
+    g, gp = h_real // kvh, hp // kvh
+    mask = ((torch.arange(hp, device=out.device) % gp) < g).to(out.dtype)
+    return out * mask[:, None]
+
+
 def _is_scalar(q_pos0) -> bool:
     return not isinstance(q_pos0, torch.Tensor) or q_pos0.dim() == 0
 
@@ -182,39 +214,89 @@ _CHUNK_Q_ABOVE = 1024       # stream softmax over q chunks beyond this T
 _CHUNK_Q = 512
 
 
-def _sdpa_core(q, k, v, *, causal, window, q_pos0, kv_len, dtype):
-    """The plain masked attention: scores and the PV product in fp32 over
-    the operands' own values (bf16 operands widen exactly)."""
-    b, t, kvh, g, hd = q.shape
-    s = k.shape[1]
-    scale = 1.0 / np.sqrt(hd)
+def _masked_softmax_pv(q, k, v, mask, dtype):
+    """The plain attention under a (B, t, s) visibility mask: scores and
+    the PV product in fp32 over the operands' own values (bf16 operands
+    widen exactly), the probabilities rounded to v's dtype first, as the
+    reference's bf16-native einsums do."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
     scores = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float()) * scale
-    mask = _attn_mask(b, t, s, causal=causal, window=window, q_pos0=q_pos0,
-                      kv_len=kv_len, device=q.device)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(), v.float())
     return out.to(dtype or q.dtype)
 
 
+def _sdpa_core(q, k, v, *, causal, window, q_pos0, kv_len, dtype):
+    b, t = q.shape[:2]
+    mask = _attn_mask(b, t, k.shape[1], causal=causal, window=window,
+                      q_pos0=q_pos0, kv_len=kv_len, device=q.device)
+    return _masked_softmax_pv(q, k, v, mask, dtype)
+
+
+def _cache_as_pages(q, kc, vc, lengths, dtype):
+    """decode_attention over a dense cache: q (B,1,KVH,G,hd) against kc/vc
+    (B,S,KVH,hd), positions >= lengths[b] (B,) masked.  The cache, viewed
+    as (B*S/ps, ps, KVH, hd) with ps = gcd(S, 16), is a page pool in which
+    sequence b owns pages b*S/ps .. (b+1)*S/ps - 1 in order; the page
+    table is built on the card, so nothing is read back to the host."""
+    b, t, kvh, g, hd = q.shape
+    s = kc.shape[1]
+    for name, c in (("k", kc), ("v", vc)):
+        if not c.is_contiguous():
+            raise ValueError(f"attention over a dense cache: the {name} "
+                             f"cache {tuple(c.shape)} with strides "
+                             f"{c.stride()} is not contiguous, so it has no "
+                             "page view")
+    ps = gcd(s, 16)
+    n = s // ps
+    ar = torch.arange(n, dtype=torch.int32, device=q.device)
+    table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None] * n \
+        + ar[None, :]
+    out = K.decode_attention(q.reshape(b, kvh * g, hd),
+                             kc.view(b * n, ps, kvh, hd),
+                             vc.view(b * n, ps, kvh, hd), table,
+                             lengths.to(torch.int32))
+    return out.reshape(b, 1, kvh, g, hd).to(dtype or q.dtype)
+
+
 def _sdpa_on_card(q, k, v, *, causal, window, q_pos0, kv_len, dtype):
-    """The flash_attention kernel over the (B,T,KVH,G,hd) activations in
-    place (head h = kvh*G + g reads KV head h // G)."""
+    """``_sdpa`` on the card, routed by its arguments:
+
+    * no ``kv_len`` and ``q_pos0 == 0`` (prefill, a full forward, the
+      encoder, cross-attention): the flash_attention kernel over the
+      (B,T,KVH,G,hd) activations in place (head h = kvh*G + g reads KV
+      head h // G), causal or full, with the window;
+    * one query with ``kv_len`` and no window (decode over a dense
+      cache): the decode_attention kernel over the cache viewed as
+      pages, lengths = kv_len, or min(kv_len, q_pos0 + 1) when causal;
+    * anything else raises ``NotImplementedError``: neither kernel
+      computes it, and nothing falls back to the plain version."""
+    b, t, kvh, g, hd = q.shape
+    if kv_len is None:
+        if not _is_scalar(q_pos0) or int(q_pos0) != 0:
+            raise NotImplementedError(
+                "attention on the card at a query offset q_pos0 without "
+                "kv_len: neither attention kernel computes it")
+        qh = q.reshape(b, t, kvh * g, hd).permute(0, 2, 1, 3)  # (B,H,T,hd)
+        out = K.flash_attention(qh, k.permute(0, 2, 1, 3),
+                                v.permute(0, 2, 1, 3), causal=causal,
+                                window=window or 0)
+        return out.permute(0, 2, 1, 3).reshape(b, t, kvh, g, hd).to(
+            dtype or q.dtype)
+    if t != 1:
+        raise NotImplementedError(
+            f"attention on the card over a cache (kv_len) at {t} query "
+            "positions: the decode_attention kernel takes one")
     if window and window > 0:
         raise NotImplementedError(
-            "sliding-window (local) attention on the card is not ported "
-            "yet: see ROADMAP.md, 'Sliding-window flash attention'")
-    if kv_len is not None or not _is_scalar(q_pos0) or int(q_pos0) != 0:
-        raise NotImplementedError(
-            "attention over a dense KV cache (kv_len, q_pos0) is not ported "
-            "yet: see ROADMAP.md, 'Other model families and the dense-cache "
-            "path'")
-    b, t, kvh, g, hd = q.shape
-    qh = q.reshape(b, t, kvh * g, hd).permute(0, 2, 1, 3)   # (B,H,T,hd) view
-    out = K.flash_attention(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                            causal=causal)
-    return out.permute(0, 2, 1, 3).reshape(b, t, kvh, g, hd).to(
-        dtype or q.dtype)
+            f"decode attention on the card with a window ({window}) over "
+            "a dense cache: the local layers' ring takes no window")
+    lengths = kv_len
+    if causal:
+        lengths = torch.minimum(kv_len, torch.as_tensor(
+            q_pos0, device=q.device) + 1)
+    return _cache_as_pages(q, k, v, lengths, dtype)
 
 
 def _sdpa(q, k, v, *, causal, window, q_pos0=0, kv_len=None, dtype=None):
@@ -222,11 +304,10 @@ def _sdpa(q, k, v, *, causal, window, q_pos0=0, kv_len=None, dtype=None):
 
     ``window > 0``: sliding-window (local) causal attention.
     ``kv_len`` (B,) masks cache positions >= length (decode).
-    On a CUDA tensor this is the flash_attention kernel (causal or full,
-    ``window == 0``, ``q_pos0 == 0``, no ``kv_len``: prefill); anything
-    else there raises ``NotImplementedError``.  On the CPU, long
-    sequences stream over q chunks as in the reference, so the score
-    matrix peak is (cq, S), not (T, S).
+    On a CUDA tensor this is a kernel (see :func:`_sdpa_on_card`) or a
+    ``NotImplementedError``.  On the CPU, long sequences stream over q
+    chunks as in the reference, so the score matrix peak is (cq, S), not
+    (T, S).
     """
     if q.device.type == "cuda":
         return _sdpa_on_card(q, k, v, causal=causal, window=window,
@@ -240,6 +321,220 @@ def _sdpa(q, k, v, *, causal, window, q_pos0=0, kv_len=None, dtype=None):
                        dtype=dtype)
             for i in range(0, t, _CHUNK_Q)]
     return torch.cat(outs, dim=1)
+
+
+def _sdpa_mask(q, k, v, mask, dtype=None):
+    """Attention with an explicit (B, t, s) visibility mask (bf16-native);
+    the plain version only: on the card the ring's decode is
+    :func:`_ring_attention`'s page view."""
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            "attention under an explicit mask on the card: neither "
+            "attention kernel computes it")
+    return _masked_softmax_pv(q, k, v, mask, dtype)
+
+
+def _ring_attention(q, kc, vc, off):
+    """A local layer's decode: the one query of each sequence, at position
+    ``off`` (B,), against its ring of w slots after that position's write.
+    The reference's visibility (``_sdpa_mask`` over each slot's absolute
+    position) reduces to "slot j was written", that is j < min(off + 1,
+    w), and softmax ignores the order of the slots: on the card this is
+    the decode_attention kernel over the ring viewed as pages."""
+    w = kc.shape[1]
+    if q.device.type == "cuda":
+        return _cache_as_pages(q, kc, vc, torch.clamp(off + 1, max=w), None)
+    n = off + 1                                   # tokens now cached
+    j = torch.arange(w, device=q.device)[None, :]  # ring slots
+    abs_pos = j + torch.div(n[:, None] - 1 - j, w, rounding_mode="floor") * w
+    q_pos = off[:, None]
+    visible = (abs_pos >= 0) & (abs_pos < n[:, None]) \
+        & (abs_pos <= q_pos) & (q_pos - abs_pos < w)
+    return _sdpa_mask(q, kc, vc, visible[:, None, :])
+
+
+def _batched_update(cache, new, offsets):
+    """Per-sequence write offsets (decode with ragged lengths), in place:
+    new (B,t,...) into cache (B,S,...) from offsets (B,), each start
+    clamped so that the write fits, as ``dynamic_update_slice`` clamps.
+    Returns ``cache``."""
+    b, t = new.shape[:2]
+    start = torch.clamp(offsets.long(), 0, cache.shape[1] - t)
+    pos = start[:, None] + torch.arange(t, device=cache.device)[None, :]
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cache[rows, pos] = new.to(cache.dtype)
+    return cache
+
+
+def attn_decode_pos(cache_len, b, *, device=None):
+    """Each sequence's write offset (B,) int32: ``cache_len`` itself, or a
+    scalar broadcast (a Python int needs ``device``)."""
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.dim() == 0:
+            return cache_len.to(torch.int32).expand(b)
+        return cache_len
+    return torch.full((b,), int(cache_len), dtype=torch.int32, device=device)
+
+
+def attn_cache_defs(cfg, batch: int, seq: int, *, tp: int,
+                    long_mode: bool = False) -> dict:
+    """Decode KV-cache defs (the reference's ``long_mode`` changes only
+    its sharding, which the port does not have)."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": ParamDef((batch, seq, kvh, hd), init="zeros",
+                          dtype=cfg.dtype),
+            "v": ParamDef((batch, seq, kvh, hd), init="zeros",
+                          dtype=cfg.dtype)}
+
+
+def attn_apply(p, x, cfg, *, kind="attn", causal=True, positions=None,
+               cache=None, cache_len=None, kv_override=None, kv_len=None):
+    """GQA attention.  Returns (y, cache).
+
+    Modes: plain (cache=None), prefill (cache + t>1, fills from offset 0),
+    decode (cache + t==1, per-sequence offsets ``cache_len`` (B,)).
+    ``local`` layers keep a **ring cache** of size window.
+    kv_override: precomputed (k, v) for cross-attention (with ``kv_len``).
+    The cache's tensors are written in place and returned.
+    """
+    b, t, d = x.shape
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    h = p["wq"].shape[1]                  # padded head count (>= cfg heads)
+    g = h // kvh
+    window = cfg.window_size if kind == "local" else 0
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = torch.einsum("btd,dhk->bthk", xn, p["wq"].to(xn.dtype))
+
+    if kv_override is not None:                      # ---- cross-attention
+        k, v = kv_override
+        qg = q.reshape(b, t, kvh, g, hd)
+        out = _sdpa(qg, k, v, causal=False, window=0, kv_len=kv_len)
+        out = _head_mask(out.reshape(b, t, h, hd), cfg.num_heads, kvh)
+        y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(out.dtype))
+        return x + y, cache
+
+    k = torch.einsum("btd,dhk->bthk", xn, p["wk"].to(xn.dtype))
+    v = torch.einsum("btd,dhk->bthk", xn, p["wv"].to(xn.dtype))
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    if kind != "nope":
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    qg = q.reshape(b, t, kvh, g, hd)
+
+    if cache is None:                                # ---- plain (train)
+        out = _sdpa(qg, k, v, causal=causal, window=window)
+    elif t > 1:                                      # ---- prefill
+        out = _sdpa(qg, k, v, causal=causal, window=window)
+        w = cache["k"].shape[1]
+        if kind == "local" and t >= w:               # the ring's layout
+            shift = (t - w) % w
+            cache["k"].copy_(torch.roll(k[:, -w:], shifts=shift, dims=1))
+            cache["v"].copy_(torch.roll(v[:, -w:], shifts=shift, dims=1))
+        else:
+            cache["k"][:, :t].copy_(k)
+            cache["v"][:, :t].copy_(v)
+    else:                                            # ---- decode (t == 1)
+        off = attn_decode_pos(cache_len, b, device=x.device)
+        if kind == "local":
+            w = cache["k"].shape[1]
+            kc = _batched_update(cache["k"], k, off % w)
+            vc = _batched_update(cache["v"], v, off % w)
+            out = _ring_attention(qg, kc, vc, off)
+        else:
+            kc = _batched_update(cache["k"], k, off)
+            vc = _batched_update(cache["v"], v, off)
+            out = _sdpa(qg, kc, vc, causal=True, window=0,
+                        q_pos0=off, kv_len=off + 1)
+    out = _head_mask(out.reshape(b, t, h, hd), cfg.num_heads, kvh)
+    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(out.dtype))
+    return x + y, cache
+
+
+# ===================================================================== MLA
+def mla_defs(cfg, tp: int) -> dict:
+    m = cfg.mla
+    d = cfg.d_model
+    h = padded_heads(cfg.num_heads, 1, tp)
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": ParamDef((d, m.q_lora_rank)),
+        "q_ln": norm_def(m.q_lora_rank),
+        "wuq": ParamDef((m.q_lora_rank, h, qd)),
+        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_ln": norm_def(m.kv_lora_rank),
+        "wukv": ParamDef((m.kv_lora_rank, h,
+                          m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": ParamDef((h, m.v_head_dim, d)),
+        "ln": norm_def(d),
+    }
+
+
+def _write_rows(cache, new, off):
+    """``new`` (B,t,...) into ``cache`` from offset ``off``: a scalar for
+    every sequence, or (B,) each its own."""
+    if _is_scalar(off):
+        off = int(off)
+        cache[:, off:off + new.shape[1]].copy_(new)
+        return cache
+    return _batched_update(cache, new, off)
+
+
+def mla_apply(p, x, cfg, *, positions=None, cache=None, cache_len=None):
+    """Multi-head latent attention; the cache stores the *compressed* KV
+    (c_kv + shared k_rope), written in place.  Plain torch on the card
+    apart from its three norms (see the module docstring)."""
+    m = cfg.mla
+    b, t, d = x.shape
+    h = p["wuq"].shape[1]                 # padded head count
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    cq = rms_norm(torch.einsum("btd,dr->btr", xn, p["wdq"].to(xn.dtype)),
+                  p["q_ln"], cfg.norm_eps)
+    q = torch.einsum("btr,rhk->bthk", cq, p["wuq"].to(cq.dtype))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = torch.einsum("btd,dr->btr", xn, p["wdkv"].to(xn.dtype))
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
+    k_rope = dkv[..., m.kv_lora_rank:]                 # (B,T,rope_d) shared
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+    q_pos0, kv_len = 0, None
+    if cache is not None:
+        off = cache_len if cache_len is not None else 0
+        ckv = _write_rows(cache["ckv"], ckv, off)
+        k_rope = _write_rows(cache["krope"], k_rope, off)
+        q_pos0 = off
+        kv_len = off + t
+        if _is_scalar(kv_len):
+            kv_len = torch.full((b,), int(kv_len), dtype=torch.int32,
+                                device=x.device)
+    kv = torch.einsum("bsr,rhk->bshk", ckv.to(x.dtype), p["wukv"].to(x.dtype))
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    scale = 1.0 / np.sqrt(nope + rope_d)
+    scores = (torch.einsum("bthk,bshk->bhts", q_nope.float(), k_nope.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
+                             k_rope.float())) * scale
+    mask = _attn_mask(b, t, k_nope.shape[1], causal=True, window=0,
+                      q_pos0=q_pos0, kv_len=kv_len, device=x.device)
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshk->bthk", pr.to(v.dtype).float(), v.float())
+    out = _head_mask(out.to(x.dtype), cfg.num_heads)
+    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+    return x + y, cache
+
+
+def mla_cache_defs(cfg, batch: int, seq: int, *, tp: int,
+                   long_mode: bool = False) -> dict:
+    m = cfg.mla
+    return {"ckv": ParamDef((batch, seq, m.kv_lora_rank), init="zeros",
+                            dtype=cfg.dtype),
+            "krope": ParamDef((batch, seq, m.qk_rope_head_dim), init="zeros",
+                              dtype=cfg.dtype)}
 
 
 # ===================================================================== MLP
@@ -261,6 +556,91 @@ def mlp_apply(p, x, cfg):
     h = a * u
     y = torch.einsum("btf,fd->btd", h, p["w_out"].to(h.dtype))
     return x + y
+
+
+# ===================================================================== MoE
+def moe_defs(cfg, tp: int) -> dict:
+    mc = cfg.moe
+    d = cfg.d_model
+    f = mc.d_ff or cfg.d_ff
+    e = mc.num_experts
+    defs = {
+        "router": ParamDef((d, e)),
+        "w_gate": ParamDef((e, d, f)),
+        "w_in": ParamDef((e, d, f)),
+        "w_out": ParamDef((e, f, d)),
+        "ln": norm_def(d),
+    }
+    if mc.num_shared:
+        defs["shared"] = {
+            "w_gate": ParamDef((d, mc.num_shared * f)),
+            "w_in": ParamDef((d, mc.num_shared * f)),
+            "w_out": ParamDef((mc.num_shared * f, d)),
+        }
+    return defs
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, a tie to the
+    lower index (a stable descending sort; ``torch.topk`` promises no
+    order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_local(xl, router, wg, wi, wo, *, cfg):
+    """Capacity-based top-k dispatch, expert MLPs and combine over the
+    tokens of ``xl`` (B,T,D); returns (y, aux).  A token past an expert's
+    capacity is dropped: its row goes to a spare last row of the buffer,
+    which is cut off, where the reference's scatter drops the write."""
+    mc = cfg.moe
+    bl, t, d = xl.shape
+    nl = bl * t
+    e, k = mc.num_experts, mc.top_k
+    cap = max(8, int(mc.capacity_factor * nl * k / e))
+    xn = xl.reshape(nl, d)
+    probs = torch.softmax(xn.float() @ router.float(), dim=-1)
+    gates, idx = _top_k(probs, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    ce = torch.bincount(idx.reshape(-1), minlength=e).float() / (nl * k)
+    aux = e * torch.sum(me * ce)
+
+    flat = idx.reshape(nl * k)
+    oh = F.one_hot(flat, e)
+    ranks = torch.cumsum(oh, dim=0) - oh
+    rank = ranks.gather(1, flat[:, None])[:, 0].reshape(nl, k)
+    keep = rank < cap
+    slot = idx * cap + rank
+    buf = xn.new_zeros((e * cap + 1, d))
+    for j in range(k):
+        dest = torch.where(keep[:, j], slot[:, j], e * cap)
+        buf[dest] = xn * keep[:, j, None].to(xn.dtype)
+    eb = buf[:e * cap].reshape(e, cap, d)
+    hg = _act(cfg.act)(torch.einsum("ecd,edf->ecf", eb, wg.to(eb.dtype)))
+    hu = torch.einsum("ecd,edf->ecf", eb, wi.to(eb.dtype))
+    ob = torch.einsum("ecf,efd->ecd", hg * hu,
+                      wo.to(eb.dtype)).reshape(e * cap, d)
+    y = torch.zeros_like(xn)
+    for j in range(k):
+        src = torch.where(keep[:, j], slot[:, j], 0)
+        y = y + ob[src] * (gates[:, j] * keep[:, j])[:, None].to(xn.dtype)
+    return y.reshape(bl, t, d), aux
+
+
+def moe_apply(p, x, cfg):
+    """Capacity-based top-k MoE (GShard-style), the reference's no-mesh
+    branch; returns (y, aux)."""
+    xn = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, aux = _moe_local(xn, p["router"], p["w_gate"], p["w_in"],
+                        p["w_out"], cfg=cfg)
+    if cfg.moe.num_shared:
+        sp = p["shared"]
+        a = _act(cfg.act)(torch.einsum("btd,df->btf", xn,
+                                       sp["w_gate"].to(x.dtype)))
+        u = torch.einsum("btd,df->btf", xn, sp["w_in"].to(x.dtype))
+        y = y + torch.einsum("btf,fd->btd", a * u, sp["w_out"].to(x.dtype))
+    return x + y, aux
 
 
 # ================================================================ embedding

@@ -19,6 +19,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import pages_per_split
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 
 pytestmark = pytest.mark.cuda
 
@@ -485,6 +486,38 @@ def test_flash_attention_copy_width_does_not_change_bits(cuda):
     _close(got, ref.attention_ref(q, k, v), 3e-5)
 
 
+@pytest.mark.parametrize("window", [0, 1, 8, 1024, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", list(HEAD_DIMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_window_and_bf16_match_plain(cuda, dtype, d, causal,
+                                                     window):
+    """Every compiled head dim in bf16 (the dense LM path's operands) and
+    fp32, causal and full, windows of 1, 8 and 1024 keys (gemma3's local
+    layers), one at least T, and none; T = 1100 is no multiple of the 16-
+    or 32-row query tile and passes the 1024 window.  bf16 output is held
+    at 2e-2 (fp32 inside, each side rounds once), fp32 at 3e-5."""
+    rng = np.random.default_rng(21)
+    t = 1100
+    q = _r(rng, 1, 4, t, d, device=cuda, dtype=dtype)
+    k, v = (_r(rng, 1, 2, t, d, device=cuda, dtype=dtype) for _ in range(2))
+    before = kernels.launch_counts()["flash_attention"]
+    got = kernels.flash_attention(q, k, v, causal=causal, window=window)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    _close(got, ref.attention_ref(q, k, v, causal=causal, window=window),
+           2e-2 if dtype == torch.bfloat16 else 3e-5)
+
+
+def test_flash_attention_window_at_least_t_is_causal_bits(cuda):
+    """A window of T or more hides nothing: the same bits as no window."""
+    rng = np.random.default_rng(22)
+    q, k, v = (_r(rng, 2, 4, 300, 128, device=cuda, dtype=torch.bfloat16)
+               for _ in range(3))
+    assert torch.equal(kernels.flash_attention(q, k, v, window=300),
+                       kernels.flash_attention(q, k, v))
+
+
 @pytest.mark.parametrize("b,hq,hkv,d,ps,pp", [(2, 4, 2, 32, 8, 4),
                                               (3, 8, 2, 64, 16, 6),
                                               (1, 4, 4, 128, 32, 3),
@@ -511,21 +544,23 @@ def test_decode_attention_kernel_matches_plain(cuda, b, hq, hkv, d, ps, pp):
     _close(got, ref.decode_attention_ref(q, kp, vp, pt_t, len_t), 3e-5)
 
 
-def _paged(rng, lengths, *, hq, hkv, d, ps=16, pad=0, device):
+def _paged(rng, lengths, *, hq, hkv, d, ps=16, pad=0, device,
+           dtype=torch.float32):
     """q (B,Hq,D), K/V pools of distinct shuffled pages for each sequence
     plus two spare, a page table of each sequence's pages padded with page
     0 (another sequence's page) to the longest plus ``pad`` columns, and
     the lengths as int32."""
     need = [-(-n // ps) for n in lengths]
     total = sum(need) + 2
-    kp, vp = (_r(rng, total, ps, hkv, d, device=device) for _ in range(2))
+    kp, vp = (_r(rng, total, ps, hkv, d, device=device, dtype=dtype)
+              for _ in range(2))
     order = rng.permutation(total)
     pt = np.zeros((len(lengths), max(need) + pad), np.int32)
     start = 0
     for i, n in enumerate(need):
         pt[i, :n] = order[start:start + n]
         start += n
-    return (_r(rng, len(lengths), hq, d, device=device), kp, vp,
+    return (_r(rng, len(lengths), hq, d, device=device, dtype=dtype), kp, vp,
             torch.tensor(pt, device=device),
             torch.tensor(lengths, dtype=torch.int32, device=device))
 
@@ -612,6 +647,58 @@ def test_decode_attention_copy_width_does_not_change_bits(cuda):
     _close(got, ref.decode_attention_ref(q, kp, vp, pt, lengths), 3e-5)
 
 
+@pytest.mark.parametrize("hq,hkv,d,ps", [(16, 8, 256, 16), (24, 8, 128, 16),
+                                         (6, 2, 64, 8), (4, 4, 16, 16)])
+def test_decode_attention_bf16_paged_matches_plain(cuda, hq, hkv, d, ps):
+    """bf16 pools and q: gemma3-12b's heads (G = 2, D = 256), llama3.2-3b's,
+    a smaller page and D = 16; lengths across split boundaries, the table
+    padded with page 0; the output in bf16 within 2e-2 of the plain
+    version (fp32 inside, each side rounds once)."""
+    rng = np.random.default_rng(23)
+    args = _paged(rng, [1, 300, 65, 1000], hq=hq, hkv=hkv, d=d, ps=ps, pad=1,
+                  device=cuda, dtype=torch.bfloat16)
+    before = kernels.launch_counts()["decode_attention"]
+    got = kernels.decode_attention(*args)
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _close(got, ref.decode_attention_ref(*args), 2e-2)
+
+
+@pytest.mark.parametrize("s_len,dtype", [(2048, torch.bfloat16),
+                                         (48, torch.bfloat16),
+                                         (1024, torch.float32)])
+def test_decode_attention_over_the_dense_cache_view(cuda, s_len, dtype):
+    """A dense (B,S,KVH,hd) cache viewed as pages of gcd(S, 16) slots, each
+    sequence one contiguous chain (the dense path's decode): the kernel
+    equals its plain version and the plain masked attention over the
+    cache itself; a ring of S slots, full, is lengths = S."""
+    from math import gcd
+    rng = np.random.default_rng(24)
+    b, hkv, g, d = 4, 8, 2, 256
+    kc, vc = (_r(rng, b, s_len, hkv, d, device=cuda, dtype=dtype)
+              for _ in range(2))
+    q = _r(rng, b, hkv * g, d, device=cuda, dtype=dtype)
+    ps = gcd(s_len, 16)
+    n = s_len // ps
+    pt = (torch.arange(b, device=cuda, dtype=torch.int32)[:, None] * n
+          + torch.arange(n, device=cuda, dtype=torch.int32)[None, :])
+    lengths = torch.tensor([1, s_len // 2 + 3, s_len - 1, s_len],
+                           dtype=torch.int32, device=cuda)
+    pages = (kc.view(b * n, ps, hkv, d), vc.view(b * n, ps, hkv, d))
+    got = kernels.decode_attention(q, *pages, pt, lengths)
+    want = ref.decode_attention_ref(q, *pages, pt, lengths)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-5
+    _close(got, want, tol)
+    pos = torch.arange(s_len, device=cuda)
+    scores = torch.einsum("bhd,bshd->bhs", q.float(),
+                          kc.float().repeat_interleave(g, 2)) * d ** -0.5
+    scores = torch.where(pos < lengths[:, None, None].long(), scores,
+                         ref.NEG_INF)
+    dense = torch.einsum("bhs,bshd->bhd", torch.softmax(scores, -1),
+                         vc.float().repeat_interleave(g, 2))
+    _close(got, dense.to(dtype), tol)
+
+
 def test_lm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from repro_torch.models import layers as L
     rng = np.random.default_rng(10)
@@ -625,7 +712,9 @@ def test_lm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kernels.flash_attention(q, q, q)
     q = _r(rng, 1, 2, 8, 32, device=cuda)
     with pytest.raises(TypeError):
-        kernels.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        kernels.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):                        # mixed dtypes
+        kernels.flash_attention(q, q.bfloat16(), q.bfloat16())
     pages = _r(rng, 3, 4, 2, 32, device=cuda)
     with pytest.raises(TypeError):
         kernels.decode_attention(q[:, :, 0].contiguous(), pages, pages,
@@ -635,42 +724,123 @@ def test_lm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                             device=cuda))
     qg = _r(rng, 1, 8, 2, 2, 32, device=cuda)
     kv = _r(rng, 1, 8, 2, 32, device=cuda)
-    before = kernels.launch_counts()["flash_attention"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L._sdpa(qg, kv, kv, causal=True, window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L._sdpa(qg, kv, kv, causal=True, window=0,
-                kv_len=torch.ones(1, dtype=torch.int32, device=cuda))
-    assert kernels.launch_counts()["flash_attention"] == before
+    before = kernels.launch_counts()
+    # what neither attention kernel computes raises, naming what was asked
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        L._sdpa(qg, kv, kv, causal=True, window=0, kv_len=one)   # t > 1
+    with pytest.raises(NotImplementedError, match="window"):
+        L._sdpa(qg[:, :1], kv, kv, causal=True, window=4, q_pos0=one,
+                kv_len=one)
+    with pytest.raises(NotImplementedError, match="q_pos0"):
+        L._sdpa(qg, kv, kv, causal=True, window=0, q_pos0=3)
+    assert kernels.launch_counts() == before
+
+
+def _paged_run(cfg, params, dev, prompt, steps=4):
+    """``PagedLM`` on ``dev`` (16-slot pages): the prompt's prefill, then
+    ``steps`` greedy decode steps; the tokens and each step's logits on
+    the host."""
+    from repro_torch.launch.serve import PagedLM
+    from repro_torch.store.pagedkv import PagePool
+    pool = PagePool(num_pages=64, page_size=16, num_layers=cfg.num_layers,
+                    num_kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.resolved_head_dim, device=dev)
+    eng = PagedLM(cfg, params, pool)
+    seq = eng.mgr.add_sequence(0, prompt)
+    logits = [eng.prefill_logits(seq).cpu()]
+    seq.generated.append(int(torch.argmax(logits[0])))
+    for _ in range(steps):
+        logits.append(eng.decode_logits([seq])[0].cpu())
+        seq.generated.append(int(torch.argmax(logits[-1])))
+    return seq.generated, logits
+
+
+def _lm_case(name, **widths):
+    """A smoke config (widened by ``widths``), its seed-0 parameters on
+    the CPU and a prompt of 37 tokens, or of 100 where widened."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import build
+    cfg = SMOKES[name].replace(**widths)
+    rng = np.random.default_rng(0)
+    prompt = list(rng.integers(0, cfg.vocab_size, 100 if widths else 37))
+    return cfg, build(cfg).init_params(0, "cpu"), prompt
 
 
 def test_paged_lm_on_the_card_matches_the_cpu(cuda):
     """The smoke llama3.2-3b through the kernels against the plain path on
     the CPU, from the same weights: tokens equal, logits within 1e-4."""
-    from repro_torch.configs import SMOKES
-    from repro_torch.launch.serve import PagedLM
-    from repro_torch.models import build, layers as L
-    from repro_torch.store.pagedkv import PagePool
-    cfg = SMOKES["llama3.2-3b"]
-    cpu_params = build(cfg).init_params(0, "cpu")
-    prompt = list(np.random.default_rng(0).integers(0, cfg.vocab_size, 37))
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        params = L.tree_map(lambda t: t.to(dev), cpu_params)
-        pool = PagePool(num_pages=32, page_size=16, num_layers=cfg.num_layers,
-                        num_kv_heads=cfg.num_kv_heads,
-                        head_dim=cfg.resolved_head_dim, device=dev)
-        eng = PagedLM(cfg, params, pool)
-        seq = eng.mgr.add_sequence(0, prompt)
-        logits = [eng.prefill_logits(seq).cpu()]
-        seq.generated.append(int(torch.argmax(logits[0])))
-        for _ in range(4):
-            logits.append(eng.decode_logits([seq])[0].cpu())
-            seq.generated.append(int(torch.argmax(logits[-1])))
-        runs[dev] = (seq.generated, logits)
+    from repro_torch.models import layers as L
+    cfg, cpu_params, prompt = _lm_case("llama3.2-3b")
+    runs = {dev: _paged_run(cfg, L.tree_map(lambda t: t.to(dev), cpu_params),
+                            dev, prompt) for dev in ("cpu", "cuda")}
     assert runs["cuda"][0] == runs["cpu"][0]
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         _close(a, b, 1e-4)
+
+
+# sha256 of the fp32 logits of ``_paged_run`` (prefill and 4 steps) before
+# the attention kernels took bf16 and windows: the port at its parent
+# commit on NVIDIA H100 80GB HBM3, 700 W.  Smoke llama3.2-3b (head dim 16),
+# and widened to head dim 128 (llama3.2-3b's) over a 100-token prompt.
+PAGED_FP32_DIGESTS = {
+    "smoke": ("a63774feeabb38803749b0113f7ced93"
+              "7073bf28e8341c2805d131a921f8ce71"),
+    "hd128": ("5895ca73adf9ac5248c1bc2bca301fc3"
+              "f1c3310e60b04a233acb727df43cd25b"),
+}
+PAGED_FP32_WIDTHS = {"smoke": {},
+                     "hd128": {"d_model": 256, "num_heads": 6,
+                               "num_kv_heads": 2, "head_dim": 128}}
+
+
+def paged_fp32_digest(case: str) -> str:
+    from repro_torch.models import layers as L
+    cfg, params, prompt = _lm_case("llama3.2-3b", **PAGED_FP32_WIDTHS[case])
+    _, logits = _paged_run(cfg, L.tree_map(lambda t: t.cuda(), params),
+                           "cuda", prompt)
+    import hashlib
+    return hashlib.sha256(b"".join(x.float().numpy().tobytes()
+                                   for x in logits)).hexdigest()
+
+
+@pytest.mark.parametrize("case", list(PAGED_FP32_WIDTHS))
+def test_paged_lm_fp32_bits_unchanged(cuda, case):
+    """fp32 ``PagedLM`` on the card gives the bits it gave before the
+    flash and decode kernels were templated on bf16 and took a window."""
+    assert paged_fp32_digest(case) == PAGED_FP32_DIGESTS[case]
+
+
+def test_paged_lm_serves_gemma3_on_the_card(cuda, monkeypatch):
+    """gemma3's 5:1 local:global layers (smoke, window 8) through
+    ``PagedLM`` on the card: prefill runs the windowed flash kernel on the
+    local layers; decode attends over every page, as the reference's paged
+    engine does (it ignores the window); tokens equal the plain path's on
+    the CPU and logits within 1e-4."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg, cpu_params, prompt = _lm_case("gemma3-12b")
+    windows, lengths = [], []
+    flash, decode = ops.flash_attention, ops.decode_attention
+
+    def flash_rec(*args, **kwargs):
+        windows.append(kwargs.get("window", 0))
+        return flash(*args, **kwargs)
+
+    def decode_rec(*args):
+        lengths.append(args[4].tolist())
+        return decode(*args)
+
+    monkeypatch.setattr(ops, "flash_attention", flash_rec)
+    monkeypatch.setattr(ops, "decode_attention", decode_rec)
+    runs = {dev: _paged_run(cfg, L.tree_map(lambda t: t.to(dev), cpu_params),
+                            dev, prompt) for dev in ("cpu", "cuda")}
+    assert runs["cuda"][0] == runs["cpu"][0]
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        _close(a, b, 1e-4)
+    assert sorted(set(windows)) == [0, cfg.window_size]
+    assert windows.count(cfg.window_size) == 5 * windows.count(0)
+    assert all(n[0] > cfg.window_size for n in lengths)     # every page
 
 
 def test_replicated_array_service_on_the_card_matches_the_cpu(cuda):

@@ -73,6 +73,14 @@ def test_no_source_imports_jax_or_repro(path):
             f"{path} imports {name}"
 
 
+def test_the_dense_path_modules_are_among_those_checked():
+    """The dense-cache path's modules are port sources like any other: the
+    import checks above cover them."""
+    checked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"models/vlm.py", "models/encdec.py", "models/transformer.py",
+            "models/api.py", "models/layers.py"} <= checked
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_modules_stay_verbatim(rel):
     port = (PORT / rel).read_text()

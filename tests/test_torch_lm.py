@@ -212,10 +212,11 @@ def test_plain_lm_kernels_on_cpu_launch_nothing():
 
 
 def test_decode_splits_depend_on_the_pools_only():
-    """decode_attention's split boundaries come from the pools' page size
-    and head dim alone: 4 pages (64 positions) at llama3.2-3b's pools,
-    halved only where a split's K and V rows would pass the shared-memory
-    budget, so they never move with the batch or the table's width."""
+    """decode_attention's split boundaries come from the pools' page size,
+    head dim and element size alone: 4 pages (64 positions) at
+    llama3.2-3b's pools, halved only where a split's K and V rows would
+    pass the shared-memory budget, so they never move with the batch or
+    the table's width."""
     from repro_torch.kernels.decode_attention import (PAGES_PER_SPLIT,
                                                       SPLIT_SMEM,
                                                       pages_per_split)
@@ -227,6 +228,13 @@ def test_decode_splits_depend_on_the_pools_only():
         assert n == 1 or 2 * n * ps * (-(-d // 4) * 4) * 4 <= SPLIT_SMEM
         if n < PAGES_PER_SPLIT:
             assert 2 * (2 * n) * ps * (-(-d // 4) * 4) * 4 > SPLIT_SMEM
+    # bf16 pools: rows of D rounded up to 8 elements, 2 bytes each
+    for ps, d in [(16, 256), (32, 512), (64, 512), (16, 20)]:
+        n = pages_per_split(ps, d, 2)
+        assert n >= pages_per_split(ps, d)
+        assert n == 1 or 2 * n * ps * (-(-d // 8) * 8) * 2 <= SPLIT_SMEM
+        if n < PAGES_PER_SPLIT:
+            assert 2 * (2 * n) * ps * (-(-d // 8) * 8) * 2 > SPLIT_SMEM
 
 
 @pytest.mark.parametrize("f", [1, 17, 64, 3072, 3075, 4096, 8192, 16384])
@@ -275,9 +283,10 @@ def test_init_params_has_the_reference_shapes_and_inits(params):
 
 
 def test_unported_kinds_raise_naming_the_roadmap():
-    for name in ("minicpm3-4b", "jamba-v0.1-52b", "xlstm-125m",
-                 "phi3.5-moe-42b-a6.6b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("jamba-v0.1-52b", "xlstm-125m"):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP.md, 'Recurrent mixers \(Mamba, "
+                                 r"mLSTM, sLSTM\)'"):
             build(SMOKES[name]).param_defs()
 
 
@@ -409,17 +418,21 @@ def test_ops_exposes_the_lm_kernels_for_the_path():
 def test_sdpa_card_route_reads_the_model_layout(t, s, causal):
     """The route ``_sdpa`` takes on a CUDA tensor (the flash_attention
     wrapper over permuted (B,T,H,D) views), run here through the
-    wrapper's plain version, equals the reference's ``_sdpa``; what it
-    cannot take raises naming the ROADMAP."""
+    wrapper's plain version, equals the reference's ``_sdpa``, with and
+    without a window; what neither kernel takes raises, naming it."""
     rng = np.random.default_rng(11)
     q, k, v = _np(rng, 2, t, 2, 3, 16), _np(rng, 2, s, 2, 16), \
         _np(rng, 2, s, 2, 16)
     got = L._sdpa_on_card(_t(q), _t(k), _t(v), causal=causal, window=0,
                           q_pos0=0, kv_len=None, dtype=None)
     _close(got, JL._sdpa(q, k, v, causal=causal, window=0), 1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L._sdpa_on_card(_t(q), _t(k), _t(v), causal=True, window=8,
-                        q_pos0=0, kv_len=None, dtype=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    got = L._sdpa_on_card(_t(q), _t(k), _t(v), causal=True, window=8,
+                          q_pos0=0, kv_len=None, dtype=None)
+    _close(got, JL._sdpa(q, k, v, causal=True, window=8), 1e-5)
+    with pytest.raises(NotImplementedError, match="q_pos0"):
         L._sdpa_on_card(_t(q), _t(k), _t(v), causal=True, window=0,
                         q_pos0=3, kv_len=None, dtype=None)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        L._sdpa_on_card(_t(q), _t(k), _t(v), causal=True, window=0,
+                        q_pos0=0, kv_len=_t(np.full(2, s, np.int32)),
+                        dtype=None)

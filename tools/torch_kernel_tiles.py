@@ -260,11 +260,11 @@ def build(which: set) -> ctypes.CDLL:
             f'extern "C" int tile_flash_{i}(const float* q, const float* k, '
             f'const float* v, float* o, int b, int hq, int hkv, int t, int s,'
             f' int causal, float scale, const int64_t* st, void* stream) {{ '
-            f'Strides a{{st[0], st[1], st[2]}}, b_{{st[3], st[4], st[5]}}, '
-            f'c{{st[6], st[7], st[8]}}, d{{st[9], st[10], st[11]}}; return '
-            f'launch_tile<128,{",".join(map(str, cfg))}>(q, k, v, o, b, hq, '
-            f'hkv, t, s, causal, scale, a, b_, c, d, '
-            f'static_cast<cudaStream_t>(stream)); }}')
+            f'const Args a{{q, k, v, o, b, hq, hkv, t, s, causal, 0, scale, '
+            f'{{st[0], st[1], st[2]}}, {{st[3], st[4], st[5]}}, '
+            f'{{st[6], st[7], st[8]}}, {{st[9], st[10], st[11]}}, '
+            f'static_cast<cudaStream_t>(stream)}}; return '
+            f'launch_tile<float,128,{",".join(map(str, cfg))}>(a); }}')
     os.makedirs(OUT, exist_ok=True)
     _build.write_generated(OUT)            # agg_combine.cu's tile table
     nvcc = _build._nvcc()
