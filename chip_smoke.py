@@ -87,14 +87,45 @@ Phases, each uncaught, so any failure exits non-zero:
    (windowed and causal, bf16) and decode_attention (bf16, over the
    dense cache viewed as pages) against their plain versions on the
    run's arguments, with device ms against the bound and SDPA (band or
-   length mask) or ``F.rms_norm``.  Then minicpm3-4b (MLA), phi3.5-moe
+   length mask) or ``F.rms_norm``, each timed cold (each call on copies
+   of its inputs that together pass eight times the L2; no row may read
+   faster than its bound).  Then minicpm3-4b (MLA), phi3.5-moe
    (16 experts, top 2), internvl2-76b (1,024 patches) and
    seamless-m4t-large-v2 at their published widths, 2 layers each: one
    prefill of 2 x 256 tokens and 8 steps, their launches and their
    logits against the plain versions';
-9. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
-   keyed by ``mesh``, and the dense path's, keyed by ``path``), then
-   ``{"ok": true, "device": ...}`` last.
+9. the recurrent mixers and training: jamba-v0.1-52b at its published
+   widths (d_model 4096, Mamba with d_state 16, 32/8 heads x 128, 16
+   experts top 2 of d_ff 14,336, vocab 65,536), depth cut from 32 layers
+   to the first 4 of its period (mamba, mamba + MoE, mamba, attn + MoE;
+   ~27 GB of fp32 parameters from seed 0), bf16 activations, batch 2 x a
+   256-token prompt into caches of 512 and 8 decode steps; then
+   xlstm-125m whole (12 layers, d_model 768, 4 heads, mLSTM head dim
+   384, vocab 50,304), batch 4 x 256 and 16 steps.  For each: launch
+   counts zeroed just before and read just after (jamba: rmsnorm,
+   flash_attention and decode_attention > 0); the cached logits against
+   the model's own full forward, in bf16 within 2e-2 of the logits'
+   scale plus the same comparison's reading on the plain versions on the
+   card (the witness of the card's shape-dependent rounding), for xlstm
+   also on the CPU within 2e-2 of the scale alone, and in fp32 element
+   by element within 1e-3; against the same run on the plain versions
+   (2e-2 of the scale in bf16, 1e-3 in fp32); each kernel call against
+   its plain version, timed cold.  Then training xlstm-125m through
+   ``launch.train.main`` at its defaults (batch 8, seq 128, remat
+   "full"): 10 steps; a run that fails at step 7 and its resume from the
+   step-5 checkpoint, whose losses must equal the uninterrupted run's
+   within rtol 1e-5; step ms, tokens/s, a step's forward / backward /
+   optimizer split (the trainer's profiler ranges) and the card's busy
+   share; a tiny overfit (15 steps on one batch at lr 3e-3, the loss
+   must fall by more than 0.5).  Last,
+   llama3.2-3b at its widths, 2 layers, batch 4 x seq 512, 3 steps of
+   the Trainer (every leaf a gradient, or the step raises), with the
+   rmsnorm and flash_attention Functions' gradients on the run's
+   arguments held to autograd through the plain versions (1e-4 of each
+   gradient's max in fp32, 2e-2 in bf16);
+10. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``, and the dense, recurrent and train paths', keyed
+   by ``path``), then ``{"ok": true, "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -109,6 +140,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -144,6 +176,10 @@ LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
                                           "decode_combine_kernel")}
 DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
 L2_BYTES = 50 * 2**20                 # the H100's L2
+# cold replays (the dense, recurrent and train paths' rows): a call made
+# in turn on copies of its tensor arguments that together pass eight L2s
+COLD_BYTES, COLD_MAX_COPIES, COLD_LAUNCHES = 8 * L2_BYTES, 512, 40
+SPIN_CYCLES_PER_US = 2000              # the H100's 1.98 GHz top clock, rounded up
 PROFILE_TRIES = 3                     # profiler windows before giving up
 LM_LOGITS_TOL = 1e-3
 
@@ -168,6 +204,26 @@ DENSE_FP32_STEPS = 8                  # the same path in fp32: decode steps
 # 19a: 0.072 at logits up to 12.2, argmax agreement 100 %; fp32 on the
 # same path 3.0e-5).  Each kernel call is held to 2e-2 element by element.
 DENSE_FP32_TOL = 1e-3
+
+# the recurrent mixers and training (phase 9): jamba-v0.1-52b at its
+# published widths, depth cut from 32 layers to the first 4 of its period
+# (mamba, mamba + MoE, mamba, attn + MoE; ~27 GB of fp32 parameters, the
+# two 16-expert FFNs 22.5 GB of it); xlstm-125m whole
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 4
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_SEQ, JAMBA_STEPS = 2, 256, 512, 8
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_SEQ, XLSTM_STEPS = 4, 256, 512, 16
+# training xlstm-125m through the launcher's defaults (batch 8, seq 128,
+# remat "full"): 10 steps, a run that fails at step 7 and its resume from
+# the step-5 checkpoint (losses within the reference's rtol 1e-5,
+# tests/test_train_infra.py), then the tiny overfit of tests/test_models.py
+TRAIN_STEPS, TRAIN_FAULT_AT, TRAIN_CKPT_EVERY, RESUME_RTOL = 10, 7, 5, 1e-5
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_DROP = 15, 3e-3, 0.5
+# an attention family's training: llama3.2-3b at its widths, 2 layers
+ATTN_TRAIN_ARCH, ATTN_TRAIN_LAYERS = "llama3.2-3b", 2
+ATTN_TRAIN_BATCH, ATTN_TRAIN_SEQ, ATTN_TRAIN_STEPS = 4, 512, 3
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max
+TRAIN_KERNELS = ("rmsnorm", "flash_attention")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
@@ -826,7 +882,10 @@ def wrappers_as(ops, fns: dict):
 @contextlib.contextmanager
 def recording(torch, ops, names):
     """Record each named wrapper's calls in the block, one entry per
-    distinct argument layout: {name: {layout: [args, kwargs, count]}}."""
+    distinct argument layout: {name: {layout: [args, kwargs, count]}}.
+    A tensor that requires a gradient (a training step's activation) is
+    kept detached from its graph, so replaying the call runs the kernel
+    alone; others are kept as given (views keep their ``_base``)."""
     recorded = {name: {} for name in names}
 
     def recorder(name, fn):
@@ -834,7 +893,9 @@ def recording(torch, ops, names):
             key = tuple((tuple(a.shape), a.dtype, a.stride())
                         if isinstance(a, torch.Tensor) else a for a in args)
             key += tuple(sorted(kwargs.items()))
-            entry = recorded[name].setdefault(key, [args, kwargs, 0])
+            kept = tuple(a.detach() if isinstance(a, torch.Tensor)
+                         and a.requires_grad else a for a in args)
+            entry = recorded[name].setdefault(key, [kept, kwargs, 0])
             entry[2] += 1
             return fn(*args, **kwargs)
         return wrapped
@@ -1121,23 +1182,26 @@ def dense_generate(torch, api, params, inp, prompt: int, steps: int,
     of ``api.decode`` fed the next tokens of ``inp`` (teacher-forced).
     Returns each call's logits (B, V) in fp32, the prefill's and each
     step's seconds (host clock to a synchronize), the caches and the
-    lengths they hold."""
+    lengths they hold.  It runs on the device ``inp`` lies on."""
     from repro_torch.models import layers as L
     cfg = api.cfg
     b = inp["tokens"].shape[0]
+    device = inp["tokens"].device
+    sync = torch.cuda.synchronize if device.type == "cuda" else \
+        (lambda: None)
     prefix = cfg.num_patches if cfg.family == "vlm" else 0
-    caches = L.init_tree(api.cache_defs(b, seq + prefix), 0, DEVICE)
+    caches = L.init_tree(api.cache_defs(b, seq + prefix), 0, device)
     batch = {k: v for k, v in inp.items() if k != "tokens"}
     batch["tokens"] = inp["tokens"][:, :prompt]
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     out = api.prefill(params, batch, caches)
     logits = [out[0][:, 0].float()]
-    torch.cuda.synchronize()
+    sync()
     prefill_s = time.perf_counter() - t0
     extra = {"enc_out": out[2]} if cfg.family == "encdec" else {}
     lengths = torch.full((b,), prompt + prefix, dtype=torch.int32,
-                         device=DEVICE)
+                         device=device)
     step_s = []
     for i in range(prompt, prompt + steps):
         t0 = time.perf_counter()
@@ -1145,21 +1209,73 @@ def dense_generate(torch, api, params, inp, prompt: int, steps: int,
                                          "lengths": lengths, **extra},
                                 caches)
         logits.append(lg[:, 0].float())
-        torch.cuda.synchronize()
+        sync()
         step_s.append(time.perf_counter() - t0)
         lengths = lengths + 1
     return logits, prefill_s, step_s, (caches, lengths, extra)
 
 
-def dense_rows(torch, card, recorded, originals, plain) -> list[dict]:
-    """Each dense-path kernel's recorded calls held to its plain version
-    (2e-2 in bf16) and timed as device ms against its bound and its
-    one-call library equivalent, summed over the main path's launches;
-    flash_attention gives a row for its windowed and its causal calls."""
+def cold_ms(torch, make, args, launches: int = COLD_LAUNCHES) -> float:
+    """Device ms of one call with its inputs in HBM, on the footing of a
+    bound that reads every input from HBM: ``make(args)`` (a call of the
+    function on ``args``) built on copies of the tensor arguments that
+    together pass COLD_BYTES, eight times the L2, and run in turn, so no
+    copy is in the L2 when its turn comes; each output is kept, so each
+    goes to fresh memory, and those still unwritten when the window ends
+    (an L2 at most) are a small share of the bytes.
+    Copies are capped at COLD_MAX_COPIES: only inputs under 0.8 MB stream
+    less, and such calls take their launch latency, far above their
+    bound.  At least ``launches`` calls are timed, each between two CUDA
+    events behind a spin kernel (``torch.cuda._sleep``) that outlasts the
+    host's issue of the call, so the pair holds the call's device time
+    without host gaps; the mean of as many empty pairs (the events' own
+    time) is taken off.  Not torch.profiler: late in a long run it was
+    seen to lose most of a window's kernel events, and a row then read
+    faster than its bound."""
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    n = min(COLD_MAX_COPIES, max(2, -(-COLD_BYTES // max(size, 1))))
+    calls = [make(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args)) for _ in range(n)]
+    for c in calls:                     # warm: plans, allocator
+        c()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls[0]()
+    issue_us = (time.perf_counter() - t0) * 1e6
+    spin = int(max(50.0, 3 * issue_us) * SPIN_CYCLES_PER_US)
+    def timed(fns):
+        pairs, outs = [], []            # outputs kept: each to fresh memory
+        for fn in fns:
+            torch.cuda._sleep(spin)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(fn())
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+
+    fns = calls * -(-launches // n)
+    return timed(fns) - timed([lambda: None] * len(fns))
+
+
+def dense_rows(torch, card, recorded, originals, plain, path="dense",
+               extra=None) -> list[dict]:
+    """Each LM kernel's recorded calls held to its plain version (2e-2 in
+    bf16) and timed cold (``cold_ms``) as device ms against its bound and
+    its one-call library equivalent, summed over the main path's launches;
+    no row may read faster than its bound.  flash_attention gives a row
+    for its windowed and its causal calls.  Rows carry ``"path": path``
+    and the keys of ``extra``; a kernel with no recorded call gives
+    none."""
     rows = []
     groups = []
     for name in LM_KERNELS:
-        calls = list(recorded[name].values())
+        calls = list(recorded.get(name, {}).values())
+        if not calls:
+            continue
         if name == "flash_attention":
             for w in sorted({kw.get("window", 0) for _, kw, _ in calls}):
                 groups.append((name, w, [c for c in calls
@@ -1174,30 +1290,34 @@ def dense_rows(torch, card, recorded, originals, plain) -> list[dict]:
             max_err = max(max_err, hold_to_plain(torch, name, fn, plain[name],
                                                  args, kwargs))
             n += count
-            ms += count * device_ms(torch, lambda: fn(*args, **kwargs))
-            plain_ms += count * device_ms(
-                torch, lambda: plain[name](*args, **kwargs), reps=3)
-            lib_ms += count * device_ms(
-                torch, lm_library(torch, name, args, kwargs))
+            ms += count * cold_ms(
+                torch, lambda a: (lambda: fn(*a, **kwargs)), args)
+            plain_ms += count * cold_ms(
+                torch, lambda a: (lambda: plain[name](*a, **kwargs)), args,
+                launches=3)
+            lib_ms += count * cold_ms(
+                torch, lambda a: lm_library(torch, name, a, kwargs), args)
             t_bytes, t_ops = bound_ms_of(torch, name, args, kwargs)
             bound += count * max(t_bytes, t_ops)
             by_bytes += count * t_bytes * (t_bytes >= t_ops)
             by_ops += count * t_ops * (t_ops > t_bytes)
+        assert ms >= bound, (path, name, window, ms, bound)
         src, replaces = KERNEL_SOURCES[name]
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": int(n),
                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound,
                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-               "library_ms": lib_ms, "path": "dense"}
+               "library_ms": lib_ms, "path": path, **(extra or {})}
         tag = name
         if window is not None:
             row["window"] = window
             tag = f"{name} (window {window})"
         rows.append(row)
-        print(f"dense {tag}: {int(n)} launches over {len(calls)} argument "
+        print(f"{path} {tag}: {int(n)} launches over {len(calls)} argument "
               f"layouts, max abs err {max_err:.3g} (tol {TOL_BF16} bf16); "
-              f"summed over the main path: kernel {ms:.4f} ms on the card "
+              f"summed over the main path, each timed cold (inputs past the "
+              f"L2): kernel {ms:.4f} ms on the card "
               f"({ms / n:.5f} a launch), plain {plain_ms:.4f}, library "
               f"{lib_ms:.4f} ({lib_ms / n:.5f} a launch), bound "
               f"{bound:.4f} ({bound / n:.5f} a launch, by {row['bound_by']};"
@@ -1205,27 +1325,31 @@ def dense_rows(torch, card, recorded, originals, plain) -> list[dict]:
     return rows
 
 
-def compare_logits(torch, what, got, want, *, tol=None, scale_tol=None):
+def compare_logits(torch, what, got, want, *, tol=None, scale_tol=None,
+                   room=0.0, prefix="dense") -> float:
     """Logits (B, positions, V) against a yardstick's: within ``tol``
     element by element (rtol = atol), or within ``scale_tol`` times the
-    yardstick's largest logit, or not gated where neither is given;
-    prints the max abs diff, its 99.9th percentile and the argmax
-    agreement."""
+    yardstick's largest logit plus ``room`` (a witness's own reading), or
+    not gated where neither is given; prints the max abs diff, its 99.9th
+    percentile and the argmax agreement, and returns the max abs diff."""
     diff = (got - want).abs()
     err = float(diff.max())
     scale = float(want.abs().max())
     tail = float(torch.quantile(diff.flatten()[::97], 0.999))
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    widened = f" + witness {room:.4g}" if room else ""
     gate = (f"tol {tol}, rtol = atol" if tol is not None else
-            f"tol {scale_tol} x max |logit| = {scale_tol * scale:.4g}"
+            f"tol {scale_tol} x max |logit|{widened} = "
+            f"{scale_tol * scale + room:.4g}"
             if scale_tol is not None else "not gated")
-    print(f"dense {what} over {got.shape[1]} positions: max abs diff "
+    print(f"{prefix} {what} over {got.shape[1]} positions: max abs diff "
           f"{err:.4g} ({gate}; logits up to {scale:.3g}), 99.9th percentile "
           f"{tail:.3g}, argmax agreement {100 * agree:.1f} %")
     if tol is not None:
         assert torch.allclose(got, want, rtol=tol, atol=tol), (what, err)
     elif scale_tol is not None:
-        assert err <= scale_tol * scale, (what, err, scale)
+        assert err <= scale_tol * scale + room, (what, err, scale, room)
+    return err
 
 
 def dense_phase(torch, card) -> list[dict]:
@@ -1400,6 +1524,337 @@ def dense_phase(torch, card) -> list[dict]:
         torch.cuda.empty_cache()
     print(f"dense phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+def recurrent_serve(torch, card, arch, cut, batch, prompt, seq, steps,
+                    plain, cpu_witness=False) -> list[dict]:
+    """One recurrent model's dense-cache path (phase 9): ``api.prefill`` of
+    ``batch`` x ``prompt`` tokens into caches of ``seq``, ``steps`` decode
+    steps, launch counts zeroed just before and read just after; the
+    cached logits against the model's own full forward (in bf16 within
+    2e-2 of the logits' scale plus the plain versions' own reading on the
+    card; with ``cpu_witness``, on the CPU too) and against the same run
+    on the plain versions (2e-2 of the scale); each recorded kernel call
+    against its plain version, timed.  Returns the ``kernels`` rows, keyed
+    ``"path": "recurrent"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import build, layers as L, transformer as T
+
+    t0 = time.perf_counter()
+    base = ARCHS[arch]
+    cfg = base.replace(**cut)
+    api = build(cfg)
+    before = torch.cuda.memory_allocated()
+    params = api.init_params(0, DEVICE)
+    torch.cuda.synchronize()
+    print(f"recurrent: {arch} {cfg.num_layers} of {base.num_layers} layers "
+          f"{cfg.period_pattern * cfg.n_periods + cfg.remainder_kinds}, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}: "
+          f"{(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB of fp32 "
+          f"parameters, {cfg.dtype} activations")
+    inp = dense_inputs(torch, cfg, batch, prompt, steps)
+    run = lambda n: dense_generate(torch, api, params, inp,  # noqa: E731
+                                   prompt, n, seq)
+    run(2)                              # warm: cuBLAS's plans, allocator
+    originals = {name: getattr(ops, name) for name in LM_KERNELS}
+    with recording(torch, ops, LM_KERNELS) as recorded:
+        kernels.reset_launch_counts()
+        logits, pre_s, step_s, state = run(steps)
+        launches = kernels.launch_counts()
+    print(f"recurrent {arch} main path launches: {launches}")
+    kinds = cfg.period_pattern * cfg.n_periods + cfg.remainder_kinds
+    wanted = LM_KERNELS if "attn" in kinds else ("rmsnorm",)
+    assert all(launches[k] > 0 for k in wanted), (arch, launches)
+    for lg in logits:
+        assert lg.shape == (batch, cfg.vocab_size)
+        assert torch.isfinite(lg).all()
+    step = np.asarray(step_s)
+    print(f"recurrent {arch} prefill: {batch} x {prompt} tokens in "
+          f"{pre_s * 1e3:.3f} ms, {batch * prompt / pre_s:.1f} tokens/s; "
+          f"decode: {len(step)} steps, best {step.min() * 1e3:.3f} ms, "
+          f"median {np.median(step) * 1e3:.3f} ms a step, "
+          f"{batch * len(step) / step.sum():.1f} tokens/s  [{card}]")
+    caches, lengths, _ = state
+    busy, wall, split = profile_split(torch, lambda: api.decode(
+        params, {"tokens": inp["tokens"][:, -1:], "lengths": lengths},
+        caches), LM_KERNEL_SYMBOLS)
+    print(f"recurrent {arch} decode step under torch.profiler: card "
+          f"{busy_text(busy, wall)}; device ms by kernel: {split}  [{card}]")
+    del caches, state
+
+    def full_forward(model_cfg, p=params, tokens=inp["tokens"]):
+        x = L.embed_apply(p["embed"], tokens[:, :prompt + steps], model_cfg)
+        x, _, _ = T.decoder_forward(p, model_cfg, x)
+        return L.logits_apply(p["embed"], x[:, prompt - 1:],
+                              model_cfg).float()
+
+    # the cached path against the full forward.  The full forward runs
+    # each product over B x (prompt + steps) rows at once, the cached path
+    # over B x prompt and then B, and the card's GEMMs pick their reduction
+    # order by shape, so the two round apart by an ulp here and there in
+    # bf16: xlstm's exp-gated scans carry that across all 256 steps, and
+    # one ulp routes a near-tied token of jamba's capacity MoE to other
+    # experts (its drops also depend on how many tokens a call routes).
+    # Two witnesses at full width tell that from a fault of the bf16
+    # decode path: the same comparison on the plain versions on the card
+    # (the card's rounding, no kernel), whose reading widens the bf16 gate
+    # (the kernels may add 2e-2 of the logits' scale to it, no more); and,
+    # for xlstm, on the CPU, whose products keep their order whatever the
+    # rows, held to the 2e-2 rule alone.  fp32 is held element by element
+    # on the same weights, the MoE at a capacity at which no token can
+    # drop (e / top_k).
+    cached = torch.stack(logits, dim=1)
+    with wrappers_as(ops, plain):
+        plain_logits = torch.stack(run(steps)[0], dim=1)
+        witness = compare_logits(
+            torch, f"{arch} bf16 plain versions cached vs full forward "
+            f"(witness: the card's rounding, no kernel)", plain_logits,
+            full_forward(cfg), prefix="recurrent")
+    compare_logits(torch, f"{arch} bf16 cached vs full forward", cached,
+                   full_forward(cfg), scale_tol=TOL_BF16, room=witness,
+                   prefix="recurrent")
+    if cpu_witness:
+        on_cpu = L.tree_map(lambda t: t.cpu(), params)
+        tokens = inp["tokens"].cpu()
+        t_cpu = time.perf_counter()
+        cpu_cached = torch.stack(dense_generate(
+            torch, api, on_cpu, {"tokens": tokens}, prompt, steps,
+            seq)[0], dim=1)
+        compare_logits(torch, f"{arch} bf16 cached vs full forward on the "
+                       f"CPU (witness: no shape-dependent rounding; "
+                       f"{time.perf_counter() - t_cpu:.1f} s)", cpu_cached,
+                       full_forward(cfg, on_cpu, tokens), scale_tol=TOL_BF16,
+                       prefix="recurrent")
+        del on_cpu, cpu_cached
+    fp32 = cfg.replace(dtype="float32")
+    if cfg.moe is not None:
+        fp32 = fp32.replace(moe=replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    cached32 = torch.stack(dense_generate(
+        torch, build(fp32), params, inp, prompt, steps, seq)[0], dim=1)
+    room = "" if fp32.moe is None else \
+        f", capacity factor {fp32.moe.capacity_factor} (no drop)"
+    compare_logits(torch, f"{arch} fp32 cached vs full forward{room}",
+                   cached32, full_forward(fp32), tol=DENSE_FP32_TOL,
+                   prefix="recurrent")
+    del cached32
+    rows = dense_rows(torch, card, recorded, originals, plain,
+                      path="recurrent", extra={"arch": arch})
+    del recorded
+
+    # the same runs on the plain versions: bf16 within 2e-2 of the logits'
+    # scale, fp32 element by element
+    compare_logits(torch, f"{arch} bf16 kernels vs plain versions", cached,
+                   plain_logits, scale_tol=TOL_BF16, prefix="recurrent")
+    api32 = build(cfg.replace(dtype="float32"))
+    run32 = lambda: torch.stack(dense_generate(  # noqa: E731
+        torch, api32, params, inp, prompt, steps, seq)[0], dim=1)
+    kernels32 = run32()
+    with wrappers_as(ops, plain):
+        plain32 = run32()
+    compare_logits(torch, f"{arch} fp32 kernels vs plain versions",
+                   kernels32, plain32, tol=DENSE_FP32_TOL, prefix="recurrent")
+    del api32, kernels32, plain32
+    print(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, api, inp, logits, plain_logits, cached
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hold_gradients(torch, name, fn, plain_fn, args, kwargs) -> float:
+    """The gradients of one recorded call through the kernel's Function
+    against autograd through its plain version, for one random output
+    gradient: each within GRAD_TOL of its largest element.  Returns the
+    largest error relative to that element."""
+    dt = str(args[0].dtype).split(".")[-1]
+    tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)
+               and a.is_floating_point()]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+
+    def grads(f, dy=None):
+        xs = list(args)
+        for i in tensors:
+            xs[i] = args[i].detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = f(*xs, **kwargs)
+            if dy is None:
+                dy = torch.randn(out.shape, generator=gen, device=DEVICE,
+                                 dtype=torch.float32).to(out.dtype)
+            return torch.autograd.grad(out, [xs[i] for i in tensors], dy), dy
+
+    got, dy = grads(fn)
+    want, _ = grads(plain_fn, dy)
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max()) / max(scale, 1e-30)
+        assert err <= GRAD_TOL[dt], (name, tuple(a.shape), err)
+        worst = max(worst, err)
+    return worst
+
+
+def recurrent_train_phase(torch, card) -> list[dict]:
+    """Phase 9: the recurrent mixers served at full width, and training on
+    the card (see the module docstring).  Returns the ``kernels`` rows,
+    keyed ``"path": "recurrent"`` and ``"path": "train"``."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build
+    from repro_torch.train import Trainer, make_train_step, optimizer as O
+
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref}
+    t_phase = time.perf_counter()
+    rows = recurrent_serve(torch, card, JAMBA_ARCH,
+                           {"num_layers": JAMBA_LAYERS}, JAMBA_BATCH,
+                           JAMBA_PROMPT, JAMBA_SEQ, JAMBA_STEPS, plain)
+    rows += recurrent_serve(torch, card, XLSTM_ARCH, {}, XLSTM_BATCH,
+                            XLSTM_PROMPT, XLSTM_SEQ, XLSTM_STEPS, plain,
+                            cpu_witness=True)
+
+    # ---- xlstm-125m training through the launcher, at its defaults
+    originals = {name: getattr(ops, name) for name in LM_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = ["--arch", XLSTM_ARCH, "--steps", str(TRAIN_STEPS),
+                 "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        with recording(torch, ops, LM_KERNELS) as recorded:
+            kernels.reset_launch_counts()
+            tr = launch_train.main(flags + ["--ckpt", f"{tmp}/a"])
+            launches = kernels.launch_counts()
+        print(f"train {XLSTM_ARCH} main path launches: {launches}")
+        assert launches["rmsnorm"] > 0, launches
+        losses = [m["loss"] for m in tr.metrics_log]
+        assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+        faulty = launch_train.make_trainer(launch_train.parse_args(
+            flags + ["--ckpt", f"{tmp}/b"]))
+        try:
+            faulty.run(TRAIN_STEPS, fault_hook=lambda s: s == TRAIN_FAULT_AT)
+            raise AssertionError("the injected fault did not fire")
+        except RuntimeError as e:
+            assert "injected fault" in str(e), e
+        faulty.ckpt.wait()
+        resumed = launch_train.make_trainer(launch_train.parse_args(
+            flags + ["--ckpt", f"{tmp}/b"]))
+        assert resumed.ckpt.latest_step() == TRAIN_CKPT_EVERY
+        resumed.run(TRAIN_STEPS - TRAIN_CKPT_EVERY)
+        again = [m["loss"] for m in faulty.metrics_log][:TRAIN_CKPT_EVERY] \
+            + [m["loss"] for m in resumed.metrics_log]
+        np.testing.assert_allclose(again, losses, rtol=RESUME_RTOL)
+        print(f"train {XLSTM_ARCH} fault at step {TRAIN_FAULT_AT}, resumed "
+              f"from step {TRAIN_CKPT_EVERY}: losses within rtol "
+              f"{RESUME_RTOL} of the uninterrupted run's, max rel diff "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(again, losses)):.3g}"
+              f", bit for bit {again == losses}; losses {losses}")
+    dts = np.asarray([m["dt"] for m in tr.metrics_log[1:]])
+    shape = tr.shape
+    tokens = shape.global_batch * shape.seq_len
+    print(f"train {XLSTM_ARCH} step (batch {shape.global_batch} x seq "
+          f"{shape.seq_len}, remat {tr.api.cfg.remat}): median "
+          f"{np.median(dts) * 1e3:.3f} ms, best {dts.min() * 1e3:.3f} ms, "
+          f"{tokens / np.median(dts):.1f} tokens/s; rmsnorm "
+          f"{launches['rmsnorm'] / TRAIN_STEPS:.0f} launches a step, the "
+          f"forward's and, under remat, the recomputed forward's again  "
+          f"[{card}]")
+    rows += dense_rows(torch, card, recorded, originals, plain,
+                       path="train", extra={"arch": XLSTM_ARCH})
+    del recorded
+
+    # where a step's time goes, and the tiny overfit on one batch
+    api = tr.api
+    params = api.init_params(0, DEVICE)
+    opt = O.init_state(params)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in synth_batch(api.cfg, shape, 0).items()}
+    step_fn = make_train_step(api, tr.opt_cfg)
+    spans, wall = step_ranges(torch, lambda: step_fn(params, opt, batch))
+    print(f"train backward: {spans['train_step.backward']:.3f} ms "
+          f"({XLSTM_ARCH}; plain torch, the remat recompute of the forward "
+          f"in it), forward {spans['train_step.forward']:.3f} ms, optimizer "
+          f"{spans['train_step.optimizer']:.3f} ms: host spans of the "
+          f"trainer's profiler ranges in a {wall:.3f} ms step under the "
+          f"profiler's op recording  [{card}]")
+    busy, wall, split = profile_split(
+        torch, lambda: step_fn(params, opt, batch), LM_KERNEL_SYMBOLS)
+    print(f"train {XLSTM_ARCH} step under torch.profiler: card "
+          f"{busy_text(busy, wall)}; device ms by kernel: {split}  [{card}]")
+    step_fn = make_train_step(api, O.AdamWConfig(
+        lr=OVERFIT_LR, warmup_steps=2, decay_steps=100))
+    fit = []
+    for _ in range(OVERFIT_STEPS):
+        params, opt, m = step_fn(params, opt, batch)
+        fit.append(float(m["loss"]))
+    print(f"train {XLSTM_ARCH} tiny overfit: {OVERFIT_STEPS} steps on one "
+          f"batch at lr {OVERFIT_LR}: loss {fit[0]:.4f} -> {fit[-1]:.4f} "
+          f"(must fall by more than {OVERFIT_DROP})")
+    assert fit[-1] < fit[0] - OVERFIT_DROP, fit
+    del tr, faulty, resumed, params, opt, api, batch
+    torch.cuda.empty_cache()
+
+    # ---- an attention family's training: every leaf gets a gradient, and
+    # the Functions' gradients on the run's arguments
+    base = ARCHS[ATTN_TRAIN_ARCH]
+    cfg = base.replace(num_layers=ATTN_TRAIN_LAYERS)
+    tr = Trainer(build(cfg), ShapeConfig("smoke", "train", ATTN_TRAIN_SEQ,
+                                         ATTN_TRAIN_BATCH), device=DEVICE)
+    with recording(torch, ops, TRAIN_KERNELS) as recorded:
+        kernels.reset_launch_counts()
+        _, _, step = tr.run(ATTN_TRAIN_STEPS)
+        launches = kernels.launch_counts()
+    print(f"train {ATTN_TRAIN_ARCH} main path launches: {launches}")
+    assert step == ATTN_TRAIN_STEPS
+    assert all(launches[k] > 0 for k in TRAIN_KERNELS), launches
+    losses = [m["loss"] for m in tr.metrics_log]
+    assert np.isfinite(losses).all()
+    worst = {k: max(hold_gradients(torch, k, originals[k], plain[k], a, kw)
+                    for a, kw, _ in recorded[k].values())
+             for k in TRAIN_KERNELS}
+    dts = np.asarray([m["dt"] for m in tr.metrics_log])
+    print(f"train {ATTN_TRAIN_ARCH} ({cfg.num_layers} of {base.num_layers} "
+          f"layers, batch {ATTN_TRAIN_BATCH} x seq {ATTN_TRAIN_SEQ}, "
+          f"{cfg.dtype}): {ATTN_TRAIN_STEPS} steps, every leaf a gradient, "
+          f"losses {losses}, step ms {[round(float(d) * 1e3, 3) for d in dts]}; "
+          f"the Functions' gradients against autograd through the plain "
+          f"versions, max error / max |grad| {worst} (tol {GRAD_TOL})  "
+          f"[{card}]")
+    rows += dense_rows(torch, card, recorded, originals, plain,
+                       path="train", extra={"arch": ATTN_TRAIN_ARCH})
+    del tr, recorded
+    torch.cuda.empty_cache()
+    print(f"recurrent and train phase: {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return rows
+
+
+def step_ranges(torch, fn) -> tuple[dict, float]:
+    """Host ms of each of the train step's profiler ranges (the trainer's
+    ``train_step.forward``, ``.backward`` and ``.optimizer``) in one call
+    of ``fn`` under torch.profiler recording host ops, and the window's
+    host ms, which ends in a synchronize.  A range ends when the host
+    returns from its part, not when the card does; the op recording slows
+    the host, so the spans run longer than an unprofiled step's."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = {f"train_step.{part}": 0.0
+             for part in ("forward", "backward", "optimizer")}
+    for e in prof.events():
+        if e.name in spans:
+            spans[e.name] += e.cpu_time_total / 1e3
+    return spans, wall
 
 
 def profile_split(torch, fn, symbols: dict):
@@ -1642,7 +2097,10 @@ def main() -> int:
     # ------------------------------------------------ 8. dense-cache LM path
     rows += dense_phase(torch, card)
 
-    # ------------------------------------------------ 9. result lines
+    # ------------------------------------------------ 9. recurrent and train
+    rows += recurrent_train_phase(torch, card)
+
+    # ------------------------------------------------ 10. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

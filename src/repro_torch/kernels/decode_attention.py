@@ -59,8 +59,14 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, page_table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q (B,Hq,D); pages (P,ps,Hkv,D); page_table (B,PP); lengths (B,)
-    -> (B,Hq,D)."""
+    -> (B,Hq,D).  No gradient: no training path decodes, so a call that
+    asks for one (an input that requires it, grad mode on) raises."""
     global launches
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError("decode_attention has no gradient (no training "
+                           "path decodes); call it under torch.no_grad() or "
+                           "on inputs that do not require one")
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_pages, v_pages, page_table, lengths)
     if q.device.type != "cuda":

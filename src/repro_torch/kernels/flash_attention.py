@@ -24,13 +24,20 @@ K/V tiles are double-buffered through ``cp.async``.  The kernel reads
 and writes through strides (only the head dim must be contiguous), so
 the model's (B,T,H,D) activations go in without a transposed or padded
 copy, and the output keeps q's memory layout.
+
+Gradients: where q, k or v requires one (grad mode on), the wrapper runs
+:class:`FlashAttentionFn`, whose forward is the same kernel (the plain
+version on the CPU) and whose backward rebuilds the probabilities from q
+and k under the same mask in plain torch, fp32 inside
+(:func:`attention_backward`): the TPU kernel had no backward either, XLA
+differentiated the reference's ``jnp`` attention.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import attention_ref
+from .ref import NEG_INF, attention_ref, wide
 
 launches = 0
 
@@ -57,7 +64,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,Hq,T,D); k,v (B,Hkv,S,D) with Hq % Hkv == 0 -> (B,Hq,T,D) in
     q's dtype; ``window > 0`` hides keys ``window`` or more positions
-    before the query."""
+    before the query.  Through :class:`FlashAttentionFn` where a gradient
+    is asked for."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal=causal, window=window)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash_attention kernel with a gradient: forward the kernel (the
+    plain version on the CPU), backward :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, do, causal=ctx.causal,
+                                        window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of ``attention_ref`` for the output gradient ``do``,
+    fp32 inside (float64 for float64 operands), in the operands' dtypes:
+    P is rebuilt from q and k under the same causal and window mask, query
+    head h reads KV head h // G, and dk, dv sum the G query heads of each
+    KV head."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ct = wide(q.dtype)
+    scale = d ** -0.5
+    qf = q.to(ct).reshape(b, hkv, g, t, d)
+    kf, vf = k.to(ct), v.to(ct)
+    dof = do.to(ct).reshape(b, hkv, g, t, d)
+    sc = torch.einsum("bkgtd,bksd->bkgts", qf, kf) * scale
+    tt = torch.arange(t, device=q.device)[:, None]
+    ss = torch.arange(s, device=q.device)[None, :]
+    if causal:
+        sc = torch.where(tt >= ss, sc, NEG_INF)
+    if window > 0:
+        sc = torch.where(tt - ss < window, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    dv = torch.einsum("bkgts,bkgtd->bksd", p, dof)
+    dp = torch.einsum("bkgtd,bksd->bkgts", dof, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bkgts,bksd->bkgtd", ds, kf) * scale
+    dk = torch.einsum("bkgts,bkgtd->bksd", ds, qf) * scale
+    return (dq.reshape(b, hq, t, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _flash_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU ones."""
     global launches
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)

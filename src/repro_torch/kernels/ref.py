@@ -21,6 +21,12 @@ NEG_INF = -1e30
 SPMM_MODES = ("mean", "sum")
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type a plain version computes in: fp32, or float64 for float64
+    inputs (so ``torch.autograd.gradcheck`` can hold a backward to it)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M,K) @ (K,N) -> (M,N) fp32, summed over K in order (like
     ``jnp.dot(a, b, preferred_element_type=float32)``)."""
@@ -74,16 +80,18 @@ def agg_combine_ref(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
                 eps: float = 1e-6) -> torch.Tensor:
-    """x * rsqrt(mean(x^2) + eps) * w over the last dim, in fp32, cast
-    back to x's dtype."""
-    xf = x.float()
+    """x * rsqrt(mean(x^2) + eps) * w over the last dim, in fp32 (float64
+    for a float64 x), cast back to x's dtype."""
+    ct = wide(x.dtype)
+    xf = x.to(ct)
     ms = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * w.to(ct)).to(x.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """(B,H,T,D) x (B,Hkv,S,D) -> (B,H,T,D) in q's dtype, fp32 inside; GQA
+    """(B,H,T,D) x (B,Hkv,S,D) -> (B,H,T,D) in q's dtype, fp32 inside
+    (float64 for float64 operands); GQA
     by head repeat (head h reads KV head h // (H/Hkv)); causal means key j
     is visible to query i when j <= i, and ``window > 0`` adds
     i - j < window."""
@@ -91,7 +99,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rep = hq // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * d ** -0.5
+    ct = wide(q.dtype)
+    s = torch.einsum("bhtd,bhsd->bhts", q.to(ct), k.to(ct)) * d ** -0.5
     tt = torch.arange(t, device=q.device)[:, None]
     ss = torch.arange(k.shape[2], device=q.device)[None, :]
     if causal:
@@ -99,7 +108,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window > 0:
         s = torch.where(tt - ss < window, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", p, v.to(ct)).to(q.dtype)
 
 
 def paged_gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

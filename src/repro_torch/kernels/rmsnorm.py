@@ -12,13 +12,19 @@ read once: at the LM's width (F = 3072) 128 threads of 6 vectors each at
 the 500 prefill rows (one wave of blocks over the card), 256 of 3 at the
 1-4 decode rows (one short block a row).  Rows not aligned to the vector size
 take element loads with the same arithmetic.
+
+Gradients: where x or w requires one (grad mode on), the wrapper runs
+:class:`RMSNormFn`, whose forward is the same kernel (the plain version
+on the CPU) and whose backward is the closed form in plain torch, in fp32
+(:func:`rmsnorm_backward`): the TPU kernel had no backward either, XLA
+differentiated the reference's ``jnp`` norm.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_ref, wide
 
 launches = 0
 
@@ -43,7 +49,46 @@ def threads_per_row(f: int, rows: int) -> int:
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
-    """x (..., F) fp32 or bf16; w (F,) -> x's shape and dtype."""
+    """x (..., F) fp32 or bf16; w (F,) -> x's shape and dtype; through
+    :class:`RMSNormFn` where a gradient is asked for."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return RMSNormFn.apply(x, w, eps)
+    return _rmsnorm(x, w, eps)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The rmsnorm kernel with a gradient: forward the kernel (the plain
+    version on the CPU), backward :func:`rmsnorm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, w, dy, eps=ctx.eps)
+        return dx, dw, None
+
+
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                     eps: float = 1e-6):
+    """(dx, dw) of y = x * r * w, r = rsqrt(mean(x^2) + eps), in closed
+    form in fp32 (float64 for float64 x): dx = r * (dy*w - x * r^2 *
+    mean(dy*w*x)), dw = sum over rows of dy * x * r; in x's and w's
+    dtypes."""
+    ct = wide(x.dtype)
+    xf, g = x.to(ct), dy.to(ct) * w.to(ct)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dx = r * (g - xf * (r * r) * (g * xf).mean(dim=-1, keepdim=True))
+    dw = (dy.to(ct) * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     global launches
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)

@@ -1,2 +1,3 @@
-"""Entry points of the port (``serve``: paged-KV LM serving; ``mesh``:
-the (data, model) meshes of device slots the SPMD engine runs over)."""
+"""Entry points of the port (``serve``: paged-KV LM serving; ``train``:
+single-device training; ``mesh``: the (data, model) meshes of device
+slots the SPMD engine runs over)."""

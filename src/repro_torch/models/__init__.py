@@ -1,5 +1,6 @@
-"""LM models on tensors: the attention-mixer families, decoder,
-VLM and encoder-decoder (see ``api``)."""
+"""LM models on tensors: the attention and recurrent (Mamba, mLSTM,
+sLSTM) mixer families, decoder, VLM and encoder-decoder, their training
+losses (see ``api``)."""
 from . import layers
 from .api import ModelAPI, build
 

@@ -13,8 +13,10 @@ ways to get parameters:
   the port, so both packages compute the same function.
 
 Caches are ``layers.init_tree(api.cache_defs(b, s), 0, device)``; prefill
-and decode write them in place and return them.  Training and the
-dry-run specs wait for their ROADMAP items.
+and decode write them in place and return them.  ``train_loss`` is the
+reference's, differentiable with ``torch.autograd``.  The dry-run specs
+(``abstract_*``, ``*_pspecs``, ``input_specs``) wait for their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from ..device import resolve_device
 from . import encdec as E
 from . import layers as L
 from . import transformer as T
-from .vlm import vlm_prefill
+from .vlm import vlm_prefill, vlm_train_loss
 
 
 @dataclass
@@ -71,6 +73,18 @@ class ModelAPI:
                                     long_mode=long_mode)
 
     # ------------------------------------------------------------ functions
+    def train_loss(self, params, batch):
+        """(loss, metrics) of one batch: tokens and labels (labels < 0
+        masked), and the frames or patches where the family takes them."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return E.encdec_train_loss(params, cfg, batch["frames"],
+                                       batch["tokens"], batch["labels"])
+        if cfg.family == "vlm":
+            return vlm_train_loss(params, cfg, batch["patches"],
+                                  batch["tokens"], batch["labels"])
+        return T.lm_train_loss(params, cfg, batch["tokens"], batch["labels"])
+
     def prefill(self, params, batch, caches):
         """(last logits, caches), and the encoder's output for encdec."""
         cfg = self.cfg

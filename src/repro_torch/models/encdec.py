@@ -2,18 +2,22 @@
 precomputed frame embeddings (the stubbed speech frontend), causal
 decoder with per-layer cross-attention.
 
-Counterpart of ``repro/models/encdec.py``, inference half.  Both stacks
-are the reference's period-1 scans, Python loops over the stacked
-layers here.  On the card the encoder's attention is the flash_attention
-kernel with ``causal=False``, and so is cross-attention (no ``kv_len``,
-one query at decode); the decoder's self-attention is the dense cache's
-(``layers.attn_apply``).  The training loss waits for its ROADMAP item.
+Counterpart of ``repro/models/encdec.py``.  Both stacks are the
+reference's period-1 scans, Python loops over the stacked layers here;
+with ``remat`` each layer's body runs under non-reentrant
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.  On
+the card the encoder's attention is the flash_attention kernel with
+``causal=False``, and so is cross-attention (no ``kv_len``, one query at
+decode); the decoder's self-attention is the dense cache's
+(``layers.attn_apply``).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from .transformer import chunked_xent
 
 
 def encdec_param_defs(cfg, tp: int):
@@ -38,21 +42,25 @@ def _cross_kv(p_cross, enc_out, cfg):
     return k, v
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, *, remat=False):
     """frames (B,S,D) -> encoder output (B,S,D)."""
-    x = frames.to(getattr(torch, cfg.dtype))
-    for i in range(cfg.enc_layers):
+    def body(x, i):
         p = L.take_layer(params["enc"], i)
         x, _ = L.attn_apply(p["attn"], x, cfg, causal=False)
-        x = L.mlp_apply(p["mlp"], x, cfg)
+        return L.mlp_apply(p["mlp"], x, cfg)
+
+    x = frames.to(getattr(torch, cfg.dtype))
+    for i in range(cfg.enc_layers):
+        x = checkpoint(body, x, i, use_reentrant=False) if remat \
+            else body(x, i)
     return L.rms_norm(x, params["enc_ln"], cfg.norm_eps)
 
 
 def decode_stack(params, cfg, x, enc_out, *, caches=None, cache_len=None,
-                 positions=None, enc_len=None):
+                 positions=None, enc_len=None, remat=False):
     """Decoder over x (B,T,D); caches = {"self": stacked attn caches},
     written in place and returned."""
-    for i in range(cfg.num_layers):
+    def body(x, enc_out, i):
         p = L.take_layer(params["dec"], i)
         c = None if caches is None else L.take_layer(caches["self"], i)
         x, _ = L.attn_apply(p["self"], x, cfg, causal=True,
@@ -61,8 +69,22 @@ def decode_stack(params, cfg, x, enc_out, *, caches=None, cache_len=None,
         kv = _cross_kv(p["cross"], enc_out, cfg)
         x, _ = L.attn_apply(p["cross"], x, cfg, kv_override=kv,
                             kv_len=enc_len)
-        x = L.mlp_apply(p["mlp"], x, cfg)
+        return L.mlp_apply(p["mlp"], x, cfg)
+
+    for i in range(cfg.num_layers):
+        x = checkpoint(body, x, enc_out, i, use_reentrant=False) if remat \
+            else body(x, enc_out, i)
     return x, caches
+
+
+def encdec_train_loss(params, cfg, frames, tokens, labels):
+    remat = cfg.remat == "full"
+    enc_out = encode(params, cfg, frames, remat=remat)
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    x, _ = decode_stack(params, cfg, x, enc_out, remat=remat)
+    mask = (labels >= 0).float()
+    loss = chunked_xent(params, cfg, x, torch.clamp(labels, min=0), mask)
+    return loss, {"xent": loss}
 
 
 def encdec_prefill(params, cfg, frames, tokens, caches):

@@ -86,6 +86,33 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_items(tree, path: tuple = ()):
+    """(path, leaf) pairs in JAX's leaf order: dict keys sorted, then
+    sequence indices; a None is an empty subtree, as in JAX."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [item for i, t in enumerate(tree)
+                for item in tree_items(t, path + (i,))]
+    return [] if tree is None else [(path, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's leaf order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, taken in
+    JAX's leaf order."""
+    it = iter(leaves)
+    out = tree_map(lambda a: a if a is None else next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def init_tree(defs, seed: int, device: torch.device):
     """Materialise every ParamDef of ``defs`` on ``device`` from one
     ``torch.Generator`` seeded with ``seed``, in leaf order.  Same shapes,

@@ -7,24 +7,22 @@ dense caches) are stacked per position-in-period with a leading
 leaf for leaf.  The reference's ``lax.scan`` over periods is a Python
 loop here that indexes the stacked params and caches at ``[per]`` (views,
 so the caches are written in place), as ``PagedLM`` indexes its layers.
-Training (``remat``, the losses) waits for its ROADMAP item.  The
-attention mixers (GQA with the local ring, MLA) and the MLP and MoE FFNs
-are ported; the recurrent mixers raise ``NotImplementedError`` naming
-theirs.
+Every mixer (GQA with the local ring, MLA, Mamba, mLSTM, sLSTM) writes
+its cache in place and returns the tree it was given;
+:func:`decoder_forward` raises if one returns another.  With ``remat``
+each period's body runs under ``torch.utils.checkpoint`` (non-reentrant),
+as the reference's ``jax.checkpoint``: its activations are recomputed in
+the backward pass instead of kept.  The loss is the reference's chunked
+cross-entropy, a Python loop over sequence chunks.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-
-_RECURRENT_ITEM = "Recurrent mixers (Mamba, mLSTM, sLSTM)"
-_RECURRENT = ("mamba", "mlstm", "slstm")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, "
-                               f"'{_RECURRENT_ITEM}'")
+from . import mamba as M
+from . import xlstm as X
 
 
 # --------------------------------------------------------------- param defs
@@ -32,8 +30,12 @@ def mixer_defs(cfg, kind: str, tp: int):
     if kind in ("attn", "local", "nope"):
         return L.mla_defs(cfg, tp) if cfg.mla is not None \
             else L.attn_defs(cfg, tp)
-    if kind in _RECURRENT:
-        raise _not_ported(f"the {kind} mixer")
+    if kind == "mamba":
+        return M.mamba_defs(cfg, tp)
+    if kind == "mlstm":
+        return X.mlstm_defs(cfg, tp)
+    if kind == "slstm":
+        return X.slstm_defs(cfg, tp)
     raise ValueError(kind)
 
 
@@ -88,8 +90,12 @@ def block_cache_defs(cfg, kind: str, batch: int, seq: int, *, tp: int,
         # local layers only ever need the trailing window of cache (ring)
         return L.mla_cache_defs(cfg, batch, w, tp=tp) if cfg.mla is not None \
             else L.attn_cache_defs(cfg, batch, w, tp=tp)
-    if kind in _RECURRENT:
-        raise _not_ported(f"the {kind} mixer's cache")
+    if kind == "mamba":
+        return M.mamba_cache_defs(cfg, batch, tp=tp)
+    if kind == "mlstm":
+        return X.mlstm_cache_defs(cfg, batch, tp=tp)
+    if kind == "slstm":
+        return X.slstm_cache_defs(cfg, batch, tp=tp)
     raise ValueError(kind)
 
 
@@ -118,8 +124,15 @@ def apply_block(cfg, kind: str, blk_params, x, *, cache=None, cache_len=None,
             x, new_c = L.attn_apply(p_mix, x, cfg, kind=kind,
                                     positions=positions, cache=cache,
                                     cache_len=cache_len)
-    elif kind in _RECURRENT:
-        raise _not_ported(f"the {kind} mixer")
+    elif kind == "mamba":
+        x, new_c = M.mamba_apply(p_mix, x, cfg, cache=cache,
+                                 cache_len=cache_len)
+    elif kind == "mlstm":
+        x, new_c = X.mlstm_apply(p_mix, x, cfg, cache=cache,
+                                 cache_len=cache_len)
+    elif kind == "slstm":
+        x, new_c = X.slstm_apply(p_mix, x, cfg, cache=cache,
+                                 cache_len=cache_len)
     else:
         raise ValueError(kind)
     if "ffn" in blk_params:
@@ -132,32 +145,83 @@ def apply_block(cfg, kind: str, blk_params, x, *, cache=None, cache_len=None,
 
 
 # ---------------------------------------------------------------- forward
+def _block(cfg, kind, blk_params, x, cache, cache_len, positions):
+    """``apply_block`` with the in-place cache contract held: a mixer that
+    returns another tree than the cache it was given would leave that
+    cache unwritten, so this raises."""
+    x, new_c, aux = apply_block(cfg, kind, blk_params, x, cache=cache,
+                                cache_len=cache_len, positions=positions)
+    if new_c is not cache:
+        raise RuntimeError(f"the {kind} mixer returned a new cache instead "
+                           "of writing the one it was given")
+    return x, aux
+
+
 def decoder_forward(params, cfg, x, *, caches=None, cache_len=None,
-                    positions=None):
+                    positions=None, remat: bool = False):
     """x (B,T,D) hidden states -> (hidden, caches, aux_sum); ``caches`` is
-    written in place and returned (None without caches)."""
+    written in place and returned (None without caches).  ``remat`` runs
+    each period's body under non-reentrant ``checkpoint`` (the remainder
+    layers are not, as in the reference)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for per in range(cfg.n_periods):
+
+    def period_body(x, per):
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(cfg.period_pattern):
             c = None if caches is None \
                 else L.take_layer(caches["stack"][pos], per)
-            x, _, aux = apply_block(cfg, kind,
-                                    L.take_layer(params["stack"][pos], per),
-                                    x, cache=c, cache_len=cache_len,
-                                    positions=positions)
+            x, aux = _block(cfg, kind, L.take_layer(params["stack"][pos], per),
+                            x, c, cache_len, positions)
             aux_sum = aux_sum + aux
+        return x, aux_sum
+
+    for per in range(cfg.n_periods):
+        if remat:
+            x, aux_sum = checkpoint(period_body, x, per, use_reentrant=False)
+        else:
+            x, aux_sum = period_body(x, per)
         aux_total = aux_total + aux_sum
     for pos, kind in enumerate(cfg.remainder_kinds):
         c = None if caches is None else caches["rem"][pos]
-        x, _, aux = apply_block(cfg, kind, params["rem"][pos], x,
-                                cache=c, cache_len=cache_len,
-                                positions=positions)
+        x, aux = _block(cfg, kind, params["rem"][pos], x, c, cache_len,
+                        positions)
         aux_total = aux_total + aux
     return x, caches, aux_total
 
 
+# -------------------------------------------------------------------- loss
+def chunked_xent(params, cfg, hidden, labels, mask):
+    """Cross-entropy without materialising (B,T,V): a loop over sequence
+    chunks of ``cfg.loss_chunk`` (or T if shorter, lowered until it divides
+    T, as the reference), each chunk's logits (B,chunk,V) in fp32."""
+    t = hidden.shape[1]
+    ck = min(cfg.loss_chunk, t)
+    while t % ck:
+        ck -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s in range(0, t, ck):
+        lab, m = labels[:, s:s + ck], mask[:, s:s + ck]
+        logits = L.logits_apply(params["embed"], hidden[:, s:s + ck],
+                                cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        nll = (lse - gold) * m
+        tot = tot + nll.sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # ----------------------------------------------------------- full LM paths
+def lm_train_loss(params, cfg, tokens, labels):
+    """(loss + 0.01 * aux, {"xent", "aux"}); labels < 0 are masked."""
+    x = L.embed_apply(params["embed"], tokens, cfg)
+    x, _, aux = decoder_forward(params, cfg, x, remat=(cfg.remat == "full"))
+    mask = (labels >= 0).float()
+    loss = chunked_xent(params, cfg, x, torch.clamp(labels, min=0), mask)
+    return loss + 0.01 * aux, {"xent": loss, "aux": aux}
+
+
 def lm_prefill(params, cfg, tokens, caches):
     """Fill caches for the prompt; returns (last_logits, caches)."""
     x = L.embed_apply(params["embed"], tokens, cfg)

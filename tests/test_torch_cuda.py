@@ -963,3 +963,127 @@ def test_meshed_engine_on_the_card_matches_unmeshed(cuda, model, shape):
         assert n_mesh[k] == n_plain[k] * scale, (k, n_mesh, n_plain)
     assert n_mesh["agg_combine" if model == "gcn" else "spmm"] > 0
     assert meshed.stats()["engine"]["mesh"] == {"data": d, "model": m}
+
+
+# ------------------------------------------------ gradients and training
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,t,d,causal,window", [
+    (4, 2, 100, 64, True, 0), (6, 2, 77, 128, True, 16),
+    (4, 4, 50, 32, False, 0), (8, 2, 300, 128, True, 0)])
+def test_kernel_functions_gradients_match_plain(cuda, dtype, tol, hq, hkv, t,
+                                                d, causal, window):
+    """The rmsnorm and flash_attention Functions on the card (forward the
+    kernel, backward plain torch) against autograd through the plain
+    versions on the same inputs and output gradients: within ``tol`` of
+    each gradient's largest element; the forward is the kernel's."""
+    rng = np.random.default_rng(40)
+    before = kernels.launch_counts()
+
+    def grads(fn, args, dy):
+        args = [a.detach().requires_grad_(True) for a in args]
+        out = fn(*args)
+        return out, torch.autograd.grad(out, args, dy)
+
+    x = _r(rng, 3, t, 96, device=cuda, dtype=dtype)
+    w = _r(rng, 96, device=cuda)
+    q = _r(rng, 2, hq, t, d, device=cuda, dtype=dtype)
+    k, v = (_r(rng, 2, hkv, t, d, device=cuda, dtype=dtype)
+            for _ in range(2))
+    cases = [(lambda a, b: kernels.rmsnorm(a, b, eps=1e-6),
+              lambda a, b: ref.rmsnorm_ref(a, b, eps=1e-6), [x, w],
+              _r(rng, *x.shape, device=cuda, dtype=dtype)),
+             (lambda a, b, c: kernels.flash_attention(
+                 a, b, c, causal=causal, window=window),
+              lambda a, b, c: ref.attention_ref(a, b, c, causal=causal,
+                                                window=window),
+              [q, k, v], _r(rng, *q.shape, device=cuda, dtype=dtype))]
+    for fn, plain, args, dy in cases:
+        out, got = grads(fn, args, dy)
+        _close(out, fn(*[a.detach() for a in args]), 0)  # the kernel's
+        _, want = grads(plain, args, dy)
+        for a, b in zip(got, want):
+            bar = tol * float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= bar
+    after = kernels.launch_counts()
+    assert after["rmsnorm"] > before["rmsnorm"]
+    assert after["flash_attention"] > before["flash_attention"]
+
+
+def test_decode_attention_refuses_a_gradient_on_the_card(cuda):
+    q = torch.randn(1, 2, 32, device=cuda, requires_grad=True)
+    pages = torch.randn(2, 16, 1, 32, device=cuda)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([20], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kernels.decode_attention(q, pages, pages, table, lengths)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "xlstm-125m"])
+def test_recurrent_cached_path_matches_full_forward_on_the_card(cuda, name,
+                                                                dtype, tol):
+    """jamba and xlstm SMOKE on the card: prefill of 12 tokens and 5
+    decode steps against the model's own full forward (fp32 element by
+    element at the kernels-vs-plain tolerance, 5e-2 for jamba's capacity
+    MoE as ``tests/test_models.py`` holds it: a token's drop depends on
+    the batch it is routed in; bf16 within 2e-2 of the logits' scale),
+    through the kernels (jamba's attention layer: flash at prefill,
+    decode_attention at decode)."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import build, layers as L, transformer as T
+    cfg = SMOKES[name].replace(dtype=dtype)
+    api = build(cfg)
+    params = api.init_params(0, cuda)
+    rng = np.random.default_rng(41)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 17)),
+                        dtype=torch.int32, device=cuda)
+    x = L.embed_apply(params["embed"], toks, cfg)
+    x, _, _ = T.decoder_forward(params, cfg, x)
+    full = L.logits_apply(params["embed"], x, cfg).float()
+    caches = L.init_tree(api.cache_defs(2, 32), 0, cuda)
+    kernels.reset_launch_counts()
+    lg, caches = api.prefill(params, {"tokens": toks[:, :12]}, caches)
+    got = [lg[:, 0].float()]
+    lengths = torch.full((2,), 12, dtype=torch.int32, device=cuda)
+    for i in range(12, 17):
+        lg, caches = api.decode(params, {"tokens": toks[:, i:i + 1],
+                                         "lengths": lengths}, caches)
+        got.append(lg[:, 0].float())
+        lengths = lengths + 1
+    n = kernels.launch_counts()
+    assert n["rmsnorm"] > 0
+    if name.startswith("jamba"):
+        assert n["flash_attention"] > 0 and n["decode_attention"] > 0
+    got = torch.stack(got, 1)
+    want = full[:, 11:]
+    if dtype == "float32":
+        _close(got, want, 5e-2 if cfg.moe is not None else tol)
+    else:
+        assert float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "xlstm-125m",
+                                  "jamba-v0.1-52b"])
+def test_trainer_gives_every_leaf_a_gradient_on_the_card(cuda, name):
+    """Three steps of the Trainer on the card (SMOKE, bf16 activations,
+    remat on): the step raises if any leaf had no gradient, so finishing
+    is the check; the norms and attention ran through the kernels, and
+    the loss stays finite."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build
+    from repro_torch.train import Trainer
+    tr = Trainer(build(SMOKES[name]), ShapeConfig("t", "train", 32, 4),
+                 device=cuda)
+    kernels.reset_launch_counts()
+    _, opt, step = tr.run(3)
+    n = kernels.launch_counts()
+    assert step == 3 and int(opt["step"]) == 3
+    assert all(np.isfinite(m["loss"]) and m["grad_norm"] > 0
+               for m in tr.metrics_log)
+    assert n["rmsnorm"] > 0 and n["decode_attention"] == 0
+    if name != "xlstm-125m":
+        assert n["flash_attention"] > 0

@@ -1,7 +1,9 @@
 """The port's dense-cache LM path against the JAX reference, on the CPU:
-``ModelAPI.prefill`` / ``decode`` of every attention family (GQA with the
-local ring cache, MLA, MoE, VLM, encoder-decoder) at SMOKE sizes, the
-caches they fill, the cached path against the port's own full forward,
+``ModelAPI.prefill`` / ``decode`` of every family (GQA with the local
+ring cache, MLA, MoE, VLM, encoder-decoder, and the recurrent ones:
+jamba's Mamba with attention and MoE, xlstm's mLSTM and sLSTM) at SMOKE
+sizes, the caches they fill, the cached path against the port's own full
+forward,
 and the layers under it (``attn_apply`` in each mode, ``mla_apply``,
 ``moe_apply``, ``encode`` / ``decode_stack``), the routes ``_sdpa`` takes
 on the card run through the kernels' plain versions, and the dense
@@ -31,7 +33,7 @@ from repro_torch.models import build, encdec as E, layers as L, \
 CPU = "cpu"
 FAMILIES = ["llama3.2-3b", "gemma3-12b", "gemma3-27b", "minicpm3-4b",
             "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "internvl2-76b",
-            "seamless-m4t-large-v2"]
+            "seamless-m4t-large-v2", "jamba-v0.1-52b", "xlstm-125m"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B, PROMPT, STEPS, SEQ = 2, 12, 5, 32
 
@@ -167,14 +169,6 @@ def test_prefill_caches_match_reference(name, dtype):
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         assert a.shape == b.shape
         _close(a, b, TOL[dtype], f"{name} {dtype}")
-
-
-def test_recurrent_families_still_raise():
-    for name in ("jamba-v0.1-52b", "xlstm-125m"):
-        api = build(SMOKES[name])
-        with pytest.raises(NotImplementedError,
-                           match=r"Recurrent mixers \(Mamba, mLSTM, sLSTM\)"):
-            api.cache_defs(B, SEQ)
 
 
 # ------------------------------------------- cached path against full forward
