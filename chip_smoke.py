@@ -93,7 +93,11 @@ Phases, each uncaught, so any failure exits non-zero:
    (16 experts, top 2), internvl2-76b (1,024 patches) and
    seamless-m4t-large-v2 at their published widths, 2 layers each: one
    prefill of 2 x 256 tokens and 8 steps, their launches and their
-   logits against the plain versions';
+   logits against the plain versions' (phi3.5-moe's bf16 logits held at
+   the positions where both runs routed every token alike, at that
+   position and before it in the sequence: each MoE call's top-k experts
+   and capacity drops recorded by wrapping ``layers._moe_local``; at
+   least half the positions must be so gated);
 9. the recurrent mixers and training: jamba-v0.1-52b at its published
    widths (d_model 4096, Mamba with d_state 16, 32/8 heads x 128, 16
    experts top 2 of d_ff 14,336, vocab 65,536), depth cut from 32 layers
@@ -109,8 +113,10 @@ Phases, each uncaught, so any failure exits non-zero:
    card (the witness of the card's shape-dependent rounding), for xlstm
    also on the CPU within 2e-2 of the scale alone, and in fp32 element
    by element within 1e-3; against the same run on the plain versions
-   (2e-2 of the scale in bf16, 1e-3 in fp32); each kernel call against
-   its plain version, timed cold.  Then training xlstm-125m through
+   (2e-2 of the scale in bf16, 1e-3 in fp32), jamba's bf16 comparisons
+   also at the positions whose routes agree, within 2e-2 of the scale
+   alone, as phi3.5-moe's; each kernel call against its plain version,
+   timed cold.  Then training xlstm-125m through
    ``launch.train.main`` at its defaults (batch 8, seq 128, remat
    "full"): 10 steps; a run that fails at step 7 and its resume from the
    step-5 checkpoint, whose losses must equal the uninterrupted run's
@@ -123,9 +129,24 @@ Phases, each uncaught, so any failure exits non-zero:
    rmsnorm and flash_attention Functions' gradients on the run's
    arguments held to autograd through the plain versions (1e-4 of each
    gradient's max in fp32, 2e-2 in bf16);
-10. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
-   keyed by ``mesh``, and the dense, recurrent and train paths', keyed
-   by ``path``), then ``{"ok": true, "device": ...}`` last.
+10. training on a mesh: the same llama3.2-3b cut (2 layers, batch 4 x
+   seq 512) in fp32, 3 steps of the unmeshed Trainer, then of
+   ``Trainer(mesh=...)`` on (data, model) meshes of slots on the one
+   card, (1, 1), and (2, 1) and (2, 2) with ZeRO-1, launch counts zeroed
+   just before each run and read just after (rmsnorm and
+   flash_attention > 0): (1, 1) equal to the unmeshed run bit for bit
+   in loss, grad_norm and every parameter and moment, the others each
+   leaf within 1e-4 of its largest element and the losses within rtol
+   1e-5; every slot's blocks the shapes ``param_pspecs`` and
+   ``opt_pspecs`` dictate; the (2, 2) run's Function calls against
+   their plain versions (forward and gradients) and timed cold; step ms
+   and tokens/s per mesh.  Then a checkpoint at step 2 on (2, 2),
+   restored on (1, 1) and on (2, 1), whose step 3 loss must equal the
+   uninterrupted run's within rtol 1e-5;
+11. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``, and the dense, recurrent, train and mesh_train
+   paths', keyed by ``path``), then ``{"ok": true, "device": ...}``
+   last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -224,6 +245,15 @@ ATTN_TRAIN_ARCH, ATTN_TRAIN_LAYERS = "llama3.2-3b", 2
 ATTN_TRAIN_BATCH, ATTN_TRAIN_SEQ, ATTN_TRAIN_STEPS = 4, 512, 3
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max
 TRAIN_KERNELS = ("rmsnorm", "flash_attention")
+# training on a mesh (phase 10): the same llama3.2-3b cut in fp32, on
+# (data, model) meshes of slots on the one card, ZeRO-1 where data > 1;
+# (1, 1) equals the unmeshed Trainer bit for bit, the others each leaf
+# within 1e-4 of its largest element (the fp32 gradient tolerance) and
+# the losses within rtol 1e-5; a checkpoint at step 2 of SAVE_MESH
+# resumes on each of RESUME_MESHES
+MESH_TRAIN_SHAPES = ((1, 1), (2, 1), (2, 2))
+MESH_TRAIN_TOL, MESH_SAVE_AT = 1e-4, 2
+SAVE_MESH, RESUME_MESHES = (2, 2), ((1, 1), (2, 1))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
@@ -904,6 +934,113 @@ def recording(torch, ops, names):
         yield recorded
 
 
+@contextlib.contextmanager
+def routes_recorded(torch):
+    """Each MoE call's routes in the block, in call order: the port's
+    ``models/layers.py::_moe_local`` wrapped so that, on the arguments it
+    is given, its router's top-k experts (the model's own ``_top_k``) are
+    recorded as (B, T, k), with -1 where the token's rank at that expert
+    passes the call's capacity and the token is dropped; then the model's
+    call runs as it was."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    inner = L._moe_local
+    calls = []
+
+    def wrapped(xl, router, wg, wi, wo, *, cfg):
+        mc = cfg.moe
+        bl, t, d = xl.shape
+        e, k = mc.num_experts, mc.top_k
+        cap = max(8, int(mc.capacity_factor * bl * t * k / e))
+        probs = torch.softmax(xl.reshape(bl * t, d).float() @ router.float(),
+                              dim=-1)
+        _, idx = L._top_k(probs, k)
+        flat = idx.reshape(-1)
+        oh = F.one_hot(flat, e)
+        rank = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None])
+        kept = torch.where(rank.reshape(bl * t, k) < cap, idx, -1)
+        calls.append(kept.reshape(bl, t, k))
+        return inner(xl, router, wg, wi, wo, cfg=cfg)
+
+    L._moe_local = wrapped
+    try:
+        yield calls
+    finally:
+        L._moe_local = inner
+
+
+def route_positions(torch, calls):
+    """One run's recorded routes by position: (B, T, layers * k).  A
+    run's first calls are its first forward's, one per MoE layer (a
+    prefill or a full forward); each later group of as many calls is a
+    decode step's, one more position."""
+    n = next((i for i, c in enumerate(calls)
+              if c.shape[1] != calls[0].shape[1]), len(calls))
+    layers = [torch.cat(calls[i::n], dim=1) for i in range(n)]
+    return torch.cat(layers, dim=2)
+
+
+def moe_reach(cfg) -> list:
+    """Per MoE layer, in call order, whether its output can reach another
+    position: every layer's mixer mixes positions, so an MoE's can unless
+    it is in the model's last layer."""
+    from repro_torch.models import transformer as T
+    period, rem = cfg.period_pattern, cfg.remainder_kinds
+    kinds = [T._pos_ffn_kind(cfg, pos) for _ in range(cfg.n_periods)
+             for pos in range(len(period))]
+    kinds += [T._pos_ffn_kind(cfg, pos) for pos in range(len(rem))]
+    return [i < len(kinds) - 1 for i, k in enumerate(kinds) if k == "moe"]
+
+
+def agreeing_positions(torch, calls_a, calls_b, reach, first: int,
+                       count: int):
+    """Two (B, count) bool masks over logits positions first .. first +
+    count - 1: where no MoE layer routed any token otherwise in the two
+    runs, at that position, or at an earlier one of the same sequence in
+    a layer whose output can reach it (``reach``, from
+    :func:`moe_reach`); and, for the record, where none did at that
+    position or at any earlier one, in any layer."""
+    a, b = route_positions(torch, calls_a), route_positions(torch, calls_b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    k = a.shape[2] // len(reach)
+    layers = (a != b).reshape(*a.shape[:2], len(reach), k).any(dim=3)
+    here = layers.any(dim=2)
+    onward = layers[:, :, torch.tensor(reach)].any(dim=2)
+
+    def clean(d):
+        return ~torch.cummax(d.int(), dim=1).values.bool()
+
+    return ((clean(onward) & ~here)[:, first:first + count],
+            clean(here)[:, first:first + count])
+
+
+def compare_routed(torch, what, got, want, masks, *, prefix, witness=None):
+    """Logits (B, P, V) against a yardstick's at the positions the first
+    of ``masks`` (from :func:`agreeing_positions`) marks, within 2e-2
+    times the yardstick's largest logit there, plus, given ``witness`` (a
+    pair of runs of the same comparison without the kernels), its
+    reading at the same positions; prints how many positions are gated
+    and how many are left out (and how many no differing route precedes
+    in any layer), and fails if fewer than half are gated."""
+    agree, strict = masks
+    n, total = int(agree.sum()), agree.numel()
+    print(f"{prefix} {what}, gated on routes that agree: {n} of {total} "
+          f"positions gated, {total - n} left out (a route differed there, "
+          f"or earlier in the sequence in a layer that reaches it); "
+          f"{int(strict.sum())} with no differing route before them in "
+          f"any layer")
+    assert 2 * n >= total, (what, n, total)
+    room = 0.0
+    if witness is not None:
+        room = compare_logits(
+            torch, f"{what} on the plain versions at the same {n} positions "
+            f"(witness)", witness[0][agree][None], witness[1][agree][None],
+            prefix=prefix)
+    return compare_logits(torch, f"{what} at the {n} positions whose routes "
+                          f"agree", got[agree][None], want[agree][None],
+                          scale_tol=TOL_BF16, room=room, prefix=prefix)
+
+
 def lm_library(torch, name, args, kwargs):
     """One PyTorch call computing an LM kernel's function on its
     arguments: ``F.rms_norm``; SDPA causal, or under the window's band
@@ -1474,7 +1611,8 @@ def dense_phase(torch, card) -> list[dict]:
                            FAMILY_STEPS)
         generate = lambda api_, p_: dense_generate(  # noqa: E731
             torch, api_, p_, inp, FAMILY_PROMPT, FAMILY_STEPS, FAMILY_SEQ)[0]
-        with recording(torch, ops, LM_KERNELS) as recorded:
+        with recording(torch, ops, LM_KERNELS) as recorded, \
+                routes_recorded(torch) as routes:
             kernels.reset_launch_counts()
             logits, pre_s, step_s, _ = dense_generate(
                 torch, api, params, inp, FAMILY_PROMPT, FAMILY_STEPS,
@@ -1505,14 +1643,22 @@ def dense_phase(torch, card) -> list[dict]:
               f"{np.median(step_s) * 1e3:.3f} ms a step (first run, cold); "
               f"launches {launches}; each kernel call against its plain "
               f"version, max abs err {errs} (tol {TOL_BF16})  [{card}]")
-        # end to end against the plain versions: in bf16, but not for a
-        # capacity MoE, where one rounding flip reroutes a token and, past
-        # an expert's capacity, drops others; and in fp32 for every family
-        with wrappers_as(ops, plain):
+        # end to end against the plain versions: in bf16, for a capacity
+        # MoE only where the two runs routed alike (one rounding flip
+        # reroutes a token and, past an expert's capacity, drops others),
+        # and in fp32 for every family
+        with wrappers_as(ops, plain), routes_recorded(torch) as routes_p:
             plain_logits = generate(api, params)
+        got, want = torch.stack(logits, 1), torch.stack(plain_logits, 1)
         compare_logits(torch, f"{name} bf16 kernels vs plain versions",
-                       torch.stack(logits, 1), torch.stack(plain_logits, 1),
+                       got, want,
                        scale_tol=None if cfg.moe is not None else TOL_BF16)
+        if cfg.moe is not None:
+            compare_routed(torch, f"{name} bf16 kernels vs plain versions",
+                           got, want, agreeing_positions(
+                               torch, routes, routes_p, moe_reach(cfg),
+                               FAMILY_PROMPT - 1, got.shape[1]),
+                           prefix="dense")
         api32 = build(cfg.replace(dtype="float32"))
         logits32 = torch.stack(generate(api32, params), 1)
         with wrappers_as(ops, plain):
@@ -1559,7 +1705,8 @@ def recurrent_serve(torch, card, arch, cut, batch, prompt, seq, steps,
                                    prompt, n, seq)
     run(2)                              # warm: cuBLAS's plans, allocator
     originals = {name: getattr(ops, name) for name in LM_KERNELS}
-    with recording(torch, ops, LM_KERNELS) as recorded:
+    with recording(torch, ops, LM_KERNELS) as recorded, \
+            routes_recorded(torch) as routes:
         kernels.reset_launch_counts()
         logits, pre_s, step_s, state = run(steps)
         launches = kernels.launch_counts()
@@ -1605,16 +1752,39 @@ def recurrent_serve(torch, card, arch, cut, batch, prompt, seq, steps,
     # rows, held to the 2e-2 rule alone.  fp32 is held element by element
     # on the same weights, the MoE at a capacity at which no token can
     # drop (e / top_k).
+    # A capacity MoE's comparisons are also held where the runs compared
+    # routed alike (agreeing_positions): kernels vs plain versions within
+    # 2e-2 of the scale alone; cached vs full forward within that plus
+    # the plain versions' own cached vs full reading at the positions
+    # where both pairs of runs routed alike: at positions no differing
+    # route reaches, jamba's bf16 Mamba scans still part the two by
+    # about 2e-2 of the scale (0.125 at logits up to 6.19; the plain
+    # versions 0.133).
     cached = torch.stack(logits, dim=1)
     with wrappers_as(ops, plain):
-        plain_logits = torch.stack(run(steps)[0], dim=1)
+        with routes_recorded(torch) as routes_p:
+            plain_logits = torch.stack(run(steps)[0], dim=1)
+        with routes_recorded(torch) as routes_pf:
+            plain_full = full_forward(cfg)
         witness = compare_logits(
             torch, f"{arch} bf16 plain versions cached vs full forward "
             f"(witness: the card's rounding, no kernel)", plain_logits,
-            full_forward(cfg), prefix="recurrent")
+            plain_full, prefix="recurrent")
+    with routes_recorded(torch) as routes_f:
+        full = full_forward(cfg)
     compare_logits(torch, f"{arch} bf16 cached vs full forward", cached,
-                   full_forward(cfg), scale_tol=TOL_BF16, room=witness,
+                   full, scale_tol=TOL_BF16, room=witness,
                    prefix="recurrent")
+    if cfg.moe is not None:
+        reach = moe_reach(cfg)
+        kern, flat = (agreeing_positions(torch, a, b, reach, prompt - 1,
+                                         cached.shape[1])
+                      for a, b in ((routes, routes_f), (routes_p, routes_pf)))
+        agree = (kern[0] & flat[0], kern[1] & flat[1])
+        compare_routed(torch, f"{arch} bf16 cached vs full forward", cached,
+                       full, agree, prefix="recurrent",
+                       witness=(plain_logits, plain_full))
+    del full, plain_full, routes_f, routes_pf
     if cpu_witness:
         on_cpu = L.tree_map(lambda t: t.cpu(), params)
         tokens = inp["tokens"].cpu()
@@ -1648,6 +1818,12 @@ def recurrent_serve(torch, card, arch, cut, batch, prompt, seq, steps,
     # scale, fp32 element by element
     compare_logits(torch, f"{arch} bf16 kernels vs plain versions", cached,
                    plain_logits, scale_tol=TOL_BF16, prefix="recurrent")
+    if cfg.moe is not None:
+        compare_routed(torch, f"{arch} bf16 kernels vs plain versions",
+                       cached, plain_logits, agreeing_positions(
+                           torch, routes, routes_p, moe_reach(cfg),
+                           prompt - 1, cached.shape[1]), prefix="recurrent")
+    del routes, routes_p
     api32 = build(cfg.replace(dtype="float32"))
     run32 = lambda: torch.stack(dense_generate(  # noqa: E731
         torch, api32, params, inp, prompt, steps, seq)[0], dim=1)
@@ -1833,6 +2009,211 @@ def recurrent_train_phase(torch, card) -> list[dict]:
     torch.cuda.empty_cache()
     print(f"recurrent and train phase: {time.perf_counter() - t_phase:.1f} "
           f"s")
+    return rows
+
+
+def slot_shape(layout, shape) -> tuple:
+    """A slot's block shape as its spec dictates: each dim over the
+    product of the widths of the mesh axes its entry names."""
+    width = dict(zip(layout.mesh.axis_names, layout.mesh.devices.shape))
+    out = []
+    for i, n in enumerate(shape):
+        e = layout.spec[i] if i < len(layout.spec) else None
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        out.append(n // int(np.prod([width[a] for a in axes])))
+    return tuple(out)
+
+
+def hold_state(torch, what, got, want, exact: bool) -> float:
+    """Leaves of a laid-out tree (gathered) against whole tensors: equal
+    bit for bit, or each within MESH_TRAIN_TOL of its largest element.
+    Returns the largest error relative to that element."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import sharded as S
+    worst = 0.0
+    for (path, laid), ref in zip(L.tree_items(got), L.tree_leaves(want)):
+        a = S.gather(laid)
+        if exact:
+            assert torch.equal(a, ref), (what, path)
+            continue
+        scale = float(ref.abs().max())
+        err = float((a - ref).abs().max()) / max(scale, 1e-30)
+        assert err <= MESH_TRAIN_TOL, (what, path, err)
+        worst = max(worst, err)
+    return worst
+
+
+def hold_blocks(trainer, params, opt) -> dict:
+    """Every slot's block of the parameters and moments has the shape its
+    spec dictates, on its slot's device; returns bytes a slot holds."""
+    from repro_torch.models import layers as L
+    held = {}
+    for part, tree, lays in (("params", params, trainer.layouts["params"]),
+                             ("moments", {"m": opt["m"], "v": opt["v"]},
+                              {"m": trainer.layouts["opt"]["m"],
+                               "v": trainer.layouts["opt"]["v"]})):
+        total = 0
+        for laid, lay in zip(L.tree_leaves(tree), L.tree_leaves(lays)):
+            want = slot_shape(lay, laid.shape)
+            for block, dev in zip(laid.blocks, lay.mesh.devices.flat):
+                assert tuple(block.shape) == want, (part, laid.shape, want)
+                assert block.device == dev, (part, block.device, dev)
+            total += int(np.prod(want)) * laid.blocks[0].element_size()
+        held[part] = total
+    return held
+
+
+def mesh_train_phase(torch, card) -> list[dict]:
+    """Phase 10: training on a mesh (see the module docstring).  Returns
+    the ``kernels`` rows of the (2, 2) run, keyed ``"path":
+    "mesh_train"``."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, layers as L
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.attention_ref}
+    originals = {name: getattr(ops, name) for name in TRAIN_KERNELS}
+    base = ARCHS[ATTN_TRAIN_ARCH]
+    cfg = base.replace(num_layers=ATTN_TRAIN_LAYERS, dtype="float32")
+    shape = ShapeConfig("mesh", "train", ATTN_TRAIN_SEQ, ATTN_TRAIN_BATCH)
+    tokens = ATTN_TRAIN_BATCH * ATTN_TRAIN_SEQ
+    print(f"mesh train: {ATTN_TRAIN_ARCH} {cfg.num_layers} of "
+          f"{base.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; batch "
+          f"{ATTN_TRAIN_BATCH} x seq {ATTN_TRAIN_SEQ}, {ATTN_TRAIN_STEPS} "
+          f"steps a mesh, every slot on {MESH_SLOT}")
+
+    def trainer(mesh_shape, **kw):
+        if mesh_shape is None:
+            return Trainer(build(cfg), shape, device=DEVICE, **kw)
+        d, m = mesh_shape
+        mesh = make_host_mesh(shape=mesh_shape, devices=[MESH_SLOT] * (d * m))
+        return Trainer(build(cfg, tp=m), shape, mesh=mesh, zero1=d > 1, **kw)
+
+    def timing(tr, tag):
+        dts = np.asarray([m["dt"] for m in tr.metrics_log])
+        med = float(np.median(dts[1:]))
+        ms = [round(float(x) * 1e3, 3) for x in dts]
+        print(f"mesh train {tag}: step ms {ms} (the first builds cuBLAS "
+              f"plans), median of the rest "
+              f"{med * 1e3:.3f} ms, {tokens / med:.1f} tokens/s  [{card}]")
+
+    flat = trainer(None)
+    kernels.reset_launch_counts()
+    flat_params, flat_opt, _ = flat.run(ATTN_TRAIN_STEPS)
+    launches = kernels.launch_counts()
+    assert all(launches[k] > 0 for k in TRAIN_KERNELS), launches
+    timing(flat, "unmeshed")
+    want = {key: [m[key] for m in flat.metrics_log]
+            for key in ("loss", "grad_norm")}
+
+    rows = []
+    for mesh_shape in MESH_TRAIN_SHAPES:
+        tag = "x".join(map(str, mesh_shape))
+        tr = trainer(mesh_shape)
+        record = mesh_shape == SAVE_MESH
+        with (recording(torch, ops, TRAIN_KERNELS) if record
+              else contextlib.nullcontext({})) as recorded:
+            kernels.reset_launch_counts()
+            params, opt, step = tr.run(ATTN_TRAIN_STEPS)
+            launches = kernels.launch_counts()
+        print(f"mesh train {tag} main path launches: {launches}")
+        assert step == ATTN_TRAIN_STEPS
+        assert all(launches[k] > 0 for k in TRAIN_KERNELS), (tag, launches)
+        got = {key: [m[key] for m in tr.metrics_log]
+               for key in ("loss", "grad_norm")}
+        exact = mesh_shape == (1, 1)
+        if exact:
+            assert got == want, (tag, got, want)
+        else:
+            for key in got:
+                np.testing.assert_allclose(got[key], want[key],
+                                           rtol=RESUME_RTOL, err_msg=key)
+        errs = {part: hold_state(torch, f"{tag} {part}", a, b, exact)
+                for part, a, b in (("params", params, flat_params),
+                                   ("m", opt["m"], flat_opt["m"]),
+                                   ("v", opt["v"], flat_opt["v"]))}
+        held = hold_blocks(tr, params, opt)
+        specs = [lay.spec for lay in L.tree_leaves(tr.layouts["opt"]["m"])]
+        print(f"mesh train {tag} (zero1 {mesh_shape[0] > 1}): losses "
+              f"{got['loss']}, grad_norm {got['grad_norm']}; against the "
+              f"unmeshed Trainer: " + ("loss, grad_norm, every parameter "
+                                       "and moment bit for bit" if exact
+                                       else f"max error / leaf max {errs} "
+                                       f"(tol {MESH_TRAIN_TOL}), losses "
+                                       f"within rtol {RESUME_RTOL}") +
+              f"; each slot holds {held['params'] / 1e9:.3f} GB of "
+              f"parameters and {held['moments'] / 1e9:.3f} GB of moments "
+              f"({sum('data' in str(sp) for sp in specs)} of {len(specs)} "
+              f"moment specs over data), blocks as the specs dictate")
+        timing(tr, tag)
+        if record:
+            worst = {k: max(max(hold_gradients(torch, k, originals[k],
+                                               plain[k], a, kw),
+                                hold_to_plain(torch, k, originals[k],
+                                              plain[k], a, kw))
+                            for a, kw, _ in recorded[k].values())
+                     for k in TRAIN_KERNELS}
+            print(f"mesh train {tag}: the Functions' recorded calls "
+                  f"against their plain versions, forward within "
+                  f"{[TOL[k] for k in TRAIN_KERNELS]} and gradients within "
+                  f"{GRAD_TOL['float32']} of each max: worst {worst}")
+            rows += dense_rows(torch, card, recorded, originals, plain,
+                               path="mesh_train",
+                               extra={"arch": ATTN_TRAIN_ARCH, "mesh": tag})
+            uninterrupted = got["loss"]
+        del tr, params, opt, recorded
+        torch.cuda.empty_cache()
+    del flat_params, flat_opt
+
+    # ---- a checkpoint at step 2 on SAVE_MESH, step 3 on other meshes
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        saver = trainer(SAVE_MESH, ckpt_dir=f"{tmp}/save",
+                        ckpt_every=ATTN_TRAIN_STEPS + 1)
+        saver.run(MESH_SAVE_AT)
+        save_s = time.perf_counter() - t0
+        assert saver.ckpt.committed_steps() == [MESH_SAVE_AT]
+        del saver
+        torch.cuda.empty_cache()
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in synth_batch(cfg, shape, MESH_SAVE_AT).items()}
+        for mesh_shape in RESUME_MESHES:
+            tag = "x".join(map(str, mesh_shape))
+            d = f"{tmp}/{tag}"
+            shutil.copytree(f"{tmp}/save", d, copy_function=os.link)
+            t0 = time.perf_counter()
+            tr = trainer(mesh_shape, ckpt_dir=d)
+            params, opt, start = tr.init_or_restore()
+            restore_s = time.perf_counter() - t0
+            assert start == MESH_SAVE_AT
+            hold_blocks(tr, params, opt)
+            _, _, m = tr.step_fn(params, opt, batch)
+            loss = float(m["loss"])
+            np.testing.assert_allclose(loss, uninterrupted[MESH_SAVE_AT],
+                                       rtol=RESUME_RTOL)
+            print(f"mesh train resume: saved at step {MESH_SAVE_AT} on "
+                  f"{'x'.join(map(str, SAVE_MESH))} ({save_s:.1f} s, the "
+                  f"run included), restored on {tag} ({restore_s:.1f} s): "
+                  f"step {MESH_SAVE_AT + 1} loss {loss} against the "
+                  f"uninterrupted run's {uninterrupted[MESH_SAVE_AT]} "
+                  f"(rtol {RESUME_RTOL})")
+            del tr, params, opt
+            torch.cuda.empty_cache()
+    print(f"mesh train phase: {time.perf_counter() - t_phase:.1f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
     return rows
 
 
@@ -2100,7 +2481,10 @@ def main() -> int:
     # ------------------------------------------------ 9. recurrent and train
     rows += recurrent_train_phase(torch, card)
 
-    # ------------------------------------------------ 10. result lines
+    # ------------------------------------------------ 10. training on a mesh
+    rows += mesh_train_phase(torch, card)
+
+    # ------------------------------------------------ 11. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

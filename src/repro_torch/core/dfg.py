@@ -23,6 +23,7 @@ from typing import Any
 
 import torch
 
+from ..locks import witness_lock
 from .registry import KernelRegistry
 from .spmd import build_sharded_program, mesh_descriptor
 
@@ -209,7 +210,7 @@ class Engine:
         self._jit_cache_size = jit_cache_size
         # the serving runtime's scheduler and immediate-pool threads may
         # run the engine at once: lookup, insert and eviction hold a lock
-        self._cache_lock = threading.Lock()
+        self._cache_lock = witness_lock("dfg._cache_lock", threading.Lock())
         self._cache_hits = 0
         self._cache_misses = 0
         self._cache_evictions = 0

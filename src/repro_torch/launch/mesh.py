@@ -43,6 +43,11 @@ class Mesh:
         self.devices = grid
         self.axis_names = tuple(axis_names)
 
+    @property
+    def shape(self) -> dict:
+        """Axis name -> width, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
     def __repr__(self) -> str:
         shape = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names,
                                                       self.devices.shape))

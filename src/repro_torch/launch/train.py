@@ -5,20 +5,27 @@
 
 Counterpart of ``repro/launch/train.py``, with its flags, plus
 ``--device`` (default: the card; ``--device cpu`` runs the plain
-versions).  It trains on one device: ``--mesh`` and ``--zero1`` raise
-``NotImplementedError`` naming ROADMAP.md's "Training on a mesh".  Fault
+versions).  ``--mesh`` trains on a (data, model) mesh over the device's
+pool of slots (``launch/mesh.py::device_pool``: the visible cards, or
+8 CPU slots with ``--device cpu``, as the reference's 8 forced host
+devices), at tp = the model axis' width; ``--zero1`` splits the
+moments over the data axes.  The reference's multi-host entry is not
+ported: with ``JAX_COORDINATOR`` set, ``main`` raises
+``NotImplementedError`` (the port runs one process).  Fault
 tolerance: kill and restart resumes from the last committed checkpoint
 and replays the deterministic data stream.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from ..configs import ARCHS, SMOKES
 from ..configs.base import ShapeConfig
+from ..device import resolve_device
 from ..models import build
 from ..train import AdamWConfig, Trainer
-from ..train.trainer import mesh_not_ported
+from .mesh import device_pool, dp_axes_of, make_host_mesh
 
 
 def parse_args(argv=None):
@@ -42,20 +49,26 @@ def parse_args(argv=None):
 
 def make_trainer(args) -> Trainer:
     """The Trainer ``main`` runs for parsed ``args``."""
-    if args.mesh:
-        raise mesh_not_ported("--mesh")
-    if args.zero1:
-        raise mesh_not_ported("--zero1")
     cfg = (SMOKES if args.smoke else ARCHS)[args.arch]
     shape = ShapeConfig("cli", "train", seq_len=args.seq,
                         global_batch=args.batch)
-    return Trainer(build(cfg, tp=1), shape, opt_cfg=AdamWConfig(lr=args.lr),
+    mesh = make_host_mesh(devices=device_pool(resolve_device(args.device))) \
+        if args.mesh else None
+    return Trainer(build(cfg, tp=(mesh.shape["model"] if mesh else 1)),
+                   shape, mesh=mesh,
+                   dp_axes=dp_axes_of(mesh) if mesh else ("data",),
+                   opt_cfg=AdamWConfig(lr=args.lr),
                    grad_accum=args.grad_accum, ckpt_dir=args.ckpt,
-                   ckpt_every=args.ckpt_every, device=args.device)
+                   ckpt_every=args.ckpt_every, zero1=args.zero1,
+                   device=None if mesh else args.device)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if "JAX_COORDINATOR" in os.environ:        # the reference's pod entry
+        raise NotImplementedError(
+            "the multi-host entry (JAX_COORDINATOR) is not ported: the "
+            "port trains in one process, over the slots of one host")
     tr = make_trainer(args)
     _, _, step = tr.run(args.steps)
     last = tr.metrics_log[-1] if tr.metrics_log else {}

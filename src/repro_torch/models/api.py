@@ -1,9 +1,9 @@
 """Unified model API for the LM paths: parameter defs, parameters on a
-device, cache defs, and the prefill/decode functions over dense caches.
+device, abstract and PartitionSpec trees, cache defs, the prefill/decode
+functions over dense caches, and the dry-run ``input_specs``.
 
-Counterpart of ``repro/models/api.py`` (``ModelAPI.param_defs``,
-``init_params``, ``cache_defs``, ``prefill``, ``decode``, ``build``).  Two
-ways to get parameters:
+Counterpart of ``repro/models/api.py``, method for method.  Two ways to
+get parameters:
 
 * :meth:`ModelAPI.init_params` materialises the reference's shapes,
   inits, scales and dtypes on a device from an explicit
@@ -14,9 +14,11 @@ ways to get parameters:
 
 Caches are ``layers.init_tree(api.cache_defs(b, s), 0, device)``; prefill
 and decode write them in place and return them.  ``train_loss`` is the
-reference's, differentiable with ``torch.autograd``.  The dry-run specs
-(``abstract_*``, ``*_pspecs``, ``input_specs``) wait for their ROADMAP
-item.
+reference's, differentiable with ``torch.autograd``.  ``abstract_*`` and
+``input_specs`` give tensors on the ``meta`` device (shapes and dtypes,
+no storage); ``*_pspecs`` give ``layers.PSpec`` trees resolved against
+the mesh of ``layers.use_mesh``, equal to the reference's entry for
+entry.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..device import resolve_device
 from . import encdec as E
 from . import layers as L
@@ -63,6 +65,20 @@ class ModelAPI:
 
         return L.tree_map(leaf, self.param_defs(), tree)
 
+    def abstract_params(self, *, dtype=None):
+        """dtype="bfloat16" gives the serving-weight tree (inference cells
+        hold bf16 weights; training holds fp32 masters)."""
+        tree = L.abstract_tree(self.param_defs())
+        if dtype is None:
+            return tree
+        dt = getattr(torch, dtype)
+        return L.tree_map(lambda a: torch.empty(
+            a.shape, dtype=dt if a.dtype.is_floating_point else a.dtype,
+            device="meta"), tree)
+
+    def param_pspecs(self):
+        return L.pspec_tree(self.param_defs())
+
     # ---------------------------------------------------------------- cache
     def cache_defs(self, batch: int, seq: int, *, long_mode: bool = False):
         """ParamDefs of the dense caches (zeros, ``cfg.dtype``); a VLM's
@@ -71,6 +87,12 @@ class ModelAPI:
             return E.encdec_cache_defs(self.cfg, batch, seq, tp=self.tp)
         return T.decoder_cache_defs(self.cfg, batch, seq, tp=self.tp,
                                     long_mode=long_mode)
+
+    def abstract_cache(self, batch, seq, **kw):
+        return L.abstract_tree(self.cache_defs(batch, seq, **kw))
+
+    def cache_pspecs(self, batch, seq, **kw):
+        return L.pspec_tree(self.cache_defs(batch, seq, **kw))
 
     # ------------------------------------------------------------ functions
     def train_loss(self, params, batch):
@@ -104,6 +126,52 @@ class ModelAPI:
                                    batch["lengths"], batch["enc_out"])
         return T.lm_decode(params, cfg, batch["tokens"], caches,
                            batch["lengths"])
+
+    # ----------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Stand-ins for every model input on the ``meta`` device."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        dt = getattr(torch, cfg.dtype)
+
+        def t(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "train":
+            if cfg.family == "encdec":
+                return {"frames": t(b, s // 2, cfg.d_model, dtype=dt),
+                        "tokens": t(b, s // 2), "labels": t(b, s // 2)}
+            if cfg.family == "vlm":
+                p = cfg.num_patches
+                return {"patches": t(b, p, cfg.d_model, dtype=dt),
+                        "tokens": t(b, s - p), "labels": t(b, s - p)}
+            return {"tokens": t(b, s), "labels": t(b, s)}
+        if shape.kind == "prefill":
+            if cfg.family == "encdec":
+                return {"frames": t(b, s, cfg.d_model, dtype=dt),
+                        "tokens": t(b, s)}
+            if cfg.family == "vlm":
+                p = cfg.num_patches
+                return {"patches": t(b, p, cfg.d_model, dtype=dt),
+                        "tokens": t(b, s - p)}
+            return {"tokens": t(b, s)}
+        # decode
+        out = {"tokens": t(b, 1), "lengths": t(b)}
+        if cfg.family == "encdec":
+            out["enc_out"] = t(b, s, cfg.d_model, dtype=dt)
+        return out
+
+    def input_pspecs(self, shape: ShapeConfig) -> dict:
+        dp = () if _is_long_mode(shape) else L.DP
+        by_ndim = {3: L.resolve_pspec((dp, None, None)),
+                   2: L.resolve_pspec((dp, None)),
+                   1: L.resolve_pspec((dp,))}
+        return {k: by_ndim[v.dim()]
+                for k, v in self.input_specs(shape).items()}
+
+
+def _is_long_mode(shape: ShapeConfig) -> bool:
+    return shape.kind == "decode" and shape.global_batch == 1
 
 
 def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:

@@ -1,14 +1,28 @@
-"""Model substrate for the LM paths: ParamDef-driven parameters and the
-attention / MLA / MLP / MoE / embedding building blocks, on tensors.
+"""Model substrate for the LM paths: ParamDef-driven parameters, the
+sharding specs, and the attention / MLA / MLP / MoE / embedding building
+blocks, on tensors.
 
 Counterpart of ``repro/models/layers.py``.  Parameters are declared as
-``ParamDef`` trees (nested dicts and tuples, as in the reference) and
-materialised on a device.  The port's mesh (``launch/mesh.py``) serves
-the GNN engine only; the LM path is not sharded, so the reference's
-``shard()`` constraints are the identity and are left out, and the
-PartitionSpecs of each ``ParamDef`` with them (``moe_apply`` is the
-reference's no-mesh branch); ``tp`` stays an argument of the defs
-because it decides head padding.
+``ParamDef`` trees (nested dicts and tuples, as in the reference); from
+one declaration come (a) tensors materialised on a device, (b) abstract
+tensors on the ``meta`` device (:func:`abstract_tree`), and (c) the
+PartitionSpecs (:func:`pspec_tree`), each a :class:`PSpec`: a tuple of
+``None``, an axis name or a tuple of axis names, entry for entry the
+reference's ``PartitionSpec``.  ``use_mesh`` / ``active_tp`` /
+``active_dp`` / ``resolve_pspec`` and the ``DP`` / ``DPM`` sentinels are
+the reference's; ``tp`` stays an argument of the defs because it decides
+head padding and which dims shard over ``"model"``.
+
+The specs lay out *state*: ``train/sharded.py`` splits the parameters
+and optimizer moments into one block per slot of a ``launch/mesh.py``
+mesh as the reference's ``NamedSharding`` does.  The compute does not
+follow them: the reference's activation constraints (``shard()``) are
+left out, an identity on a mesh too, and a meshed training step runs
+each data shard's rows on whole gathered parameters
+(``train/trainer.py``).  So
+``moe_apply`` is the reference's no-mesh branch over the tokens it is
+given: run on one data shard's rows, that is the reference's per-shard
+capacity under ``shard_map``.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``
@@ -35,6 +49,7 @@ type first.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
 from math import gcd
 
@@ -46,10 +61,78 @@ from ..kernels import ops as K
 from ..kernels.ref import NEG_INF
 
 
+# ---------------------------------------------------------------- mesh state
+# DP is a sentinel resolved to the data-parallel axes of the active mesh;
+# DPM additionally folds in the model axis (long-context cache sharding)
+DP = "__dp__"
+DPM = "__dp_model__"
+
+_ACTIVE = {"mesh": None, "dp_axes": ("data",), "tp": 1}
+
+
+def _entry(e):
+    if isinstance(e, tuple) and len(e) < 2:
+        return e[0] if e else None
+    return e
+
+
+class PSpec(tuple):
+    """A PartitionSpec: one entry per leading dim of a tensor, each
+    ``None`` (replicated), an axis name, or a tuple of axis names (major
+    first; as JAX holds them, one name is held bare and none as
+    ``None``); dims past the last entry are replicated.  A leaf of the
+    port's trees, not a sequence of leaves."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P({', '.join(map(repr, self))})"
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, dp_axes=("data",)):
+    prev = dict(_ACTIVE)
+    _ACTIVE["mesh"] = mesh
+    _ACTIVE["dp_axes"] = tuple(dp_axes)
+    _ACTIVE["tp"] = int(mesh.shape.get("model", 1)) if mesh is not None else 1
+    try:
+        yield
+    finally:
+        _ACTIVE.update(prev)
+
+
+def active_tp() -> int:
+    return _ACTIVE["tp"]
+
+
+def active_dp() -> int:
+    mesh = _ACTIVE["mesh"]
+    if mesh is None:
+        return 1
+    out = 1
+    for a in _ACTIVE["dp_axes"]:
+        out *= int(mesh.shape.get(a, 1))
+    return out
+
+
+def resolve_pspec(spec) -> PSpec:
+    out = []
+    for s in spec:
+        if s == DP:
+            out.append(_ACTIVE["dp_axes"])
+        elif s == DPM:
+            out.append(tuple(_ACTIVE["dp_axes"]) + ("model",))
+        else:
+            out.append(s)
+    return PSpec(*out)
+
+
 # ----------------------------------------------------------------- ParamDef
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple
+    pspec: tuple = ()
     init: str = "normal"          # normal | zeros | ones
     scale: float = 0.02
     dtype: str = "float32"
@@ -66,19 +149,23 @@ class ParamDef:
         return x.mul_(self.scale).to(dt)
 
 
+def _is_node(tree) -> bool:
+    return isinstance(tree, (tuple, list)) and not isinstance(tree, PSpec)
+
+
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the leaves of nested dicts, tuples and lists (dict
     keys in sorted order, JAX's leaf order), zipped with trees of the
-    same structure in ``rest``; raises ``ValueError`` where they differ."""
+    same structure in ``rest``; raises ``ValueError`` where they differ.
+    A :class:`PSpec` is a leaf."""
     if isinstance(tree, dict):
         if any(not isinstance(r, dict) or sorted(r) != sorted(tree)
                for r in rest):
             raise ValueError(f"tree structures differ at keys {sorted(tree)}")
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
-    if isinstance(tree, (tuple, list)):
-        if any(not isinstance(r, (tuple, list)) or len(r) != len(tree)
-               for r in rest):
+    if _is_node(tree):
+        if any(not _is_node(r) or len(r) != len(tree) for r in rest):
             raise ValueError(f"tree structures differ at a sequence of "
                              f"{len(tree)}")
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
@@ -92,7 +179,7 @@ def tree_items(tree, path: tuple = ()):
     if isinstance(tree, dict):
         return [item for k in sorted(tree)
                 for item in tree_items(tree[k], path + (k,))]
-    if isinstance(tree, (tuple, list)):
+    if _is_node(tree):
         return [item for i, t in enumerate(tree)
                 for item in tree_items(t, path + (i,))]
     return [] if tree is None else [(path, tree)]
@@ -122,9 +209,27 @@ def init_tree(defs, seed: int, device: torch.device):
     return tree_map(lambda d: d.materialize(gen, device), defs)
 
 
+def abstract_tree(defs):
+    """Each ParamDef as an empty tensor of its shape and dtype on the
+    ``meta`` device (no allocation)."""
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=getattr(torch, d.dtype), device="meta"), defs)
+
+
+def pspec_tree(defs):
+    """Each ParamDef's spec, resolved against the active mesh."""
+    return tree_map(lambda d: resolve_pspec(d.pspec), defs)
+
+
 def stack_defs(defs, n: int):
-    """Prepend a layer-stack dimension (the reference scans over it)."""
-    return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape)), defs)
+    """Prepend a layer-stack dimension (the reference scans over it),
+    replicated."""
+    return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape),
+                                      pspec=(None,) + tuple(d.pspec)), defs)
+
+
+def _div(n: int, tp: int) -> bool:
+    return tp > 0 and n % tp == 0
 
 
 def take_layer(tree, i: int):
@@ -147,7 +252,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def norm_def(d: int) -> ParamDef:
-    return ParamDef((d,), init="ones")
+    return ParamDef((d,), (None,), init="ones")
 
 
 # ------------------------------------------------------------------- rope
@@ -183,7 +288,7 @@ def _act(name: str):
 def padded_heads(h: int, kvh: int, tp: int) -> int:
     """Pad the query-head dim to the TP degree when not divisible (Megatron
     head padding), keeping it divisible by the KV heads."""
-    if tp <= 1 or h % tp == 0:
+    if tp <= 1 or _div(h, tp):
         return h
     hp = -(-h // tp) * tp
     while hp % kvh != 0:
@@ -195,11 +300,13 @@ def attn_defs(cfg, tp: int) -> dict:
     d, h, kvh, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
     hp = padded_heads(h, kvh, tp)
+    h_ax = "model" if _div(hp, tp) else None
+    kv_ax = "model" if _div(kvh, tp) else None
     return {
-        "wq": ParamDef((d, hp, hd)),
-        "wk": ParamDef((d, kvh, hd)),
-        "wv": ParamDef((d, kvh, hd)),
-        "wo": ParamDef((hp, hd, d)),
+        "wq": ParamDef((d, hp, hd), (None, h_ax, None)),
+        "wk": ParamDef((d, kvh, hd), (None, kv_ax, None)),
+        "wv": ParamDef((d, kvh, hd), (None, kv_ax, None)),
+        "wo": ParamDef((hp, hd, d), (h_ax, None, None)),
         "ln": norm_def(d),
     }
 
@@ -405,12 +512,18 @@ def attn_decode_pos(cache_len, b, *, device=None):
 
 def attn_cache_defs(cfg, batch: int, seq: int, *, tp: int,
                     long_mode: bool = False) -> dict:
-    """Decode KV-cache defs (the reference's ``long_mode`` changes only
-    its sharding, which the port does not have)."""
+    """Decode KV-cache defs.  Normal mode: batch over DP, seq over "model"
+    when KV heads cannot shard.  long_mode (batch < DP degree): batch
+    replicated, seq over DP(+model)."""
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": ParamDef((batch, seq, kvh, hd), init="zeros",
+    kv_ax = "model" if _div(kvh, tp) else None
+    if long_mode:
+        pspec = (None, DP if kv_ax else DPM, kv_ax, None)
+    else:
+        pspec = (DP, None if kv_ax else "model", kv_ax, None)
+    return {"k": ParamDef((batch, seq, kvh, hd), pspec, init="zeros",
                           dtype=cfg.dtype),
-            "v": ParamDef((batch, seq, kvh, hd), init="zeros",
+            "v": ParamDef((batch, seq, kvh, hd), pspec, init="zeros",
                           dtype=cfg.dtype)}
 
 
@@ -485,15 +598,18 @@ def mla_defs(cfg, tp: int) -> dict:
     d = cfg.d_model
     h = padded_heads(cfg.num_heads, 1, tp)
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    h_ax = "model" if _div(h, tp) else None
     return {
-        "wdq": ParamDef((d, m.q_lora_rank)),
+        "wdq": ParamDef((d, m.q_lora_rank), (None, None)),
         "q_ln": norm_def(m.q_lora_rank),
-        "wuq": ParamDef((m.q_lora_rank, h, qd)),
-        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "wuq": ParamDef((m.q_lora_rank, h, qd), (None, h_ax, None)),
+        "wdkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                         (None, None)),
         "kv_ln": norm_def(m.kv_lora_rank),
         "wukv": ParamDef((m.kv_lora_rank, h,
-                          m.qk_nope_head_dim + m.v_head_dim)),
-        "wo": ParamDef((h, m.v_head_dim, d)),
+                          m.qk_nope_head_dim + m.v_head_dim),
+                         (None, h_ax, None)),
+        "wo": ParamDef((h, m.v_head_dim, d), (h_ax, None, None)),
         "ln": norm_def(d),
     }
 
@@ -558,19 +674,21 @@ def mla_apply(p, x, cfg, *, positions=None, cache=None, cache_len=None):
 def mla_cache_defs(cfg, batch: int, seq: int, *, tp: int,
                    long_mode: bool = False) -> dict:
     m = cfg.mla
-    return {"ckv": ParamDef((batch, seq, m.kv_lora_rank), init="zeros",
-                            dtype=cfg.dtype),
-            "krope": ParamDef((batch, seq, m.qk_rope_head_dim), init="zeros",
-                              dtype=cfg.dtype)}
+    pspec = (None, DPM, None) if long_mode else (DP, "model", None)
+    return {"ckv": ParamDef((batch, seq, m.kv_lora_rank), pspec,
+                            init="zeros", dtype=cfg.dtype),
+            "krope": ParamDef((batch, seq, m.qk_rope_head_dim), pspec,
+                              init="zeros", dtype=cfg.dtype)}
 
 
 # ===================================================================== MLP
 def mlp_defs(cfg, tp: int, d_ff: int = 0) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    f_ax = "model" if _div(f, tp) else None
     return {
-        "w_gate": ParamDef((d, f)),
-        "w_in": ParamDef((d, f)),
-        "w_out": ParamDef((f, d)),
+        "w_gate": ParamDef((d, f), (None, f_ax)),
+        "w_in": ParamDef((d, f), (None, f_ax)),
+        "w_out": ParamDef((f, d), (f_ax, None)),
         "ln": norm_def(d),
     }
 
@@ -591,18 +709,20 @@ def moe_defs(cfg, tp: int) -> dict:
     d = cfg.d_model
     f = mc.d_ff or cfg.d_ff
     e = mc.num_experts
+    e_ax = "model" if _div(e, tp) else None
+    f_ax = "model" if _div(f, tp) else None
     defs = {
-        "router": ParamDef((d, e)),
-        "w_gate": ParamDef((e, d, f)),
-        "w_in": ParamDef((e, d, f)),
-        "w_out": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), (None, None)),
+        "w_gate": ParamDef((e, d, f), (e_ax, None, None)),
+        "w_in": ParamDef((e, d, f), (e_ax, None, None)),
+        "w_out": ParamDef((e, f, d), (e_ax, None, None)),
         "ln": norm_def(d),
     }
     if mc.num_shared:
         defs["shared"] = {
-            "w_gate": ParamDef((d, mc.num_shared * f)),
-            "w_in": ParamDef((d, mc.num_shared * f)),
-            "w_out": ParamDef((mc.num_shared * f, d)),
+            "w_gate": ParamDef((d, mc.num_shared * f), (None, f_ax)),
+            "w_in": ParamDef((d, mc.num_shared * f), (None, f_ax)),
+            "w_out": ParamDef((mc.num_shared * f, d), (f_ax, None)),
         }
     return defs
 
@@ -656,8 +776,10 @@ def _moe_local(xl, router, wg, wi, wo, *, cfg):
 
 
 def moe_apply(p, x, cfg):
-    """Capacity-based top-k MoE (GShard-style), the reference's no-mesh
-    branch; returns (y, aux)."""
+    """Capacity-based top-k MoE (GShard-style) over the tokens of ``x``,
+    the reference's no-mesh branch; returns (y, aux).  A meshed training
+    step calls it on one data shard's rows, which is the reference's
+    per-shard capacity on a mesh."""
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     y, aux = _moe_local(xn, p["router"], p["w_gate"], p["w_in"],
                         p["w_out"], cfg=cfg)
@@ -673,10 +795,16 @@ def moe_apply(p, x, cfg):
 # ================================================================ embedding
 def embed_defs(cfg, tp: int) -> dict:
     v, d = cfg.vocab_size, cfg.d_model
-    defs = {"tokens": ParamDef((v, d), scale=1.0 / np.sqrt(d)),
+    if _div(v, tp):
+        emb_spec = ("model", None)
+    else:
+        emb_spec = (None, "model")           # row-parallel logits fallback
+    defs = {"tokens": ParamDef((v, d), emb_spec, scale=1.0 / np.sqrt(d)),
             "final_ln": norm_def(d)}
     if not cfg.tie_embeddings:
-        defs["head"] = ParamDef((d, v))
+        defs["head"] = ParamDef((d, v),
+                                (None, "model") if _div(v, tp)
+                                else ("model", None))
     return defs
 
 

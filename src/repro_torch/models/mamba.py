@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamDef, norm_def, rms_norm
+from .layers import DP, ParamDef, _div, norm_def, rms_norm
 
 
 def mamba_defs(cfg, tp: int):
@@ -26,16 +26,17 @@ def mamba_defs(cfg, tp: int):
     d = cfg.d_model
     di = s.expand * d
     dtr = s.dt_rank or -(-d // 16)
+    di_ax = "model" if _div(di, tp) else None
     return {
-        "in_proj": ParamDef((d, 2 * di)),
-        "conv_w": ParamDef((s.d_conv, di)),
-        "conv_b": ParamDef((di,), init="zeros"),
-        "x_proj": ParamDef((di, dtr + 2 * s.d_state)),
-        "dt_proj": ParamDef((dtr, di)),
-        "dt_bias": ParamDef((di,), init="zeros"),
-        "A_log": ParamDef((di, s.d_state), init="ones"),
-        "D": ParamDef((di,), init="ones"),
-        "out_proj": ParamDef((di, d)),
+        "in_proj": ParamDef((d, 2 * di), (None, di_ax)),
+        "conv_w": ParamDef((s.d_conv, di), (None, di_ax)),
+        "conv_b": ParamDef((di,), (di_ax,), init="zeros"),
+        "x_proj": ParamDef((di, dtr + 2 * s.d_state), (di_ax, None)),
+        "dt_proj": ParamDef((dtr, di), (None, di_ax)),
+        "dt_bias": ParamDef((di,), (di_ax,), init="zeros"),
+        "A_log": ParamDef((di, s.d_state), (di_ax, None), init="ones"),
+        "D": ParamDef((di,), (di_ax,), init="ones"),
+        "out_proj": ParamDef((di, d), (di_ax, None)),
         "ln": norm_def(d),
     }
 
@@ -118,7 +119,8 @@ def mamba_apply(p, x, cfg, *, cache=None, cache_len=None):
 def mamba_cache_defs(cfg, batch: int, *, tp: int):
     s = cfg.ssm
     di = s.expand * cfg.d_model
-    return {"conv": ParamDef((batch, s.d_conv - 1, di), init="zeros",
-                             dtype=cfg.dtype),
-            "ssm": ParamDef((batch, di, s.d_state), init="zeros",
-                            dtype="float32")}
+    di_ax = "model" if _div(di, tp) else None
+    return {"conv": ParamDef((batch, s.d_conv - 1, di), (DP, None, di_ax),
+                             init="zeros", dtype=cfg.dtype),
+            "ssm": ParamDef((batch, di, s.d_state), (DP, di_ax, None),
+                            init="zeros", dtype="float32")}

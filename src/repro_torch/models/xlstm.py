@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamDef, norm_def, rms_norm
+from .layers import DP, ParamDef, _div, norm_def, rms_norm
 
 _M0 = -1e30                                  # the stabiliser's start
 
@@ -29,14 +29,15 @@ def mlstm_defs(cfg, tp: int):
     d = cfg.d_model
     di = 2 * d                                   # projected block dim
     nh = cfg.num_heads
+    di_ax = "model" if _div(di, tp) else None
     return {
-        "up_proj": ParamDef((d, 2 * di)),
-        "wq": ParamDef((di, di)),
-        "wk": ParamDef((di, di)),
-        "wv": ParamDef((di, di)),
-        "wi": ParamDef((di, nh)),
-        "wf": ParamDef((di, nh)),
-        "down_proj": ParamDef((di, d)),
+        "up_proj": ParamDef((d, 2 * di), (None, di_ax)),
+        "wq": ParamDef((di, di), (None, di_ax)),
+        "wk": ParamDef((di, di), (None, di_ax)),
+        "wv": ParamDef((di, di), (None, di_ax)),
+        "wi": ParamDef((di, nh), (None, None)),
+        "wf": ParamDef((di, nh), (None, None)),
+        "down_proj": ParamDef((di, d), (di_ax, None)),
         "ln": norm_def(d),
     }
 
@@ -114,10 +115,12 @@ def mlstm_cache_defs(cfg, batch: int, *, tp: int):
     di = 2 * cfg.d_model
     nh = cfg.num_heads
     hd = di // nh
-    return {"C": ParamDef((batch, nh, hd, hd), init="zeros",
+    return {"C": ParamDef((batch, nh, hd, hd), (DP, None, None, None),
+                          init="zeros", dtype="float32"),
+            "n": ParamDef((batch, nh, hd), (DP, None, None), init="zeros",
                           dtype="float32"),
-            "n": ParamDef((batch, nh, hd), init="zeros", dtype="float32"),
-            "m": ParamDef((batch, nh), init="zeros", dtype="float32")}
+            "m": ParamDef((batch, nh), (DP, None), init="zeros",
+                          dtype="float32")}
 
 
 # ===================================================================== sLSTM
@@ -126,16 +129,16 @@ def slstm_defs(cfg, tp: int):
     nh = cfg.num_heads
     hd = d // nh
     return {
-        "wz": ParamDef((d, d)),
-        "wi": ParamDef((d, d)),
-        "wf": ParamDef((d, d)),
-        "wo": ParamDef((d, d)),
-        "rz": ParamDef((nh, hd, hd)),
-        "ri": ParamDef((nh, hd, hd)),
-        "rf": ParamDef((nh, hd, hd)),
-        "ro": ParamDef((nh, hd, hd)),
-        "up_proj": ParamDef((d, 2 * d)),
-        "down_proj": ParamDef((d, d)),
+        "wz": ParamDef((d, d), (None, None)),
+        "wi": ParamDef((d, d), (None, None)),
+        "wf": ParamDef((d, d), (None, None)),
+        "wo": ParamDef((d, d), (None, None)),
+        "rz": ParamDef((nh, hd, hd), (None, None, None)),
+        "ri": ParamDef((nh, hd, hd), (None, None, None)),
+        "rf": ParamDef((nh, hd, hd), (None, None, None)),
+        "ro": ParamDef((nh, hd, hd), (None, None, None)),
+        "up_proj": ParamDef((d, 2 * d), (None, None)),
+        "down_proj": ParamDef((d, d), (None, None)),
         "ln": norm_def(d),
     }
 
@@ -206,7 +209,11 @@ def slstm_cache_defs(cfg, batch: int, *, tp: int):
     d = cfg.d_model
     nh = cfg.num_heads
     hd = d // nh
-    return {"c": ParamDef((batch, nh, hd), init="zeros", dtype="float32"),
-            "h": ParamDef((batch, d), init="zeros", dtype="float32"),
-            "n": ParamDef((batch, nh, hd), init="zeros", dtype="float32"),
-            "m": ParamDef((batch, nh, hd), init="zeros", dtype="float32")}
+    return {"c": ParamDef((batch, nh, hd), (DP, None, None), init="zeros",
+                          dtype="float32"),
+            "h": ParamDef((batch, d), (DP, None), init="zeros",
+                          dtype="float32"),
+            "n": ParamDef((batch, nh, hd), (DP, None, None), init="zeros",
+                          dtype="float32"),
+            "m": ParamDef((batch, nh, hd), (DP, None, None), init="zeros",
+                          dtype="float32")}

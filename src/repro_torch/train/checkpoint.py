@@ -18,6 +18,12 @@ restores in the other, leaf for leaf.
 * **atomic**: a step directory without COMMIT is ignored and garbage
   collected; a crash mid-write never corrupts a restore.
 * **checked**: ``restore`` verifies each leaf's crc32.
+* **elastic**: leaves are stored whole: ``save`` gathers a leaf laid
+  out over a mesh's slots (``train/sharded.py``), as the reference's
+  ``np.asarray`` does, and ``restore(..., layouts=)`` lays each leaf
+  out onto the current mesh's slots, as the reference's ``shardings=``
+  re-shards; so a checkpoint moves between meshes, and between meshed
+  and unmeshed runs, in both packages.
 
 NumPy has no bfloat16 type on a host without ml_dtypes, which writes the
 reference's bf16 leaves, so a bf16 leaf raises ``TypeError`` naming its
@@ -36,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import layers as L
+from . import sharded as S
 
 
 def _key(path) -> str:
@@ -43,6 +50,8 @@ def _key(path) -> str:
 
 
 def _to_numpy(key: str, leaf) -> np.ndarray:
+    if isinstance(leaf, S.Laid):
+        leaf = S.gather(leaf)
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {key} is bfloat16, which NumPy "
@@ -121,15 +130,18 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: int | None = None, *, device=None,
-                verify: bool = True):
+                layouts=None, verify: bool = True):
         """(tree, step): the leaves of ``step`` (default the latest
         committed) in the structure of ``tree_like``, whose leaves are only
-        placeholders, as tensors on ``device`` (default: the card).
-        Raises ``IOError`` on a crc mismatch."""
+        placeholders, as tensors on ``device`` (default: the card), or,
+        given ``layouts`` (a tree of ``sharded.Layout`` of the same
+        structure), each laid out over its mesh's slots.  Raises
+        ``IOError`` on a crc mismatch."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no committed checkpoint")
-        dev = resolve_device(device)
+        dev = torch.device("cpu") if layouts is not None \
+            else resolve_device(device)
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -146,4 +158,7 @@ class Checkpointer:
                 if crc != meta["crc"]:
                     raise IOError(f"checkpoint leaf {key} corrupt")
             leaves.append(torch.from_numpy(np.array(arr)).to(dev))
-        return L.tree_unflatten(tree_like, leaves), step
+        tree = L.tree_unflatten(tree_like, leaves)
+        if layouts is not None:
+            tree = S.lay_out_tree(tree, layouts)
+        return tree, step

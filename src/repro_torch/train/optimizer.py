@@ -1,5 +1,5 @@
-"""AdamW on tensors (no optimizer library) and the int8 error-feedback
-gradient compressor.
+"""AdamW on tensors (no optimizer library) with ZeRO-1 optimizer-state
+specs, and the int8 error-feedback gradient compressor.
 
 Counterpart of ``repro/train/optimizer.py``: the same configuration,
 schedule and update, with the reference's order of operations, so one
@@ -8,9 +8,12 @@ step matches it at 1e-6.  The optimizer state mirrors the parameter tree
 ``apply_updates`` is functional, as the reference's: it returns new
 parameter and state trees and leaves its arguments as they were.
 
-The reference's ``abstract_state``, ``_zero1_spec`` and ``opt_pspecs``
-derive PartitionSpecs from the ParamDefs, which the port's ``ParamDef``
-does not carry; they wait for ROADMAP.md's "Training on a mesh".
+``opt_pspecs`` derives the state's PartitionSpecs from the parameter
+ParamDefs; with ``zero1=True`` the moments also split their largest
+replicated, dp-divisible dim over the data axes (ZeRO-1: each data slot
+owns a slice of the moments).  A meshed step updates each slot's block
+with :func:`update_with_norm`, the arithmetic of ``apply_updates`` given
+the full gradient's norm.
 """
 from __future__ import annotations
 
@@ -54,6 +57,38 @@ def init_state(params):
     }
 
 
+def abstract_state(abstract_params):
+    """The state's stand-ins on the ``meta`` device."""
+    zero = L.tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                            device="meta"), abstract_params)
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+            "m": zero, "v": zero}
+
+
+def _zero1_spec(pdef_spec, shape, dp_axes, dp_size: int) -> L.PSpec:
+    """Add dp sharding on the largest unsharded, divisible dim (ZeRO-1)."""
+    entries = list(pdef_spec) + [None] * (len(shape) - len(pdef_spec))
+    best, best_dim = -1, -1
+    for i, (e, s) in enumerate(zip(entries, shape)):
+        if e is None and dp_size > 0 and s % dp_size == 0 and s > best:
+            best, best_dim = s, i
+    if best_dim >= 0:
+        entries[best_dim] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return L.PSpec(*entries)
+
+
+def opt_pspecs(param_defs, *, zero1: bool = False, dp_axes=("data",),
+               dp_size: int = 1):
+    base = L.pspec_tree(param_defs)
+    if not zero1:
+        mom = base
+    else:
+        mom = L.tree_map(lambda d: _zero1_spec(L.resolve_pspec(d.pspec),
+                                               d.shape, tuple(dp_axes),
+                                               dp_size), param_defs)
+    return {"step": L.PSpec(), "m": mom, "v": mom}
+
+
 def global_norm(tree):
     """sqrt of the sum over leaves (in leaf order) of each leaf's sum of
     squares in fp32."""
@@ -65,9 +100,16 @@ def global_norm(tree):
 def apply_updates(c: AdamWConfig, params, grads, state):
     """One AdamW step with global-norm clipping: (params, state, {"grad_norm",
     "lr"})."""
+    return update_with_norm(c, params, grads, state, global_norm(grads))
+
+
+@torch.no_grad()
+def update_with_norm(c: AdamWConfig, params, grads, state, gnorm):
+    """``apply_updates`` with the gradient's global norm given: the same
+    arithmetic element by element, so trees of blocks of the parameters,
+    gradient and moments update as the whole trees would."""
     step = state["step"] + 1
     lr = schedule(c, step)
-    gnorm = global_norm(grads)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1c = 1 - c.b1 ** step.float()

@@ -1,7 +1,7 @@
-"""Fault-tolerant trainer on one device: the train step (gradient
-accumulation, remat through the model's ``cfg.remat``), async
-checkpointing with deterministic resume, straggler detection, and
-failure recovery (replay from the last committed step).
+"""Fault-tolerant trainer: the train step (gradient accumulation, remat
+through the model's ``cfg.remat``), training on a mesh of slots with
+ZeRO-1, async checkpointing with deterministic resume, straggler
+detection, and failure recovery (replay from the last committed step).
 
 Counterpart of ``repro/train/trainer.py``.  The reference's step is
 ``jax.value_and_grad`` under ``jit``; here it is the loss, then
@@ -9,8 +9,26 @@ Counterpart of ``repro/train/trainer.py``.  The reference's step is
 eagerly.  A leaf the loss does not reach gets no gradient (``None``):
 the step raises naming it rather than let the optimizer skip it, so a
 path that cuts the graph (a kernel without a backward) cannot train
-silently.  ``Trainer(mesh=...)`` and ``zero1=True`` raise
-``NotImplementedError`` naming ROADMAP.md's "Training on a mesh".
+silently.
+
+``Trainer(mesh=..., dp_axes=..., zero1=...)`` lays the parameters out
+over the mesh's slots by ``api.param_pspecs()`` and the optimizer state
+by ``opt_pspecs`` (``train/sharded.py``), each slot holding the block
+the reference's ``NamedSharding`` puts on the matching device.  The
+compute of :func:`make_mesh_train_step` gathers the whole parameters
+onto each data row's first slot and runs that data shard's batch rows
+through the normal kernels; it does not split heads or MLP columns over
+the model axis (a Megatron-style split would rewrite every family's
+forward, and slots on one card share its SMs).  Each shard's loss is
+weighted so that the shards sum to the reference's global loss: the
+cross-entropy by the shard's share of the labels that count, an MoE's
+aux at 1/dp (the reference's ``pmean``); the MoE's capacity is the
+shard's own, as under the reference's ``shard_map``.  The shards'
+gradients are summed in slot order, clipped by the whole gradient's
+norm, and laid out onto the moments' blocks, where each slot runs the
+AdamW arithmetic on its block; under ZeRO-1 the updated parameter
+slices are then gathered over the data axes into the parameters'
+layout.
 
 A step's three parts run under ``torch.profiler`` ranges named
 ``train_step.forward``, ``train_step.backward`` and
@@ -18,9 +36,12 @@ A step's three parts run under ``torch.profiler`` ranges named
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -28,26 +49,24 @@ from ..device import resolve_device
 from ..models import layers as L
 from ..models.api import ModelAPI
 from . import optimizer as O
+from . import sharded as S
 from .checkpoint import Checkpointer
 
-MESH_ITEM = "Training on a mesh"
 
-
-def mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, "
-                               f"'{MESH_ITEM}'")
-
-
-def loss_and_grads(api: ModelAPI, params, batch):
+def loss_and_grads(api: ModelAPI, params, batch, objective=None):
     """(loss, metrics, grads): ``api.train_loss`` and the gradient of the
     loss with respect to every leaf of ``params``; raises
-    ``RuntimeError`` naming the leaves the loss does not reach."""
+    ``RuntimeError`` naming the leaves the loss does not reach.
+    ``objective(loss, metrics)``, where given, is the scalar returned
+    and differentiated in place of the loss."""
     items = L.tree_items(params)
     leaves = [p.detach().requires_grad_(True) for _, p in items]
     with torch.enable_grad():
         with record_function("train_step.forward"):
             loss, metrics = api.train_loss(L.tree_unflatten(params, leaves),
                                            batch)
+            if objective is not None:
+                loss = objective(loss, metrics)
         with record_function("train_step.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     missing = ["/".join(map(str, path))
@@ -61,34 +80,143 @@ def loss_and_grads(api: ModelAPI, params, batch):
 
 
 def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
-                    grad_accum: int = 1):
-    """(params, opt_state, batch) -> (params, opt_state, metrics)."""
+                    grad_accum: int = 1, grads_fn=None, update_fn=None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+    ``grads_fn(params, batch)`` and ``update_fn(params, grads, state)``
+    replace ``loss_and_grads`` and ``apply_updates`` (the meshed step's
+    parts); the accumulation over micro-batches is the same."""
+    grads_fn = grads_fn or functools.partial(loss_and_grads, api)
+    update_fn = update_fn or functools.partial(O.apply_updates, opt_cfg)
 
     def step(params, opt_state, batch):
         if grad_accum == 1:
-            loss, metrics, grads = loss_and_grads(api, params, batch)
+            loss, metrics, grads = grads_fn(params, batch)
         else:
             # micro-batches of consecutive rows, summed in order from zero
             # in fp32, as the reference's scan
-            gsum = L.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=L.tree_leaves(params)[0].device)
+            gsum = lsum = None
             for i in range(grad_accum):
                 mb = {k: v.reshape((grad_accum, -1) + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                loss_i, _, g = loss_and_grads(api, params, mb)
+                loss_i, _, g = grads_fn(params, mb)
+                if gsum is None:
+                    gsum = L.tree_map(lambda a: torch.zeros(
+                        a.shape, dtype=torch.float32, device=a.device), g)
+                    lsum = torch.zeros((), dtype=torch.float32,
+                                       device=loss_i.device)
                 gsum = L.tree_map(torch.add, gsum, g)
                 lsum = lsum + loss_i
             grads = L.tree_map(lambda g: g / grad_accum, gsum)
             loss = lsum / grad_accum
             metrics = {}
         with record_function("train_step.optimizer"):
-            params, opt_state, om = O.apply_updates(opt_cfg, params, grads,
-                                                    opt_state)
+            params, opt_state, om = update_fn(params, grads, opt_state)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return step
+
+
+def _data_slots(mesh, dp_axes) -> list[int]:
+    """The flat index of each data shard's first slot (every non-data
+    coordinate 0), in slot order."""
+    other = [i for i, a in enumerate(mesh.axis_names) if a not in dp_axes]
+    return [i for i, c in enumerate(np.ndindex(*mesh.devices.shape))
+            if all(c[j] == 0 for j in other)]
+
+
+def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
+                         dp_axes=("data",), param_specs, opt_specs,
+                         batch_specs, grad_accum: int = 1):
+    """The train step on ``mesh``: (params, opt_state, batch) ->
+    (params, opt_state, metrics), where params and opt_state are trees
+    of ``sharded.Laid`` laid out by ``param_specs`` and ``opt_specs``,
+    and batch holds whole tensors split by ``batch_specs`` (see the
+    module docstring).  Raises ``ValueError`` when the batch's rows do
+    not split into ``grad_accum`` micro-batches of whole data shards."""
+    dp_axes = tuple(dp_axes)
+    slots = _data_slots(mesh, dp_axes)
+    dp = len(slots)
+    coords = list(np.ndindex(*mesh.devices.shape))
+    home = mesh.devices.flat[0]
+    p_lay = S.layouts(mesh, param_specs)
+    m_lay = S.layouts(mesh, opt_specs["m"])
+    step_lay = S.Layout(mesh, opt_specs["step"])
+
+    def grads_fn(params, batch):
+        """One micro-batch: each data shard's loss, weighted, and its
+        gradient, summed over the shards in slot order on slot 0."""
+        cnt = (batch["labels"] >= 0).sum().float()
+        loss = xent = aux = grads = None
+        for i in slots:
+            dev = mesh.devices.flat[i]
+            rows = {k: v[S.Layout(mesh, batch_specs[k]).block_slices(
+                v.shape, coords[i])].to(dev) for k, v in batch.items()}
+            w = (rows["labels"] >= 0).sum().float() / cnt.to(dev)
+
+            def objective(_, m, w=w):
+                out = m["xent"] * w
+                return out + (0.01 / dp) * m["aux"] if "aux" in m else out
+
+            l_d, m_d, g_d = loss_and_grads(api, S.gather_tree(params, dev),
+                                           rows, objective)
+            x_d = (m_d["xent"] * w).to(home)
+            a_d = m_d["aux"].to(home) / dp if "aux" in m_d else None
+            if grads is None:
+                loss, xent, aux, grads = l_d.to(home), x_d, a_d, \
+                    L.tree_map(lambda g: g.to(home), g_d)
+            else:
+                loss = loss + l_d.to(home)
+                xent = xent + x_d
+                aux = None if aux is None else aux + a_d
+                grads = L.tree_map(lambda a, g: a + g.to(home), grads, g_d)
+        metrics = {"xent": xent} if aux is None else {"xent": xent,
+                                                      "aux": aux}
+        return loss, metrics, grads
+
+    def update_fn(params, grads, state):
+        """Each slot's AdamW on its moment block, with the matching
+        blocks of the parameters and the gradient and the whole
+        gradient's norm; parameters back into their layout."""
+        gnorm = O.global_norm(grads)
+        g = S.lay_out_tree(grads, m_lay)
+        p = L.tree_map(S.relayout, params, m_lay)
+        new_p, new_m, new_v, new_step = [], [], [], []
+        for i, dev in enumerate(mesh.devices.flat):
+            st = {"step": state["step"].blocks[i],
+                  "m": S.block_tree(state["m"], i),
+                  "v": S.block_tree(state["v"], i)}
+            np_i, ns_i, om = O.update_with_norm(
+                opt_cfg, S.block_tree(p, i), S.block_tree(g, i), st,
+                gnorm.to(dev))
+            new_p.append(np_i)
+            new_m.append(ns_i["m"])
+            new_v.append(ns_i["v"])
+            new_step.append(ns_i["step"])
+
+        def laid(trees, lay_tree):
+            leaves = [L.tree_leaves(t) for t in trees]
+            return L.tree_unflatten(lay_tree, [
+                S.Laid(lay, tuple(ref.shape), [slot[j] for slot in leaves])
+                for j, (lay, ref) in enumerate(zip(
+                    L.tree_leaves(lay_tree), L.tree_leaves(params)))])
+
+        params = L.tree_map(S.relayout, laid(new_p, m_lay), p_lay)
+        state = {"step": S.Laid(step_lay, (), new_step),
+                 "m": laid(new_m, m_lay), "v": laid(new_v, m_lay)}
+        return params, state, {"grad_norm": gnorm, "lr": om["lr"]}
+
+    step = make_train_step(api, opt_cfg, grad_accum=grad_accum,
+                           grads_fn=grads_fn, update_fn=update_fn)
+
+    def checked(params, opt_state, batch):
+        b = batch["labels"].shape[0]
+        if b % (grad_accum * dp):
+            raise ValueError(f"a global batch of {b} rows does not split "
+                             f"into {grad_accum} micro-batches over {dp} "
+                             "data shards")
+        return step(params, opt_state, batch)
+
+    return checked
 
 
 @dataclass
@@ -111,17 +239,24 @@ class StragglerMonitor:
 
 
 class Trainer:
-    def __init__(self, api: ModelAPI, shape, *, mesh=None,
+    """The reference's ``Trainer``, plus ``device``: where an unmeshed
+    trainer runs (default: the card).  A meshed one runs on its mesh's
+    slots, and takes no ``device``; ``zero1`` without a mesh is ignored,
+    as in the reference."""
+
+    def __init__(self, api: ModelAPI, shape, *, mesh=None, dp_axes=("data",),
                  opt_cfg: O.AdamWConfig | None = None, grad_accum: int = 1,
                  ckpt_dir: str | None = None, ckpt_every: int = 50,
                  zero1: bool = False, seed: int = 0, device=None):
-        if mesh is not None:
-            raise mesh_not_ported("Trainer(mesh=...)")
-        if zero1:
-            raise mesh_not_ported("ZeRO-1 (zero1=True)")
+        if mesh is not None and device is not None:
+            raise ValueError("a meshed Trainer runs on its mesh's slots; "
+                             "pass no device")
         self.api = api
         self.shape = shape
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        self.device = mesh.devices.flat[0] if mesh is not None \
+            else resolve_device(device)
         self.opt_cfg = opt_cfg or O.AdamWConfig()
         self.grad_accum = grad_accum
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -129,26 +264,52 @@ class Trainer:
         self.monitor = StragglerMonitor()
         self.seed = seed
         self.metrics_log: list[dict] = []
-        self.step_fn = make_train_step(api, self.opt_cfg,
-                                       grad_accum=grad_accum)
+        self.layouts = None
+        if mesh is None:
+            self.step_fn = make_train_step(api, self.opt_cfg,
+                                           grad_accum=grad_accum)
+            return
+        with L.use_mesh(mesh, self.dp_axes):
+            pspecs = api.param_pspecs()
+            ospecs = O.opt_pspecs(api.param_defs(), zero1=zero1,
+                                  dp_axes=self.dp_axes,
+                                  dp_size=int(np.prod(
+                                      [mesh.shape[a] for a in self.dp_axes])))
+            bspecs = api.input_pspecs(shape)
+        self.layouts = {"params": S.layouts(mesh, pspecs),
+                        "opt": S.layouts(mesh, ospecs)}
+        self.step_fn = make_mesh_train_step(
+            api, self.opt_cfg, mesh, dp_axes=self.dp_axes,
+            param_specs=pspecs, opt_specs=ospecs, batch_specs=bspecs,
+            grad_accum=grad_accum)
 
     # ------------------------------------------------------------ lifecycle
     def init_or_restore(self):
+        """(params, opt_state, step): the latest checkpoint, or seed-made
+        parameters and a zero state; laid out over the mesh's slots when
+        the trainer has one."""
         if self.ckpt and self.ckpt.latest_step() is not None:
             defs = self.api.param_defs()
             like = {"params": defs,
                     "opt": {"step": 0, "m": defs, "v": defs}}
-            tree, step = self.ckpt.restore(like, device=self.device)
+            tree, step = self.ckpt.restore(like, device=self.device,
+                                           layouts=self.layouts)
             return tree["params"], tree["opt"], step
         params = self.api.init_params(self.seed, self.device)
-        return params, O.init_state(params), 0
+        opt_state = O.init_state(params)
+        if self.layouts is not None:
+            params = S.lay_out_tree(params, self.layouts["params"])
+            opt_state = S.lay_out_tree(opt_state, self.layouts["opt"])
+        return params, opt_state, 0
 
     def run(self, num_steps: int, *, pipeline=None, fault_hook=None):
         from ..data.pipeline import Pipeline
         params, opt_state, start = self.init_or_restore()
         pipe = pipeline or Pipeline(self.api.cfg, self.shape, seed=self.seed,
                                     start_step=start, host_count=1)
-        try:
+        ctx = L.use_mesh(self.mesh, self.dp_axes) if self.mesh is not None \
+            else contextlib.nullcontext()
+        with ctx, contextlib.closing(pipe):
             step = start
             while step < start + num_steps:
                 t0 = time.perf_counter()
@@ -172,6 +333,4 @@ class Trainer:
             if self.ckpt:
                 self.ckpt.save(step, {"params": params, "opt": opt_state},
                                blocking=True)
-        finally:
-            pipe.close()
         return params, opt_state, step

@@ -69,7 +69,6 @@ FAMILIES = ["llama3.2-3b", "gemma3-12b", "minicpm3-4b",
             "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "xlstm-125m",
             "internvl2-76b", "seamless-m4t-large-v2"]
 DISCRETE = {"phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "seamless-m4t-large-v2"}
-ROADMAP_ITEM = r"ROADMAP.md, 'Training on a mesh'"
 
 
 def _f32(x):
@@ -567,14 +566,3 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert all(np.isfinite(m["loss"]) for m in tr.metrics_log)
     assert tr.ckpt.committed_steps() == [2, 3]
     assert "finished at step 3" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("flag", ["--mesh", "--zero1"])
-def test_launcher_mesh_flags_raise_naming_the_roadmap(flag):
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
-        ltrain.main(["--smoke", "--device", "cpu", "--steps", "1", flag])
-    api = build(SMOKES["xlstm-125m"])
-    shape = _shape(api.cfg)
-    kw = {"mesh": object()} if flag == "--mesh" else {"zero1": True}
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
-        Trainer(api, shape, device=CPU, **kw)
