@@ -192,7 +192,8 @@ LM_PAGE_SIZE, LM_PAGES = 16, 512
 LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # the profiler's kernel names each LM kernel's time is summed under
 LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
-                     "flash_attention": ("flash_kernel",),
+                     "flash_attention": ("flash_kernel",
+                                         "flash_wgmma_kernel"),
                      "decode_attention": ("decode_split_kernel",
                                           "decode_combine_kernel")}
 DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
@@ -261,6 +262,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
+# the bf16 flash rows' cold ms as recorded for the FMA kernel that the
+# tensor-core kernel replaced (PERF.md, on NVIDIA H100 80GB HBM3 at
+# 700 W), by (path, window): not measured by this script; each such row
+# prints its measured ms beside them
+FLASH_BF16_BEFORE = {("dense", 0): 3.4149, ("dense", 1024): 15.2309,
+                     ("recurrent", 0): 0.0647, ("train", 0): 3.6491}
+
 TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
        "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
 TOL_BF16 = 2e-2
@@ -312,6 +320,26 @@ def kernel_name(symbol: str) -> str:
     args = m.group(2).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"Li(\d+)E", r"\1,", re.sub(r"^f", "float,", args))
     return f"{m.group(1)}<{args.strip(',')}>"
+
+
+def flash_bf16_sass(_build) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in the SASS of each bf16 flash_attention
+    kernel (``flash_wgmma_kernel<D,...>``) of the built library, from
+    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync) counts by
+    kernel."""
+    from pathlib import Path
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.build_dir() / _build.LIB_NAME)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = kernel_name(section.split("\n", 1)[0].strip())
+        if name.startswith("flash_wgmma_kernel"):
+            counts[name] = {op: len(re.findall(rf"\b{op}\b", section))
+                            for op in ("HGMMA", "HMMA")}
+    return counts
 
 
 def profiled(torch, fn, reps: int = 1):
@@ -1459,6 +1487,15 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
               f"{lib_ms:.4f} ({lib_ms / n:.5f} a launch), bound "
               f"{bound:.4f} ({bound / n:.5f} a launch, by {row['bound_by']};"
               f" {100 * bound / ms:.1f} % of bound reached)  [{card}]")
+        before = FLASH_BF16_BEFORE.get((path, window))
+        if name == "flash_attention" and before is not None and \
+                calls[0][0][0].dtype == torch.bfloat16:
+            print(f"{path} {tag} bf16 on the tensor cores: {ms:.4f} ms cold "
+                  f"for {int(n)} launches (measured), against {before} ms "
+                  f"recorded for the FMA kernel it replaces (PERF.md, "
+                  f"NVIDIA H100 80GB HBM3, 700.00 W; not measured here): "
+                  f"{before / ms:.2f}x; SDPA {lib_ms:.4f} "
+                  f"(measured), kernel / SDPA {ms / lib_ms:.2f}  [{card}]")
     return rows
 
 
@@ -2292,6 +2329,10 @@ def main() -> int:
             entry = kernel_name(line.split("'")[1])
         elif "registers" in line or "spill" in line:
             print(f"  {entry}: {line.strip()}")
+    sass = flash_bf16_sass(_build)
+    print(f"bf16 flash_attention SASS, tensor-core instructions: {sass}")
+    assert len(sass) == 5 and all(c["HGMMA"] + c["HMMA"] > 0
+                                  for c in sass.values()), sass
 
     # ------------------------------------------------ 2. quickstart over RPC
     rng = np.random.default_rng(0)

@@ -67,11 +67,56 @@ def generated() -> dict[str, str]:
     """Headers made from the wrappers' tables, by file name:
     ``agg_tiles.inc`` holds one ``REPRO_AGG_TILE(index, BD, BN, TM, BK,
     STAGES, PW)`` line for each of ``agg_combine.TILES``, which the C
-    entry's switch includes, so the wrapper's table is the one list."""
+    entry's switch includes, so the wrapper's table is the one list;
+    ``wgmma.inc`` the tensor-core products of :func:`wgmma_inc`."""
     from .agg_combine import TILES
     tiles = "".join(f"REPRO_AGG_TILE({i}, {', '.join(map(str, t))})\n"
                     for i, t in enumerate(TILES))
-    return {"agg_tiles.inc": tiles}
+    return {"agg_tiles.inc": tiles, "wgmma.inc": wgmma_inc()}
+
+
+WGMMA_N = (16, 32, 64, 128, 256)     # widths N of the m64nNk16 products
+
+
+def wgmma_inc() -> str:
+    """Hopper's bf16 tensor-core product ``wgmma.mma_async.m64nNk16``
+    (fp32 accumulators, N / 2 a thread) for each N of WGMMA_N, as two
+    specialisations each of the templates that ``flash_attention.cu``
+    declares: ``wgmma_ss<N>(d, a, b, scale_d)`` with A and B from shared
+    memory, both K-major (descriptors a, b), and ``wgmma_rs<N>(d, a, b,
+    scale_d)`` with A from four registers a thread and B MN-major (the
+    transpose bit).  ``scale_d`` 0 overwrites d, 1 adds to it.  Inline
+    PTX names every accumulator, up to 128 of them, so the operand lists
+    are written here rather than by hand."""
+    out = []
+    for n in WGMMA_N:
+        r = n // 2
+        acc = ", ".join(f"%{i}" for i in range(r))
+        outs = ", ".join(f'"+f"(d[{i}])' for i in range(r))
+        shape = f"m64n{n}k16.f32.bf16.bf16"
+        out.append(
+            f"template <> __device__ __forceinline__ void wgmma_ss<{n}>(\n"
+            f"    float (&d)[{r}], uint64_t a, uint64_t b, int scale_d) {{\n"
+            f'  asm volatile("{{\\n.reg .pred p;\\n"\n'
+            f'      "setp.ne.b32 p, %{r + 2}, 0;\\n"\n'
+            f'      "wgmma.mma_async.sync.aligned.{shape} "\n'
+            f'      "{{{acc}}}, %{r}, %{r + 1}, p, 1, 1, 0, 0;\\n}}\\n"\n'
+            f"      : {outs}\n"
+            f'      : "l"(a), "l"(b), "r"(scale_d));\n'
+            f"}}\n"
+            f"template <> __device__ __forceinline__ void wgmma_rs<{n}>(\n"
+            f"    float (&d)[{r}], const uint32_t (&a)[4], uint64_t b,\n"
+            f"    int scale_d) {{\n"
+            f'  asm volatile("{{\\n.reg .pred p;\\n"\n'
+            f'      "setp.ne.b32 p, %{r + 5}, 0;\\n"\n'
+            f'      "wgmma.mma_async.sync.aligned.{shape} "\n'
+            f'      "{{{acc}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, '
+            f'%{r + 4}, p, 1, 1, 1;\\n}}\\n"\n'
+            f"      : {outs}\n"
+            f'      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),\n'
+            f'        "r"(scale_d));\n'
+            f"}}\n")
+    return "".join(out)
 
 
 def write_generated(directory: Path) -> None:

@@ -87,10 +87,6 @@ struct Tile {
 __device__ __forceinline__ void consumers_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(repro_torch::smem_addr(bar)) : "memory");
-}
 
 // V consecutive floats of one lane: a float4 column, or one float.
 template <int V>
@@ -206,7 +202,7 @@ agg_combine_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
         gather_chunk<1>(agg, lda, c * kChunk, h, nbr, mask, row0, BD, n, f,
                         d, k, mean, p / 32, PW, p % 32);
       }
-      mbar_arrive(ready + c);
+      repro_torch::mbar_arrive(ready + c);
     }
     return;
   }

@@ -146,6 +146,12 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
                   "r"(smem_addr(bar)) : "memory");
 }
+// A plain arrival (release: this thread's earlier writes are seen by the
+// threads that wait on the phase).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   unsigned done = 0;
   while (!done) {

@@ -11,19 +11,28 @@ does this one), GQA by index (query head h reads KV head h // (Hq/Hkv));
 causal means key j is visible to query i when j <= i, and ``window > 0``
 adds i - j < window (gemma3's local layers).  Bound on the H100:
 operations at prefill shapes (about 4*T*S*D/2 flops per head over the
-visible pairs, against 67 TFLOP/s of fp32, or the bf16 peak for bf16
-inputs; TF32 would miss the reference's 3e-5); a window also skips the
-key tiles below it.  One block per (batch*head, 32 queries; 16 at
-D = 256) walks the key tiles up to the diagonal with the softmax state
-in registers (the TPU kernel carried it across its in-order grid
-instead), in two parts that take alternate key tiles and combine their
-states at the end; causal launches start the heaviest query tiles first.  QK^T
-keeps each lane's slice of q in registers and sums the slices with
-shuffles, PV is register-tiled from 16-byte shared-memory fragments, and
-K/V tiles are double-buffered through ``cp.async``.  The kernel reads
-and writes through strides (only the head dim must be contiguous), so
-the model's (B,T,H,D) activations go in without a transposed or padded
-copy, and the output keeps q's memory layout.
+visible pairs, against 67 TFLOP/s of fp32, or 989 of bf16 tensor cores
+for bf16 inputs); key tiles past the diagonal or below the window are
+skipped.  One block per (batch*head, query tile) walks the key tiles
+with the softmax state in registers (the TPU kernel carried it across
+its in-order grid instead); causal launches start the heaviest query
+tiles first.  The two types get two designs:
+
+* fp32: FMA arithmetic (TF32 would miss the reference's 3e-5), 32
+  queries a block (16 at D = 256) in two parts that take alternate key
+  tiles; QK^T keeps each lane's slice of q in registers and sums the
+  slices with shuffles, PV is register-tiled, K/V tiles are
+  double-buffered through ``cp.async``.
+* bf16: Hopper's tensor cores.  128 queries a block, 64 to each of two
+  consumer warpgroups that run QK^T and P.V as ``wgmma`` products (bf16
+  operands, fp32 accumulators) with the online softmax on the
+  accumulators in registers; a producer warpgroup fills a two-stage
+  ring of K/V tiles in shared memory by TMA (or by checked copies where
+  rows are not 16-byte aligned).  P is rounded to bf16 before P.V.
+
+The kernels read and write through strides (only the head dim must be
+contiguous), so the model's (B,T,H,D) activations go in without a
+transposed or padded copy, and the output keeps q's memory layout.
 
 Gradients: where q, k or v requires one (grad mode on), the wrapper runs
 :class:`FlashAttentionFn`, whose forward is the same kernel (the plain
@@ -44,7 +53,8 @@ launches = 0
 HEAD_DIMS = (16, 32, 64, 128, 256)     # head dims with a compiled kernel
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
-QUERY_TILE = 16                        # fewest query rows a block (D = 256)
+# fewest query rows a block, by dtype (fp32 at D = 256; bf16 at any D)
+QUERY_TILE = {torch.float32: 16, torch.bfloat16: 128}
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -142,9 +152,10 @@ def _flash_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if -(-t // QUERY_TILE) > 65535:
+    if -(-t // QUERY_TILE[q.dtype]) > 65535:
         raise ValueError(f"flash_attention: T = {t} needs more than the "
-                         f"grid's 65535 tiles of {QUERY_TILE} queries")
+                         f"grid's 65535 tiles of {QUERY_TILE[q.dtype]} "
+                         "queries")
     _build.check_sizes("flash_attention", b, hq, t, s)
     out = torch.empty_like(q)       # keeps a dense q's layout, e.g. (B,T,H,D)
     if out.numel() == 0:

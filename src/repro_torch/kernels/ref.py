@@ -94,7 +94,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float64 for float64 operands); GQA
     by head repeat (head h reads KV head h // (H/Hkv)); causal means key j
     is visible to query i when j <= i, and ``window > 0`` adds
-    i - j < window."""
+    i - j < window.  bf16 operands take the bf16 kernel's numerics over
+    the whole row: p = exp(s - max) in fp32, rounded to bf16 before P.V
+    (the tensor cores' operand, as the MXU's at default precision), l
+    summed from the fp32 p, fp32 accumulation, the output rounded once."""
     hq, t, d = q.shape[1:]
     rep = hq // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
@@ -107,6 +110,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(tt >= ss, s, NEG_INF)
     if window > 0:
         s = torch.where(tt - ss < window, s, NEG_INF)
+    if q.dtype == torch.bfloat16:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bhts,bhsd->bhtd", p.bfloat16().to(ct), v.to(ct))
+        return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bhsd->bhtd", p, v.to(ct)).to(q.dtype)
 

@@ -494,9 +494,10 @@ def test_flash_attention_window_and_bf16_match_plain(cuda, dtype, d, causal,
                                                      window):
     """Every compiled head dim in bf16 (the dense LM path's operands) and
     fp32, causal and full, windows of 1, 8 and 1024 keys (gemma3's local
-    layers), one at least T, and none; T = 1100 is no multiple of the 16-
-    or 32-row query tile and passes the 1024 window.  bf16 output is held
-    at 2e-2 (fp32 inside, each side rounds once), fp32 at 3e-5."""
+    layers), one at least T, and none; T = 1100 is no multiple of the 16-,
+    32- or 128-row query tile and passes the 1024 window.  bf16 output is
+    held at 2e-2 (the kernel's products on the tensor cores, P rounded to
+    bf16; the output rounds once on each side), fp32 at 3e-5."""
     rng = np.random.default_rng(21)
     t = 1100
     q = _r(rng, 1, 4, t, d, device=cuda, dtype=dtype)
@@ -507,6 +508,119 @@ def test_flash_attention_window_and_bf16_match_plain(cuda, dtype, d, causal,
     assert got.dtype == dtype
     _close(got, ref.attention_ref(q, k, v, causal=causal, window=window),
            2e-2 if dtype == torch.bfloat16 else 3e-5)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 128, 256])
+def test_flash_attention_bf16_tile_edges(cuda, t, causal, d):
+    """The bf16 tensor-core kernel at one query and one short of, at and
+    one past its 64-row warpgroup and 128-row block (and its 64- and
+    128-key tiles), at the smallest, the LM's and gemma3's head dims."""
+    rng = np.random.default_rng(23)
+    q = _r(rng, 1, 4, t, d, device=cuda, dtype=torch.bfloat16)
+    k, v = (_r(rng, 1, 2, t, d, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    before = kernels.launch_counts()["flash_attention"]
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    _close(got, ref.attention_ref(q, k, v, causal=causal), 2e-2)
+
+
+@pytest.mark.parametrize("s", [1, 37, 64, 129, 300])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_bf16_cross_attention(cuda, s, d):
+    """Non-causal with S != T (the encoder-decoder's cross-attention):
+    keys fewer and more than the 100 queries, ragged against the tiles."""
+    rng = np.random.default_rng(24)
+    q = _r(rng, 2, 4, 100, d, device=cuda, dtype=torch.bfloat16)
+    k, v = (_r(rng, 2, 4, s, d, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    _close(kernels.flash_attention(q, k, v, causal=False),
+           ref.attention_ref(q, k, v, causal=False), 2e-2)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_query_groups(cuda, g, causal):
+    """G = Hq / Hkv of 1 to 4 (llama's 3 is no power of two), 2 KV heads,
+    T = 190 (ragged), D = 128."""
+    rng = np.random.default_rng(25)
+    q = _r(rng, 2, 2 * g, 190, 128, device=cuda, dtype=torch.bfloat16)
+    k, v = (_r(rng, 2, 2, 190, 128, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    _close(kernels.flash_attention(q, k, v, causal=causal),
+           ref.attention_ref(q, k, v, causal=causal), 2e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,window", [(4, 16, 8, 1536, 256, 0),
+                                                 (4, 16, 8, 1536, 256, 1024),
+                                                 (4, 24, 8, 512, 128, 0)])
+def test_flash_attention_bf16_main_path_shapes(cuda, b, hq, hkv, t, d,
+                                               window):
+    """gemma3-12b's prefill (D 256, T 1536; causal, and its local layers'
+    window of 1024) and llama3.2-3b's training step (D 128, T 512, G 3),
+    in the model's (B, T, H, D) layout, against the plain version."""
+    rng = np.random.default_rng(26)
+    q = _r(rng, b, t, hq, d, device=cuda,
+           dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    k, v = (_r(rng, b, t, hkv, d, device=cuda,
+               dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    got = kernels.flash_attention(q, k, v, window=window)
+    assert got.stride() == q.stride()
+    _close(got, ref.attention_ref(q, k, v, window=window), 2e-2)
+
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_flash_attention_bf16_reads_the_model_layout_in_place(cuda, d):
+    """The bf16 kernel takes permuted (B,T,H,D) views as they are (a
+    tensor map over the strides) and gives the contiguous call's bits."""
+    rng = np.random.default_rng(27)
+    q = _r(rng, 2, 77, 6, d, device=cuda,
+           dtype=torch.bfloat16).permute(0, 2, 1, 3)
+    k, v = (_r(rng, 2, 77, 2, d, device=cuda,
+               dtype=torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+    got = kernels.flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    assert torch.equal(got, kernels.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous()))
+    _close(got, ref.attention_ref(q, k, v), 2e-2)
+
+
+@pytest.mark.parametrize("d", [16, 64, 256])
+def test_flash_attention_bf16_unaligned_rows_same_bits(cuda, d):
+    """bf16 rows 2 bytes past a 16-byte boundary, which TMA refuses, take
+    the checked copies into the same shared-memory layout: the output has
+    the bits of the TMA path on aligned copies of the same numbers."""
+    rng = np.random.default_rng(28)
+    def unaligned(*shape):
+        buf = _r(rng, int(np.prod(shape)) + 1, device=cuda,
+                 dtype=torch.bfloat16)
+        return buf[1:].view(*shape)
+    q, k, v = unaligned(1, 6, 70, d), unaligned(1, 2, 70, d), \
+        unaligned(1, 2, 70, d)
+    assert k.data_ptr() % 16 != 0
+    got = kernels.flash_attention(q, k, v)
+    assert torch.equal(got, kernels.flash_attention(q.clone(), k.clone(),
+                                                    v.clone()))
+    _close(got, ref.attention_ref(q, k, v), 2e-2)
+
+
+@pytest.mark.parametrize("d,causal,window", [(64, False, 0), (128, True, 0),
+                                             (256, True, 0),
+                                             (256, True, 1024)])
+def test_flash_attention_bf16_fits_the_fp32_softmax(cuda, d, causal,
+                                                    window):
+    """The bf16 kernel against the fp32 softmax and fp32 P.V rounded once
+    (no rounding of P at all), within the same 2e-2: P in bf16 is the one
+    rounding the kernel adds, and it fits the gate."""
+    rng = np.random.default_rng(29)
+    q = _r(rng, 1, 4, 1100, d, device=cuda, dtype=torch.bfloat16)
+    k, v = (_r(rng, 1, 2, 1100, d, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    got = kernels.flash_attention(q, k, v, causal=causal, window=window)
+    _close(got, ref.attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal, window=window), 2e-2)
 
 
 def test_flash_attention_window_at_least_t_is_causal_bits(cuda):

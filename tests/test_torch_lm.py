@@ -181,6 +181,26 @@ def test_flash_attention_plain_matches_pallas(b, hq, hkv, t, d, causal):
     _close(got, jref.attention_ref(q, k, v, causal=causal), 3e-5)
 
 
+def test_flash_bf16_numerics_fit_the_reference():
+    """The bf16 kernel's numerics, as its plain version computes them on
+    the CPU (fp32 scores, P rounded to bf16 before P.V: the one rounding
+    the fp32 arithmetic does not make; fp32 sums), against the
+    reference's Pallas kernel in interpret mode, in bf16, at gemma3's
+    head dim, causal: within the bf16 gate of 2e-2."""
+    rng = np.random.default_rng(0)
+    q, k, v = _np(rng, 1, 4, 300, 256), _np(rng, 1, 2, 300, 256), \
+        _np(rng, 1, 2, 300, 256)
+    tq, tk_, tv = (_t(x, torch.bfloat16) for x in (q, k, v))
+    got = tk.flash_attention(tq, tk_, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    # P is rounded: the plain version is not the fp32 softmax rounded once
+    assert not torch.equal(got, tref.attention_ref(
+        tq.float(), tk_.float(), tv.float(), causal=True).bfloat16())
+    want = j_flash(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                   causal=True)
+    _close(got, want, 2e-2)
+
+
 @pytest.mark.parametrize("b,hq,hkv,d,ps,pp", [(2, 4, 2, 32, 8, 4),
                                               (3, 8, 2, 64, 16, 6),
                                               (1, 4, 4, 128, 32, 3),

@@ -22,7 +22,11 @@ under torch.profiler:
   with the pass total (4, 1, 4, 1 calls) beside ``torch.matmul``'s;
 * flash_attention at llama3.2-3b's prefill (1 x 24 heads over 8 x 500 x
   128, causal, model layout), one line per (BQ, TR, SPLIT), beside
-  ``scaled_dot_product_attention`` on repeated KV heads;
+  ``scaled_dot_product_attention`` on repeated KV heads; then the bf16
+  tensor-core kernel at gemma3-12b's causal prefill (4 x 16 heads over 8
+  x 1536 x 256) and llama3.2-3b's training shape (4 x 24 over 8 x 512 x
+  128), one line per (keys a tile, consumer warpgroups, stages), beside
+  SDPA and the operations bound;
 * decode_attention at llama3.2-3b's decode step (batch 4, 516 positions,
   24 heads over 8, D 128, 16-slot pages), cold (each launch on another
   of 28 layers' pools) and warm, split and combine kernels apart, one
@@ -210,6 +214,23 @@ FLASH_TILES = {                             # BQ, TR, SPLIT at D = 128
     "32 rows, 2 a thread, 1 part": (32, 2, 1),
     "16 rows, 2 a thread, 1 part": (16, 2, 1),
 }
+# the bf16 tensor-core kernel: (B, Hq, Hkv, T, D) of gemma3-12b's causal
+# prefill and llama3.2-3b's training step, and at each D the tiles to
+# time, (BN keys a tile, NC consumer warpgroups of 64 rows, ST stages)
+FLASH_BF16_SHAPES = {256: (4, 16, 8, 1536), 128: (4, 24, 8, 512)}
+FLASH_BF16_TILES = {
+    256: {"BN 64, 2 consumer warpgroups, 2 stages (the port's)": (64, 2, 2),
+          "BN 64, 1 consumer warpgroup, 2 stages": (64, 1, 2),
+          "BN 64, 1 consumer warpgroup, 3 stages": (64, 1, 3),
+          "BN 32, 2 consumer warpgroups, 3 stages": (32, 2, 3),
+          "BN 128, 1 consumer warpgroup, 1 stage": (128, 1, 1)},
+    128: {"BN 128, 2 consumer warpgroups, 2 stages (the port's)": (128, 2, 2),
+          "BN 128, 2 consumer warpgroups, 3 stages": (128, 2, 3),
+          "BN 64, 2 consumer warpgroups, 2 stages": (64, 2, 2),
+          "BN 64, 2 consumer warpgroups, 4 stages": (64, 2, 4),
+          "BN 128, 1 consumer warpgroup, 2 stages": (128, 1, 2)},
+}
+BF16_FLOP_PER_S = 989e12                   # H100 SXM data sheet
 
 
 def build(which: set) -> ctypes.CDLL:
@@ -264,7 +285,19 @@ def build(which: set) -> ctypes.CDLL:
             f'{{st[0], st[1], st[2]}}, {{st[3], st[4], st[5]}}, '
             f'{{st[6], st[7], st[8]}}, {{st[9], st[10], st[11]}}, '
             f'static_cast<cudaStream_t>(stream)}}; return '
-            f'launch_tile<float,128,{",".join(map(str, cfg))}>(a); }}')
+            f'launch_tile<128,{",".join(map(str, cfg))}>(a); }}')
+    for d, tiles in FLASH_BF16_TILES.items():
+        for i, cfg in enumerate(tiles.values()):
+            flash.append(
+                f'extern "C" int tile_flash_bf16_{d}_{i}(const void* q, '
+                f'const void* k, const void* v, void* o, int b, int hq, '
+                f'int hkv, int t, int s, int causal, float scale, '
+                f'const int64_t* st, void* stream) {{ const Args a{{q, k, v, '
+                f'o, b, hq, hkv, t, s, causal, 0, scale, {{st[0], st[1], '
+                f'st[2]}}, {{st[3], st[4], st[5]}}, {{st[6], st[7], st[8]}}, '
+                f'{{st[9], st[10], st[11]}}, static_cast<cudaStream_t>('
+                f'stream)}}; return launch_wgmma<{d},'
+                f'{",".join(map(str, cfg))}>(a); }}')
     os.makedirs(OUT, exist_ok=True)
     _build.write_generated(OUT)            # agg_combine.cu's tile table
     nvcc = _build._nvcc()
@@ -643,6 +676,50 @@ def sweep_gemm_flash(card: str, which: set, lib: ctypes.CDLL) -> None:
             torch.cuda.synchronize()
             torch.testing.assert_close(out, want, rtol=3e-5, atol=3e-5)
         print(f"flash {name}: {device_ms(call):.5f} ms a launch  [{card}]")
+    if "flash" in which:
+        sweep_flash_bf16(card, lib)
+
+
+def sweep_flash_bf16(card: str, lib: ctypes.CDLL) -> None:
+    """The bf16 tensor-core flash kernel by tile (keys a tile, consumer
+    warpgroups, stages) at gemma3-12b's causal prefill (D 256) and
+    llama3.2-3b's training shape (D 128), model layout, each held to the
+    plain version at 2e-2, beside SDPA on repeated KV heads and the
+    operations bound."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d, (b, hq, hkv, t) in FLASH_BF16_SHAPES.items():
+        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16).permute(0, 2, 1, 3)
+                   for h in (hq, hkv, hkv))
+        want = ref.attention_ref(q, k, v)
+        kr, vr = k.repeat_interleave(hq // hkv, 1), \
+            v.repeat_interleave(hq // hkv, 1)
+        bound = 4.0 * b * hq * t * (t + 1) / 2 * d / BF16_FLOP_PER_S * 1e3
+        rows = list(FLASH_BF16_TILES[d]) + ["scaled_dot_product_attention"]
+        for i, name in enumerate(rows):
+            out = torch.empty_like(q)
+            if name == "scaled_dot_product_attention":
+                call = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+                    q, kr, vr, is_causal=True)
+            else:
+                fn = getattr(lib, f"tile_flash_bf16_{d}_{i}")
+                fn.argtypes = [P, P, P, P, I, I, I, I, I, I, F, P, P]
+                fn.restype = I
+                st = torch.tensor([x for a in (q, k, v, out)
+                                   for x in a.stride()[:3]], dtype=torch.int64)
+                call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731,E501
+                                  out.data_ptr(), b, hq, hkv, t, t, 1,
+                                  d ** -0.5, st.data_ptr(), stream)
+                assert call() == 0
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out.float(), want.float(),
+                                           rtol=2e-2, atol=2e-2)
+            ms = device_ms(call)
+            print(f"flash bf16 D {d} ({b} x {hq} over {hkv} x {t}, causal) "
+                  f"{name}: {ms:.5f} ms a launch, bound {bound:.5f} "
+                  f"({100 * bound / ms:.1f} %)  [{card}]")
 
 
 if __name__ == "__main__":
