@@ -143,7 +143,24 @@ Phases, each uncaught, so any failure exits non-zero:
    and tokens/s per mesh.  Then a checkpoint at step 2 on (2, 2),
    restored on (1, 1) and on (2, 1), whose step 3 loss must equal the
    uninterrupted run's within rtol 1e-5;
-11. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+11. the dry run (``launch/dryrun.py``): every ``ARCHS x shapes_for``
+   cell (34) on both production meshes of ``meta`` slots, (16, 16) and
+   (2, 16, 16), in two processes of their own (one a mesh, niced, CPU
+   only) started before phase 1 and joined here; bytes a slot counted
+   at the production shapes, the step traced through the card's routes
+   and kernel checks at one data shard's batch, at the production
+   shapes apart from jamba's and xlstm's train and prefill cells, traced
+   at ``--dev``'s shape (their Python loops over time take tens of
+   minutes a cell at production lengths).  A line a cell: GB a slot of
+   arguments, outputs and aliases, ``trace_s`` and ``fits`` (arguments a
+   slot within the card's memory).  Any failed cell fails the run; the
+   dry-run processes never initialise CUDA, allocate nothing and launch
+   nothing, and this process's allocated card memory is unchanged across
+   the phase's wait.  Then the layout witness: phase 10's llama3.2-3b
+   cut on a (2, 2) mesh of slots on the card, ZeRO-1 off:
+   ``lower_cell``'s bytes a slot of parameters and moments equal the
+   blocks ``Trainer(mesh=...)`` holds;
+12. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
    keyed by ``mesh``, and the dense, recurrent, train and mesh_train
    paths', keyed by ``path``), then ``{"ok": true, "device": ...}``
    last.
@@ -262,12 +279,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-# the bf16 flash rows' cold ms as recorded for the FMA kernel that the
-# tensor-core kernel replaced (PERF.md, on NVIDIA H100 80GB HBM3 at
-# 700 W), by (path, window): not measured by this script; each such row
-# prints its measured ms beside them
-FLASH_BF16_BEFORE = {("dense", 0): 3.4149, ("dense", 1024): 15.2309,
-                     ("recurrent", 0): 0.0647, ("train", 0): 3.6491}
+# the dry run (phase 11): the families whose train and prefill cells are
+# traced at --dev's shape, and the seconds to wait for its processes
+DRYRUN_DEV_TRACE = ("jamba-v0.1-52b", "xlstm-125m")
+DRYRUN_WAIT_S = 900
 
 TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
        "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
@@ -1487,15 +1502,6 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
               f"{lib_ms:.4f} ({lib_ms / n:.5f} a launch), bound "
               f"{bound:.4f} ({bound / n:.5f} a launch, by {row['bound_by']};"
               f" {100 * bound / ms:.1f} % of bound reached)  [{card}]")
-        before = FLASH_BF16_BEFORE.get((path, window))
-        if name == "flash_attention" and before is not None and \
-                calls[0][0][0].dtype == torch.bfloat16:
-            print(f"{path} {tag} bf16 on the tensor cores: {ms:.4f} ms cold "
-                  f"for {int(n)} launches (measured), against {before} ms "
-                  f"recorded for the FMA kernel it replaces (PERF.md, "
-                  f"NVIDIA H100 80GB HBM3, 700.00 W; not measured here): "
-                  f"{before / ms:.2f}x; SDPA {lib_ms:.4f} "
-                  f"(measured), kernel / SDPA {ms / lib_ms:.2f}  [{card}]")
     return rows
 
 
@@ -2299,6 +2305,159 @@ def busy_text(busy, wall) -> str:
     return f"busy {busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.2f} %)"
 
 
+def dryrun_files(out: str, multi_pod: bool) -> tuple[str, str]:
+    """The JSON result and the log of phase 11's process for one mesh."""
+    name = os.path.join(out, f"pod{1 + multi_pod}")
+    return name + ".json", name + ".log"
+
+
+def dryrun_worker(multi_pod: bool, out: str) -> None:
+    """Phase 11's cells on one production mesh, in a process of its own:
+    each cell's record, or its exception, and last whether this process
+    initialised CUDA, its allocated card memory before and after, and its
+    launch counts, as JSON in ``dryrun_files``' first file; the module's
+    own lines go to its second."""
+    os.nice(10)
+    import traceback
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS, shapes_for
+    from repro_torch.launch import dryrun
+
+    path, log_path = dryrun_files(out, multi_pod)
+    before = torch.cuda.memory_allocated()
+    cells = []
+    mesh = dryrun.make_mesh(multi_pod=multi_pod, dev=False)
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        for arch in ARCHS:
+            for shape in shapes_for(arch):
+                trace = None
+                if arch in DRYRUN_DEV_TRACE and shape.kind != "decode":
+                    trace = dryrun.dev_shape(shape, mesh)
+                try:
+                    cells.append(dryrun.run_cell(
+                        arch, shape.name, multi_pod=multi_pod, dev=False,
+                        trace_shape=trace))
+                except Exception as e:  # noqa: BLE001 - a failed cell
+                    cells.append({"arch": arch, "shape": shape.name,
+                                  "multi_pod": multi_pod,
+                                  "error": f"{type(e).__name__}: {e}",
+                                  "traceback": traceback.format_exc()})
+    with open(path, "w") as f:
+        json.dump({"cells": cells,
+                   "cuda_initialized": torch.cuda.is_initialized(),
+                   "allocated": [before, torch.cuda.memory_allocated()],
+                   "launches": kernels.launch_counts()}, f)
+
+
+def start_dryrun() -> tuple[list, str]:
+    """Phase 11's processes, one a production mesh, started now so that
+    their CPU-only traces run beside the card's phases: (processes, the
+    directory of their results).  Daemonic, so an exit ends them."""
+    import multiprocessing
+    import tempfile
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dryrun_worker, daemon=True, args=(mp, out))
+             for mp in (False, True)]
+    for p in procs:
+        p.start()
+    return procs, out
+
+
+def dryrun_phase(torch, card, procs, out) -> None:
+    """Phase 11 (see the module docstring)."""
+    import shutil
+
+    from repro_torch.configs import ARCHS, shapes_for
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    allocated = torch.cuda.memory_allocated()
+    results = []
+    for p, mp in zip(procs, (False, True)):
+        p.join(timeout=max(1.0, DRYRUN_WAIT_S - (time.perf_counter()
+                                                 - t_phase)))
+        if p.is_alive():
+            p.terminate()
+            p.join()
+        path, log_path = dryrun_files(out, mp)
+        with open(log_path) as f:
+            log = f.read()
+        assert p.exitcode == 0, (mp, p.exitcode, log[-2000:])
+        with open(path) as f:
+            results.append(json.load(f))
+    shutil.rmtree(out)
+    assert torch.cuda.memory_allocated() == allocated
+    print(f"dryrun: waited {time.perf_counter() - t_phase:.1f} s for its "
+          f"two processes; allocated card memory of this process "
+          f"{allocated} bytes before and after the wait; the dry-run "
+          "processes: CUDA initialised "
+          f"{[r['cuda_initialized'] for r in results]}, allocated card "
+          f"memory before and after {[r['allocated'] for r in results]}, "
+          f"launches {[r['launches'] for r in results]}")
+    for r in results:
+        assert not r["cuda_initialized"] and r["allocated"] == [0, 0], r
+        assert not any(r["launches"].values()), r["launches"]
+    cells = [c for r in results for c in r["cells"]]
+    want = [(a, s.name, mp) for mp in (False, True) for a in ARCHS
+            for s in shapes_for(a)]
+    assert [(c["arch"], c["shape"], c["multi_pod"]) for c in cells] == want
+    failed = [c for c in cells if "error" in c]
+    for c in cells:
+        tag = f"dryrun {c['arch']} {c['shape']} pod{1 + c['multi_pod']}"
+        if "error" in c:
+            print(f"{tag}: FAILED {c['error']}\n{c['traceback']}")
+            continue
+        m = c["memory"]
+        args = m["argument_size_in_bytes"]
+        print(f"{tag}: a slot holds {args / 1e9:.3f} GB of arguments, "
+              f"{m['output_size_in_bytes'] / 1e9:.3f} GB of outputs, "
+              f"{m['alias_size_in_bytes'] / 1e9:.3f} GB aliased "
+              f"(slots differ {m['memory_slots_differ']}); fits "
+              f"{args <= total} (card {total / 1e9:.3f} GB); traced at "
+              f"{c['trace_batch']} x {c['trace_seq_len']} in "
+              f"{c['trace_s']} s on the card's host, outputs "
+              f"{c['trace_outputs']}  [{card}]")
+    assert not failed, [(c["arch"], c["shape"], c["multi_pod"])
+                        for c in failed]
+    fits = sum(c["memory"]["argument_size_in_bytes"] <= total for c in cells)
+    print(f"dryrun: ALL {len(cells)} cells traced OK; {fits} of "
+          f"{len(cells)} fit the card's memory a slot")
+
+    # ---- the layout witness: lower_cell's bytes a slot, held blocks
+    base = ARCHS[ATTN_TRAIN_ARCH]
+    cfg = base.replace(num_layers=ATTN_TRAIN_LAYERS, dtype="float32")
+    shape = ShapeConfig("mesh", "train", ATTN_TRAIN_SEQ, ATTN_TRAIN_BATCH)
+    mesh = make_host_mesh(shape=(2, 2), devices=[MESH_SLOT] * 4)
+    tr = Trainer(build(cfg, tp=2), shape, mesh=mesh, zero1=False)
+    params, opt, _ = tr.init_or_restore()
+    held = hold_blocks(tr, params, opt)
+    cell, _ = dryrun.lower_cell(cfg, shape, mesh)
+    (p_tree, p_specs), (o_tree, o_specs) = cell.trees["params"], \
+        cell.trees["opt"]
+    per = {"params": dryrun.slot_bytes(p_tree, p_specs, mesh),
+           "moments": sum(dryrun.slot_bytes(o_tree[k], o_specs[k], mesh)
+                          for k in ("m", "v"))}
+    for part, b in per.items():
+        assert b.min() == b.max() == held[part], (part, b, held[part])
+    print(f"dryrun layout witness: {ATTN_TRAIN_ARCH} {cfg.num_layers} "
+          f"layers fp32 on a (2, 2) mesh of {MESH_SLOT} slots, ZeRO-1 off: "
+          f"lower_cell counts {per['params'][0]} bytes of parameters and "
+          f"{per['moments'][0]} of moments a slot, equal to the blocks "
+          f"the Trainer holds ({held})")
+    del tr, params, opt
+    torch.cuda.empty_cache()
+    print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2311,6 +2470,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.ops import program_config
     from repro_torch.rpc import RPCClient, RPCServer
+
+    # the dry run's processes (phase 11) run beside phases 1-10
+    dry_procs, dry_out = start_dryrun()
 
     # ------------------------------------------------ 1. card, build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2525,7 +2687,10 @@ def main() -> int:
     # ------------------------------------------------ 10. training on a mesh
     rows += mesh_train_phase(torch, card)
 
-    # ------------------------------------------------ 11. result lines
+    # ------------------------------------------------ 11. the dry run
+    dryrun_phase(torch, card, dry_procs, dry_out)
+
+    # ------------------------------------------------ 12. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

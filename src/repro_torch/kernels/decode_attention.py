@@ -55,26 +55,11 @@ def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
     return n
 
 
-def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                     v_pages: torch.Tensor, page_table: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """q (B,Hq,D); pages (P,ps,Hkv,D); page_table (B,PP); lengths (B,)
-    -> (B,Hq,D).  No gradient: no training path decodes, so a call that
-    asks for one (an input that requires it, grad mode on) raises."""
-    global launches
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k_pages, v_pages)):
-        raise RuntimeError("decode_attention has no gradient (no training "
-                           "path decodes); call it under torch.no_grad() or "
-                           "on inputs that do not require one")
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_pages, v_pages, page_table, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: tensors on {q.device}; the "
-                         "kernel takes CUDA tensors and the plain version "
-                         "CPU ones")
-    dev, f32, i32 = q.device, torch.float32, torch.int32
-    dt = q.dtype if q.dtype in _ENTRY else f32
+def _checked(q, k_pages, v_pages, page_table, lengths) -> None:
+    """Every check the kernel's launch makes, for a CUDA call and a
+    ``meta`` one alike."""
+    dev, i32 = q.device, torch.int32
+    dt = q.dtype if q.dtype in _ENTRY else torch.float32
     _build.check("decode_attention", "q", q, dtype=dt, ndim=3, device=dev)
     _build.check("decode_attention", "k_pages", k_pages, dtype=dt, ndim=4,
                  device=dev)
@@ -97,12 +82,39 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"decode_attention: head dim {d} > {MAX_HEAD_DIM}")
     _build.check_sizes("decode_attention", b * hq, n_pool * ps, d, pp * ps)
+
+
+def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q (B,Hq,D); pages (P,ps,Hkv,D); page_table (B,PP); lengths (B,)
+    -> (B,Hq,D).  On ``meta`` tensors: the kernel's checks and an empty
+    output, no launch.  No gradient: no training path decodes, so a call
+    that asks for one (an input that requires it, grad mode on) raises."""
+    global launches
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError("decode_attention has no gradient (no training "
+                           "path decodes); call it under torch.no_grad() or "
+                           "on inputs that do not require one")
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_pages, v_pages, page_table, lengths)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention: tensors on {q.device}; the "
+                         "kernel takes CUDA tensors (meta ones for its checks "
+                         "alone) and the plain version CPU ones")
+    _checked(q, k_pages, v_pages, page_table, lengths)
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":
         return out
+    dev, dt = q.device, q.dtype
+    b, hq, d = q.shape
+    n_pool, ps, hkv, _ = k_pages.shape
+    pp = page_table.shape[1]
     pps = pages_per_split(ps, d, q.element_size())
     n_split = -(-pp // pps)
-    ws = torch.empty(b * hq * n_split * (d + 2), dtype=f32, device=dev)
+    ws = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                     device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = getattr(lib, _ENTRY[dt])(

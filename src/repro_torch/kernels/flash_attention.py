@@ -130,15 +130,9 @@ def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0):
             dv.to(v.dtype))
 
 
-def _flash_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
-    """The kernel on CUDA tensors, the plain version on CPU ones."""
-    global launches
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: tensors on {q.device}; the "
-                         "kernel takes CUDA tensors and the plain version "
-                         "CPU ones")
+def _checked(q, k, v) -> None:
+    """Every check the kernel's launch makes, for a CUDA call and a
+    ``meta`` one alike."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.device)
     if not q.dtype == k.dtype == v.dtype:
@@ -157,9 +151,24 @@ def _flash_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
                          f"grid's 65535 tiles of {QUERY_TILE[q.dtype]} "
                          "queries")
     _build.check_sizes("flash_attention", b, hq, t, s)
+
+
+def _flash_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU ones; on
+    ``meta`` tensors the kernel's checks and an empty output, no launch."""
+    global launches
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention: tensors on {q.device}; the "
+                         "kernel takes CUDA tensors (meta ones for its "
+                         "checks alone) and the plain version CPU ones")
+    _checked(q, k, v)
     out = torch.empty_like(q)       # keeps a dense q's layout, e.g. (B,T,H,D)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":
         return out
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
     strides = [x for tensor in (q, k, v, out) for x in tensor.stride()[:3]]
     lib = _build.library()
     with torch.cuda.device(q.device):

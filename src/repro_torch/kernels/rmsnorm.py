@@ -87,14 +87,10 @@ def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    global launches
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, w, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: tensors on {x.device}; the kernel takes "
-                         "CUDA tensors and the plain version CPU ones")
+def _checked(x: torch.Tensor,
+             w: torch.Tensor) -> tuple[int, int, torch.Tensor]:
+    """Every check the kernel's launch makes, for a CUDA call and a
+    ``meta`` one alike: (rows, F, w in fp32)."""
     if x.dtype not in _ENTRY:
         raise TypeError(f"rmsnorm: dtype {x.dtype} not in {list(_ENTRY)}")
     _build.check("rmsnorm", "x", x, dtype=x.dtype, ndim=x.dim(),
@@ -110,8 +106,22 @@ def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
                          ", more than the kernel holds in registers")
     rows = x.numel() // f if f else 0
     _build.check_sizes("rmsnorm", rows, f)
+    return rows, f, w32
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one; on a
+    ``meta`` tensor the kernel's checks and an empty output, no launch."""
+    global launches
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps=eps)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm: tensors on {x.device}; the kernel takes "
+                         "CUDA tensors (meta ones for its checks alone) and "
+                         "the plain version CPU ones")
+    rows, f, w32 = _checked(x, w)
     out = torch.empty_like(x)
-    if rows == 0:
+    if rows == 0 or x.device.type == "meta":
         return out
     lib = _build.library()
     with torch.cuda.device(x.device):

@@ -30,7 +30,10 @@ is the rmsnorm kernel, and on a CUDA tensor ``_sdpa`` is the
 flash_attention kernel (prefill, encoder, cross-attention; causal, full
 or windowed) or the decode_attention kernel over the dense cache viewed
 as pages (decode, and the local layers' ring), and raises for anything
-else.  On CPU tensors both are their plain versions.  MLA's attention
+else.  On CPU tensors both are their plain versions.  A tensor on the
+``meta`` device takes the card's route (:func:`on_card`): the dry run
+(``launch/dryrun.py``) traces a step through the kernels' argument
+checks and raises where the card would.  MLA's attention
 (two score products summed, a rope key shared by the heads, a value dim
 unlike the qk dim) and MoE's dispatch and combine match neither kernel;
 the reference computes them in ``jnp`` outside any Pallas kernel, so
@@ -394,6 +397,12 @@ def _cache_as_pages(q, kc, vc, lengths, dtype):
     return out.reshape(b, 1, kvh, g, hd).to(dtype or q.dtype)
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's route: a CUDA tensor, or a ``meta``
+    one (the dry run's shapes, checked as the card would check them)."""
+    return t.device.type in ("cuda", "meta")
+
+
 def _sdpa_on_card(q, k, v, *, causal, window, q_pos0, kv_len, dtype):
     """``_sdpa`` on the card, routed by its arguments:
 
@@ -443,7 +452,7 @@ def _sdpa(q, k, v, *, causal, window, q_pos0=0, kv_len=None, dtype=None):
     chunks as in the reference, so the score matrix peak is (cq, S), not
     (T, S).
     """
-    if q.device.type == "cuda":
+    if on_card(q):
         return _sdpa_on_card(q, k, v, causal=causal, window=window,
                              q_pos0=q_pos0, kv_len=kv_len, dtype=dtype)
     b, t, kvh, g, hd = q.shape
@@ -461,7 +470,7 @@ def _sdpa_mask(q, k, v, mask, dtype=None):
     """Attention with an explicit (B, t, s) visibility mask (bf16-native);
     the plain version only: on the card the ring's decode is
     :func:`_ring_attention`'s page view."""
-    if q.device.type == "cuda":
+    if on_card(q):
         raise NotImplementedError(
             "attention under an explicit mask on the card: neither "
             "attention kernel computes it")
@@ -476,7 +485,7 @@ def _ring_attention(q, kc, vc, off):
     w), and softmax ignores the order of the slots: on the card this is
     the decode_attention kernel over the ring viewed as pages."""
     w = kc.shape[1]
-    if q.device.type == "cuda":
+    if on_card(q):
         return _cache_as_pages(q, kc, vc, torch.clamp(off + 1, max=w), None)
     n = off + 1                                   # tokens now cached
     j = torch.arange(w, device=q.device)[None, :]  # ring slots
@@ -749,12 +758,12 @@ def _moe_local(xl, router, wg, wi, wo, *, cfg):
     probs = torch.softmax(xn.float() @ router.float(), dim=-1)
     gates, idx = _top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=0)
-    ce = torch.bincount(idx.reshape(-1), minlength=e).float() / (nl * k)
-    aux = e * torch.sum(me * ce)
-
     flat = idx.reshape(nl * k)
     oh = F.one_hot(flat, e)
+    me = probs.mean(dim=0)
+    ce = oh.sum(dim=0).float() / (nl * k)    # each expert's count, exact
+    aux = e * torch.sum(me * ce)
+
     ranks = torch.cumsum(oh, dim=0) - oh
     rank = ranks.gather(1, flat[:, None])[:, 0].reshape(nl, k)
     keep = rank < cap

@@ -395,6 +395,49 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         kernels.sddmm(h[:5].contiguous(), nbr, mask)
 
 
+def test_lm_wrappers_refuse_and_lay_out_as_their_meta_branches(cuda):
+    """The CUDA branch and the ``meta`` branch (the dry run's) of each LM
+    wrapper refuse the same arguments with the same exception, and give
+    outputs of the same shape, dtype and strides."""
+    meta = torch.device("meta")
+
+    def both(fn, *args, **kw):
+        outs = []
+        for dev in (cuda, meta):
+            try:
+                outs.append(fn(*[a.to(dev) for a in args], **kw))
+            except (TypeError, ValueError) as e:
+                outs.append((type(e), str(e)))
+        return outs
+
+    rng = np.random.default_rng(6)
+    q = _r(rng, 1, 40, 4, 64, device=cuda).permute(0, 2, 1, 3)
+    k = _r(rng, 1, 2, 40, 64, device=cuda)
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([20], dtype=torch.int32, device=cuda)
+    pages = _r(rng, 2, 16, 2, 64, device=cuda)
+    cases = [
+        (kernels.rmsnorm, (_r(rng, 3, 64, device=cuda),
+                           _r(rng, 64, device=cuda)), {}),
+        (kernels.rmsnorm, (_r(rng, 3, 64, device=cuda).half(),
+                           _r(rng, 64, device=cuda)), {}),
+        (kernels.flash_attention, (q, k, k), {"causal": True}),
+        (kernels.flash_attention, (_r(rng, 1, 2, 8, 80, device=cuda),) * 3,
+         {}),
+        (kernels.decode_attention, (_r(rng, 1, 4, 64, device=cuda), pages,
+                                    pages, table, lengths), {}),
+        (kernels.decode_attention, (_r(rng, 1, 4, 64, device=cuda), pages,
+                                    pages, table.long(), lengths), {}),
+    ]
+    for fn, args, kw in cases:
+        on_card, on_meta = both(fn, *args, **kw)
+        if isinstance(on_card, tuple):
+            assert on_card == on_meta, (on_card, on_meta)
+        else:
+            assert (on_card.shape, on_card.dtype, on_card.stride()) == \
+                (on_meta.shape, on_meta.dtype, on_meta.stride())
+
+
 # ------------------------------------------------------- the LM path's kernels
 @pytest.mark.parametrize("shape", [(3, 64), (17, 256), (64, 512), (500, 3072),
                                    (4, 1, 3072), (1, 3072), (4096, 3072),

@@ -1,0 +1,28 @@
+"""The port's dry run from the command line
+(``python -m repro_torch.launch.dryrun``), on the CPU: every cell of
+``--all`` at ``--dev --smoke`` on both dev meshes traces, and the
+command writes one record a cell (item (e) of
+``tests/test_torch_dryrun.py``).  About three minutes: the recurrent
+families' train cells loop over 512 time steps of meta ops."""
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_command_line_dev_smoke_all_cells(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--dev",
+         "--smoke", "--both-meshes", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=900)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "ALL 68 dry-run cells traced OK" in r.stdout
+    files = sorted(os.listdir(tmp_path))
+    assert len(files) == 68
+    rec = json.loads((tmp_path / "xlstm-125m__long_500k__pod2.json")
+                     .read_text())
+    assert rec["mesh"] == {"pod": 2, "data": 2, "model": 4}
+    assert rec["memory"]["argument_size_in_bytes"] > 0 and rec["trace_s"] >= 0

@@ -120,6 +120,25 @@ def test_every_pallas_kernel_has_a_port():
     assert with_pallas == sorted(KERNEL_FNS) == sorted(kernels.KERNELS)
 
 
+# reference modules the port has no counterpart of, each with its reason
+NO_COUNTERPART = {
+    "compat.py": "JAX version shims; the port imports no JAX",
+    "kernels/config.py": "the Pallas interpret switch; the port's wrappers "
+                         "take the plain version for CPU tensors instead",
+}
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every module of ``src/repro/`` has one at the same relative path in
+    ``src/repro_torch/``, apart from ``NO_COUNTERPART``'s: the port covers
+    the package."""
+    ref = REPO / "src" / "repro"
+    modules = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py"))
+    missing = [m for m in modules if not (PORT / m).is_file()]
+    assert missing == sorted(NO_COUNTERPART)
+    assert all(m in modules for m in NO_COUNTERPART)
+
+
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a host without CUDA")
