@@ -145,19 +145,28 @@ Phases, each uncaught, so any failure exits non-zero:
    uninterrupted run's within rtol 1e-5;
 11. the dry run (``launch/dryrun.py``): every ``ARCHS x shapes_for``
    cell (34) on both production meshes of ``meta`` slots, (16, 16) and
-   (2, 16, 16), in two processes of their own (one a mesh, niced, CPU
-   only) started before phase 1 and joined here; bytes a slot counted
-   at the production shapes, the step traced through the card's routes
-   and kernel checks at one data shard's batch, at the production
-   shapes apart from jamba's and xlstm's train and prefill cells, traced
-   at ``--dev``'s shape (their Python loops over time take tens of
-   minutes a cell at production lengths).  A line a cell: GB a slot of
-   arguments, outputs and aliases, ``trace_s`` and ``fits`` (arguments a
-   slot within the card's memory).  Any failed cell fails the run; the
-   dry-run processes never initialise CUDA, allocate nothing and launch
-   nothing, and this process's allocated card memory is unchanged across
-   the phase's wait.  Then the layout witness: phase 10's llama3.2-3b
-   cut on a (2, 2) mesh of slots on the card, ZeRO-1 off:
+   (2, 16, 16), in processes of their own (one a mesh, and one for the
+   witness below; niced, CPU only) started before phase 1 and joined
+   here; bytes a slot counted at the production shapes, slot (0, 0)'s
+   program traced through the card's routes and kernel checks at one
+   data shard's batch, at the production shapes apart from jamba's and
+   xlstm's train and prefill cells, traced at ``--dev``'s shape (their
+   Python loops over time take tens of minutes a cell at production
+   lengths; their peaks are lower bounds).  A line a cell: GB a slot of
+   arguments, outputs and aliases, the traced peak and temp bytes, the
+   record's ``fits`` and ``arguments_fit``, the peak judged against the
+   card's own ``total_memory`` (unknown where a lower bound fits),
+   flops, dot flops, bytes accessed, the LM kernels' calls, the train cells'
+   transfers between slots, and ``trace_s``.  Any failed cell fails the
+   run; the dry-run processes never initialise CUDA, allocate nothing and
+   launch nothing, and this process's allocated card memory is unchanged
+   across the phase's wait.  Then the card witness: each of WITNESSES
+   (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
+   8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
+   real step on the card after ``reset_peak_memory_stats`` with only its
+   arguments allocated: the predicted ``peak_bytes`` within 10 % of
+   ``max_memory_allocated``.  Then the layout witness: phase 10's
+   llama3.2-3b cut on a (2, 2) mesh of slots on the card, ZeRO-1 off:
    ``lower_cell``'s bytes a slot of parameters and moments equal the
    blocks ``Trainer(mesh=...)`` holds;
 12. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
@@ -283,6 +292,14 @@ BF16_FLOP_PER_S = 989e12
 # traced at --dev's shape, and the seconds to wait for its processes
 DRYRUN_DEV_TRACE = ("jamba-v0.1-52b", "xlstm-125m")
 DRYRUN_WAIT_S = 900
+# its card witness: configurations phases 8-10 run on the card, (arch,
+# kind, layers or None for all, dtype or None for the config's, seq,
+# batch), each traced on meta at a (1, 1) mesh and run for one step on
+# the card; the predicted peak within WITNESS_TOL of max_memory_allocated
+WITNESSES = (("llama3.2-3b", "train", 2, "float32", 512, 4),
+             ("xlstm-125m", "train", None, None, 128, 8),
+             ("gemma3-12b", "prefill", 6, None, 1536, 4))
+WITNESS_TOL = 0.10
 
 TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
        "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
@@ -445,41 +462,6 @@ def gnn_library(torch, name, args, kwargs):
     return None
 
 
-def gathered_rows(torch, nbr, mask, prefix: int = 0) -> int:
-    """Distinct rows of h that unmasked slots (and a destination prefix)
-    need: what this call's data must read, each row once."""
-    rows = nbr[mask != 0].long()
-    if prefix:
-        rows = torch.cat([rows, torch.arange(prefix, device=nbr.device)])
-    return int(torch.unique(rows).numel())
-
-
-def call_cost(torch, name: str, args) -> tuple[float, float]:
-    """(bytes, fp32 flops) the function needs for this call: each input
-    read once, each output written once."""
-    if name == "gemm":
-        a, b = args
-        m, k = a.shape
-        n = b.shape[1]
-        return (m * k + k * n + m * n) * a.element_size(), 2.0 * m * n * k
-    h, nbr, mask = args[:3]
-    f = h.shape[1]
-    d, k = nbr.shape
-    nnz = int((mask != 0).sum())
-    ell = nbr.numel() * 4 + mask.numel() * 4
-    if name == "spmm":
-        return gathered_rows(torch, nbr, mask) * f * 4 + ell + d * f * 4, \
-            2.0 * nnz * f
-    if name == "sddmm":
-        return (gathered_rows(torch, nbr, mask, prefix=d) * f * 4 + ell
-                + d * k * f * 4), 2.0 * nnz * f
-    w = args[3]
-    o = w.shape[1]
-    bias = o * 4 if len(args) > 4 and args[4] is not None else 0
-    return (gathered_rows(torch, nbr, mask) * f * 4 + ell + f * o * 4 + bias
-            + d * o * 4), 2.0 * nnz * f + 2.0 * d * f * o
-
-
 def signature(name, args, kwargs) -> str:
     """A GNN kernel call's shape: (MxK)@(KxN) for gemm, else its N, F, D,
     K (and O) with the aggregation mode where one is passed."""
@@ -503,7 +485,7 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
     included).  Prints the kernel's line (prefixed with the mesh where one
     is given) and returns its ``kernels`` row (keyed by ``mesh``) and, by
     shape, {"calls", "ms", "lib_ms", "bound"} summed over its calls."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     plain, tol = gnn_plain(ref)[name], TOL[name]
     shapes = {}
     max_err = by_bytes = by_ops = 0.0
@@ -518,7 +500,7 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
         if name in ("spmm", "sddmm"):                   # bit for bit
             assert torch.equal(got, want), (mesh, name, err)
         max_err = max(max_err, err)
-        nbytes, flops = call_cost(torch, name, args)
+        nbytes, flops = cost.call_cost(name, args)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
         if t_bytes >= t_ops:
@@ -562,38 +544,12 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
     return row, shapes
 
 
-def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
-    """(bytes, flops) one LM kernel call needs: each input read once, each
-    output written once, at its element size; attention counts the key
-    positions this call's mask, window and lengths leave visible."""
-    if name == "rmsnorm":
-        x, w = args
-        return 2 * x.numel() * x.element_size() + w.numel() * 4, 4.0 * x.numel()
-    if name == "flash_attention":
-        q, k, v = args
-        b, hq, t, d = q.shape
-        s = k.shape[2]
-        causal, window = kwargs.get("causal", True), kwargs.get("window", 0)
-        pairs = 0
-        for i in range(t):
-            hi = min(i, s - 1) if causal else s - 1
-            lo = max(0, i - window + 1) if window > 0 else 0
-            pairs += max(0, hi - lo + 1)
-        return ((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                4.0 * b * hq * pairs * d)
-    q, k_pages, _, pt, lengths = args
-    hkv, d = k_pages.shape[2], k_pages.shape[3]
-    cap = pt.shape[1] * k_pages.shape[1]
-    n = int(lengths.clamp(min=0, max=cap).sum())       # positions read
-    return ((2 * n * hkv * d + 2 * q.numel()) * q.element_size()
-            + (pt.numel() + lengths.numel()) * 4, 4.0 * n * q.shape[1] * d)
-
-
 def bound_ms_of(torch, name: str, args, kwargs) -> tuple[float, float]:
     """(bytes ms, operations ms): the call's bytes over HBM's rate and its
     flops over the peak for its operands' type (fp32 FMA, or bf16 tensor
     cores)."""
-    nbytes, flops = lm_call_cost(name, args, kwargs)
+    from repro_torch.kernels import cost
+    nbytes, flops = cost.lm_call_cost(name, args, kwargs)
     rate = BF16_FLOP_PER_S if args[0].dtype == torch.bfloat16 \
         else FP32_FLOP_PER_S
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
@@ -2305,18 +2261,32 @@ def busy_text(busy, wall) -> str:
     return f"busy {busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.2f} %)"
 
 
-def dryrun_files(out: str, multi_pod: bool) -> tuple[str, str]:
-    """The JSON result and the log of phase 11's process for one mesh."""
-    name = os.path.join(out, f"pod{1 + multi_pod}")
-    return name + ".json", name + ".log"
+def dryrun_files(out: str, name: str) -> tuple[str, str]:
+    """The JSON result and the log of one of phase 11's processes."""
+    base = os.path.join(out, name)
+    return base + ".json", base + ".log"
 
 
-def dryrun_worker(multi_pod: bool, out: str) -> None:
-    """Phase 11's cells on one production mesh, in a process of its own:
-    each cell's record, or its exception, and last whether this process
-    initialised CUDA, its allocated card memory before and after, and its
-    launch counts, as JSON in ``dryrun_files``' first file; the module's
-    own lines go to its second."""
+def witness_config(arch: str, kind: str, layers, dtype, seq: int,
+                   batch: int):
+    """(config, shape) of a WITNESSES entry."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    cfg = ARCHS[arch]
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    return cfg, ShapeConfig("witness", kind, seq, batch)
+
+
+def dryrun_worker(name: str, out: str) -> None:
+    """One of phase 11's processes: "pod1" or "pod2", the cells on one
+    production mesh; "witness", the WITNESSES' records on a (1, 1) mesh
+    of meta slots.  Each record, or its exception, and last whether this
+    process initialised CUDA, its allocated card memory before and after,
+    and its launch counts, as JSON in ``dryrun_files``' first file; the
+    module's own lines go to its second."""
     os.nice(10)
     import traceback
 
@@ -2326,25 +2296,37 @@ def dryrun_worker(multi_pod: bool, out: str) -> None:
     from repro_torch.configs import ARCHS, shapes_for
     from repro_torch.launch import dryrun
 
-    path, log_path = dryrun_files(out, multi_pod)
+    path, log_path = dryrun_files(out, name)
     before = torch.cuda.memory_allocated()
     cells = []
-    mesh = dryrun.make_mesh(multi_pod=multi_pod, dev=False)
+
+    def run(tag: dict, fn):
+        try:
+            cells.append({**tag, **fn()})
+        except Exception as e:  # noqa: BLE001 - a failed cell is a finding
+            cells.append({**tag, "error": f"{type(e).__name__}: {e}",
+                          "traceback": traceback.format_exc()})
+
     with open(log_path, "w") as log, contextlib.redirect_stdout(log):
-        for arch in ARCHS:
-            for shape in shapes_for(arch):
-                trace = None
-                if arch in DRYRUN_DEV_TRACE and shape.kind != "decode":
-                    trace = dryrun.dev_shape(shape, mesh)
-                try:
-                    cells.append(dryrun.run_cell(
-                        arch, shape.name, multi_pod=multi_pod, dev=False,
-                        trace_shape=trace))
-                except Exception as e:  # noqa: BLE001 - a failed cell
-                    cells.append({"arch": arch, "shape": shape.name,
-                                  "multi_pod": multi_pod,
-                                  "error": f"{type(e).__name__}: {e}",
-                                  "traceback": traceback.format_exc()})
+        if name == "witness":
+            mesh = dryrun.meta_mesh((1, 1), ("data", "model"))
+            for w in WITNESSES:
+                cfg, shape = witness_config(*w)
+                run({"witness": list(w)},
+                    lambda: dryrun.analyze_cell(cfg, shape, mesh)[1])
+        else:
+            multi_pod = name == "pod2"
+            mesh = dryrun.make_mesh(multi_pod=multi_pod, dev=False)
+            for arch in ARCHS:
+                for shape in shapes_for(arch):
+                    trace = None
+                    if arch in DRYRUN_DEV_TRACE and shape.kind != "decode":
+                        trace = dryrun.dev_shape(shape, mesh)
+                    run({"arch": arch, "shape": shape.name,
+                         "multi_pod": multi_pod},
+                        lambda: dryrun.run_cell(
+                            arch, shape.name, multi_pod=multi_pod, dev=False,
+                            trace_shape=trace))
     with open(path, "w") as f:
         json.dump({"cells": cells,
                    "cuda_initialized": torch.cuda.is_initialized(),
@@ -2352,19 +2334,115 @@ def dryrun_worker(multi_pod: bool, out: str) -> None:
                    "launches": kernels.launch_counts()}, f)
 
 
+DRYRUN_PROCS = ("pod1", "pod2", "witness")
+
+
 def start_dryrun() -> tuple[list, str]:
-    """Phase 11's processes, one a production mesh, started now so that
-    their CPU-only traces run beside the card's phases: (processes, the
+    """Phase 11's processes (DRYRUN_PROCS), started now so that their
+    CPU-only traces run beside the card's phases: (processes, the
     directory of their results).  Daemonic, so an exit ends them."""
     import multiprocessing
     import tempfile
     out = tempfile.mkdtemp(prefix="dryrun_")
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dryrun_worker, daemon=True, args=(mp, out))
-             for mp in (False, True)]
+    procs = [ctx.Process(target=dryrun_worker, daemon=True,
+                         args=(name, out))
+             for name in DRYRUN_PROCS]
     for p in procs:
         p.start()
     return procs, out
+
+
+def gb(n) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def fits_card(m: dict, total: int):
+    """A record's ``memory`` judged against ``total`` bytes: whether its
+    peak fits, or None where the peak is a lower bound that fits."""
+    fits = m["peak_bytes"] <= total
+    return None if m["peak_is_lower_bound"] and fits else fits
+
+
+def dryrun_line(c: dict, total: int, card: str) -> str:
+    """A cell's line: bytes a slot, peak and temp, the judgements,
+    flops, bytes accessed and transfers."""
+    m = c["memory"]
+    coll = c["collectives"]
+    moved = "no transfers (serving)" if coll is None else (
+        f"transfers {gb(coll['total_bytes'])} through slot {coll['slot']} "
+        f"{ {k: round(v / 1e9, 3) for k, v in coll['bytes_by_kind'].items()} }"
+        f" GB, {gb(coll['mesh_total_bytes'])} over the mesh")
+    return (f"a slot holds {gb(m['argument_size_in_bytes'])} of arguments, "
+            f"{gb(m['output_size_in_bytes'])} of outputs, "
+            f"{gb(m['alias_size_in_bytes'])} aliased (slots differ "
+            f"{m['memory_slots_differ']}); peak {gb(m['peak_bytes'])}"
+            f"{' (lower bound)' if m['peak_is_lower_bound'] else ''} (temp "
+            f"{gb(m['temp_size_in_bytes'])}); fits {c['fits']} "
+            f"(arguments_fit {c['arguments_fit']}; on this card's "
+            f"{gb(total)}: {fits_card(m, total)}); flops "
+            f"{c['flops']:.6g}, dot_flops {c['dot_flops']:.6g} (model_flops "
+            f"{c['model_flops']:.6g}), bytes accessed "
+            f"{c['bytes_accessed']:.6g}, kernel calls {c['kernel_calls']}; "
+            f"{moved}; traced at {c['trace_batch']} x {c['trace_seq_len']} "
+            f"in {c['trace_s']} s on the card's host, outputs "
+            f"{c['trace_outputs']}  [{card}]")
+
+
+def witness_step(torch, cfg, shape) -> tuple[int, int]:
+    """One real step of a witness on the card at a (1, 1) mesh: (bytes its
+    arguments took, max_memory_allocated over the step), both above what
+    was allocated before its arguments.  Train: ``make_mesh_train_step``
+    on fp32 parameters and moments laid out on one slot; prefill or
+    decode: the step on bf16 parameters, zero caches and the inputs."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, layers as L
+    from repro_torch.train import optimizer as O, sharded as S
+    from repro_torch.train.trainer import make_mesh_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    api = build(cfg, tp=1)
+    mesh = make_host_mesh(shape=(1, 1), devices=[MESH_SLOT])
+    if shape.kind == "train":
+        with L.use_mesh(mesh):
+            specs = (api.param_pspecs(), O.opt_pspecs(api.param_defs()),
+                     api.input_pspecs(shape))
+        params = api.init_params(0, DEVICE)
+        args = (S.lay_out_tree(params, S.layouts(mesh, specs[0])),
+                S.lay_out_tree(O.init_state(params),
+                               S.layouts(mesh, specs[1])),
+                {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in synth_batch(cfg, shape, 0).items()})
+        del params
+        step = make_mesh_train_step(api, O.AdamWConfig(), mesh,
+                                    param_specs=specs[0], opt_specs=specs[1],
+                                    batch_specs=specs[2])
+    else:
+        params = L.tree_map(lambda t: t.to(torch.bfloat16)
+                            if t.is_floating_point() else t,
+                            api.init_params(0, DEVICE))
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        inputs = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                                   device=DEVICE, dtype=v.dtype)
+                  for k, v in api.input_specs(shape).items()}
+        caches = L.init_tree(api.cache_defs(shape.global_batch,
+                                            shape.seq_len), 0, DEVICE)
+        args = (params, inputs, caches)
+        step = api.prefill if shape.kind == "prefill" else api.decode
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    with L.use_mesh(mesh), torch.set_grad_enabled(shape.kind == "train"):
+        out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, args
+    torch.cuda.empty_cache()
+    return held, peak
 
 
 def dryrun_phase(torch, card, procs, out) -> None:
@@ -2381,56 +2459,74 @@ def dryrun_phase(torch, card, procs, out) -> None:
     t_phase = time.perf_counter()
     total = torch.cuda.get_device_properties(0).total_memory
     allocated = torch.cuda.memory_allocated()
-    results = []
-    for p, mp in zip(procs, (False, True)):
+    results = {}
+    for p, name in zip(procs, DRYRUN_PROCS):
         p.join(timeout=max(1.0, DRYRUN_WAIT_S - (time.perf_counter()
                                                  - t_phase)))
         if p.is_alive():
             p.terminate()
             p.join()
-        path, log_path = dryrun_files(out, mp)
+        path, log_path = dryrun_files(out, name)
         with open(log_path) as f:
             log = f.read()
-        assert p.exitcode == 0, (mp, p.exitcode, log[-2000:])
+        assert p.exitcode == 0, (name, p.exitcode, log[-2000:])
         with open(path) as f:
-            results.append(json.load(f))
+            results[name] = json.load(f)
     shutil.rmtree(out)
     assert torch.cuda.memory_allocated() == allocated
     print(f"dryrun: waited {time.perf_counter() - t_phase:.1f} s for its "
-          f"two processes; allocated card memory of this process "
+          f"{len(procs)} processes; allocated card memory of this process "
           f"{allocated} bytes before and after the wait; the dry-run "
           "processes: CUDA initialised "
-          f"{[r['cuda_initialized'] for r in results]}, allocated card "
-          f"memory before and after {[r['allocated'] for r in results]}, "
-          f"launches {[r['launches'] for r in results]}")
-    for r in results:
+          f"{[r['cuda_initialized'] for r in results.values()]}, allocated "
+          "card memory before and after "
+          f"{[r['allocated'] for r in results.values()]}, launches "
+          f"{[r['launches'] for r in results.values()]}")
+    for r in results.values():
         assert not r["cuda_initialized"] and r["allocated"] == [0, 0], r
         assert not any(r["launches"].values()), r["launches"]
-    cells = [c for r in results for c in r["cells"]]
+    cells = results["pod1"]["cells"] + results["pod2"]["cells"]
     want = [(a, s.name, mp) for mp in (False, True) for a in ARCHS
             for s in shapes_for(a)]
     assert [(c["arch"], c["shape"], c["multi_pod"]) for c in cells] == want
-    failed = [c for c in cells if "error" in c]
+    failed = [c for c in cells + results["witness"]["cells"] if "error" in c]
     for c in cells:
         tag = f"dryrun {c['arch']} {c['shape']} pod{1 + c['multi_pod']}"
         if "error" in c:
             print(f"{tag}: FAILED {c['error']}\n{c['traceback']}")
             continue
+        print(f"{tag}: {dryrun_line(c, total, card)}")
+        assert (c["collectives"] is None) == (c["kind"] != "train"), tag
+        assert c["memory"]["peak_is_lower_bound"] == (
+            c["arch"] in DRYRUN_DEV_TRACE and c["kind"] != "decode"), tag
+    assert not failed, [(c.get("arch"), c.get("shape"), c.get("multi_pod"),
+                         c.get("witness"), c["error"]) for c in failed]
+    judged = [fits_card(c["memory"], total) for c in cells]
+    args_fit = sum(c["memory"]["argument_size_in_bytes"] <= total
+                   for c in cells)
+    unknown = [f"{c['arch']} {c['shape']} pod{1 + c['multi_pod']}"
+               for c, j in zip(cells, judged) if j is None]
+    print(f"dryrun: ALL {len(cells)} cells traced OK; on this card's "
+          f"{gb(total)} a slot, {judged.count(True)} fit at their peak, "
+          f"{judged.count(False)} do not, {len(unknown)} not known (a "
+          f"lower bound that fits: {unknown}); {args_fit} fit by their "
+          "arguments alone")
+
+    # ---- the card witness: predicted peak against max_memory_allocated
+    for w, c in zip(WITNESSES, results["witness"]["cells"]):
+        assert c["witness"] == list(w), (c["witness"], w)
+        cfg, shape = witness_config(*w)
+        held, measured = witness_step(torch, cfg, shape)
         m = c["memory"]
-        args = m["argument_size_in_bytes"]
-        print(f"{tag}: a slot holds {args / 1e9:.3f} GB of arguments, "
-              f"{m['output_size_in_bytes'] / 1e9:.3f} GB of outputs, "
-              f"{m['alias_size_in_bytes'] / 1e9:.3f} GB aliased "
-              f"(slots differ {m['memory_slots_differ']}); fits "
-              f"{args <= total} (card {total / 1e9:.3f} GB); traced at "
-              f"{c['trace_batch']} x {c['trace_seq_len']} in "
-              f"{c['trace_s']} s on the card's host, outputs "
-              f"{c['trace_outputs']}  [{card}]")
-    assert not failed, [(c["arch"], c["shape"], c["multi_pod"])
-                        for c in failed]
-    fits = sum(c["memory"]["argument_size_in_bytes"] <= total for c in cells)
-    print(f"dryrun: ALL {len(cells)} cells traced OK; {fits} of "
-          f"{len(cells)} fit the card's memory a slot")
+        ratio = m["peak_bytes"] / measured
+        print(f"dryrun witness {w[0]} {w[1]} ({cfg.num_layers} layers, "
+              f"{cfg.dtype}, {shape.global_batch} x {shape.seq_len}, (1, 1) "
+              f"mesh): predicted peak {m['peak_bytes']} bytes (arguments "
+              f"{m['argument_size_in_bytes']}, temp "
+              f"{m['temp_size_in_bytes']}; traced in {c['trace_s']} s), "
+              f"measured max_memory_allocated {measured} (arguments "
+              f"{held}), ratio {ratio:.4f}  [{card}]")
+        assert abs(ratio - 1) <= WITNESS_TOL, (w, ratio)
 
     # ---- the layout witness: lower_cell's bytes a slot, held blocks
     base = ARCHS[ATTN_TRAIN_ARCH]

@@ -55,6 +55,18 @@ def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
     return n
 
 
+def workspace(q, k_pages, page_table) -> tuple[torch.Tensor, int]:
+    """(ws, pages a split): the fp32 scratch the launch writes each
+    split's partial (m, l and D accumulators) into, B*Hq*n_split*(D+2)
+    on q's device, where the combine kernel reads them.  The ``meta``
+    branch allocates it too, so that a trace's live bytes hold it."""
+    b, hq, d = q.shape
+    pps = pages_per_split(k_pages.shape[1], d, q.element_size())
+    n_split = -(-page_table.shape[1] // pps)
+    return torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                       device=q.device), pps
+
+
 def _checked(q, k_pages, v_pages, page_table, lengths) -> None:
     """Every check the kernel's launch makes, for a CUDA call and a
     ``meta`` one alike."""
@@ -88,9 +100,10 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, page_table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q (B,Hq,D); pages (P,ps,Hkv,D); page_table (B,PP); lengths (B,)
-    -> (B,Hq,D).  On ``meta`` tensors: the kernel's checks and an empty
-    output, no launch.  No gradient: no training path decodes, so a call
-    that asks for one (an input that requires it, grad mode on) raises."""
+    -> (B,Hq,D).  On ``meta`` tensors: the kernel's checks, an empty
+    output and the launch's scratch (:func:`workspace`), no launch.  No
+    gradient: no training path decodes, so a call that asks for one (an
+    input that requires it, grad mode on) raises."""
     global launches
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pages, v_pages)):
@@ -105,16 +118,15 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          "alone) and the plain version CPU ones")
     _checked(q, k_pages, v_pages, page_table, lengths)
     out = torch.empty_like(q)
-    if out.numel() == 0 or q.device.type == "meta":
+    if out.numel() == 0:
+        return out
+    ws, pps = workspace(q, k_pages, page_table)
+    if q.device.type == "meta":
         return out
     dev, dt = q.device, q.dtype
     b, hq, d = q.shape
     n_pool, ps, hkv, _ = k_pages.shape
     pp = page_table.shape[1]
-    pps = pages_per_split(ps, d, q.element_size())
-    n_split = -(-pp // pps)
-    ws = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
-                     device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         rc = getattr(lib, _ENTRY[dt])(

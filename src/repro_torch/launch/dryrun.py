@@ -1,8 +1,9 @@
 """Dry run: every (architecture x input shape) on the production mesh,
 with no allocation.  Each cell's parameters, optimizer state, inputs and
 caches are laid out over the mesh's slots by their specs and counted in
-bytes a slot, and the cell's step is traced on ``meta`` tensors through
-the routes and kernel argument checks the card would take.
+bytes a slot, the busiest slot's step is traced on ``meta`` tensors
+through the routes and kernel argument checks the card would take, and
+what it holds, computes and moves is counted.
 
 Counterpart of ``repro/launch/dryrun.py``:
 
@@ -29,31 +30,75 @@ touches a device but ``meta``.
   what the reference donates: parameters and optimizer state for train,
   caches otherwise.  Each figure is the largest slot's, and
   ``memory_slots_differ`` says whether any slot holds another count.
-* **The trace** (``trace_s``): the step on ``meta`` trees, at one data
-  shard's batch (``global_batch / dp``, or the whole batch in long mode),
-  the shape the card's kernels see, since a meshed port step runs each
-  data shard's rows on whole gathered parameters
-  (``train/trainer.py::make_mesh_train_step``).  It runs under
-  ``use_mesh`` with the cell's data axes, as a meshed step does, so an
-  MoE's capacity is one shard's.  ``models/layers.py::on_card`` routes a
-  ``meta`` tensor as a CUDA one, and the three LM kernel wrappers run
-  every check of their launch on it and return empty outputs: a cell
-  whose trace raises is one the card refuses.  The outputs are held to
-  the inputs: train returns parameters and optimizer state of the same
-  shapes and dtypes, decode and prefill the caches unchanged and logits
-  (B/dp, 1, V), and an encoder-decoder's prefill its encoder's output
-  of the frames' shape.
+* **The trace** (``trace_s``): slot (0, 0)'s program, the busiest slot's
+  (``meta`` has no device index, so a ``meta`` mesh's slots cannot be
+  told apart while a whole meshed step runs), at a data shard's batch
+  (``global_batch / dp``, or the whole batch in long mode), under
+  ``use_mesh`` with the cell's data axes, so an MoE's capacity is one
+  shard's.  ``models/layers.py::on_card`` routes a ``meta`` tensor as a
+  CUDA one, and the three LM kernel wrappers run every check of their
+  launch on it and return empty outputs (and decode_attention's
+  scratch): a cell whose trace raises is one the card refuses.
 
-What has no counterpart, since there is no compiler and the port's
-meshes gather parameters where GSPMD splits them: ``lower`` and
+  - train: the parts of ``train/trainer.py::make_mesh_train_step``
+    (:class:`~repro_torch.train.trainer.MeshStep`) as slot 0 runs them.
+    It holds its blocks of the parameters and moments and the batch
+    (which the port's step takes whole on slot 0: its shard's rows are
+    arguments, the other shards' rows bytes beyond them); gathers the whole
+    parameters (``sharded.gather_tree``); runs ``loss_and_grads`` on its
+    shard's rows; takes the other dp - 1 shards' whole gradients as they
+    arrive, one leaf at a time, and sums them in slot order; then
+    ``global_norm``, its block of ``lay_out_tree`` / ``relayout`` and its
+    ``update_with_norm``.  The other slots' work is not run: their
+    results are tensors of the same shapes that count only when sent to
+    slot 0 (:class:`SlotStep`).
+  - prefill and decode: the port has no meshed serving step; slot 0 holds
+    its blocks of the bf16 parameters, caches and inputs, gathers the
+    whole parameters and its shard's caches and inputs, and runs the
+    step on them.
+
+  The outputs are held to the inputs: train returns parameters and
+  optimizer state of the same shapes and dtypes, decode and prefill the
+  caches unchanged and logits (B/dp, 1, V), and an encoder-decoder's
+  prefill its encoder's output of the frames' shape.
+* **Peak bytes** (``memory.peak_bytes``, ``memory.temp_size_in_bytes``):
+  the traced program's live bytes (``launch/memtrace.py::StepTrace``).
+  ``temp_size_in_bytes`` is the most it holds beyond its arguments (the
+  reference's meaning; the other shards' rows of a train batch count
+  here), and ``peak_bytes`` is ``argument_size_in_bytes`` plus that.  ``fits`` is
+  ``peak_bytes`` within the card's memory (``CARD_BYTES``);
+  ``arguments_fit`` is the arguments alone within it.  A cell traced at
+  a smaller shape than its own (``trace_batch``, ``trace_seq_len``)
+  counts its temp bytes at that shape, so its peak is a lower bound
+  (``memory.peak_is_lower_bound``): ``fits`` is False where the bound
+  already passes the card, else None (not known).
+* **Work** (``flops``, ``dot_flops``, ``bytes_accessed``): the same
+  trace's products and bytes (see ``launch/memtrace.py``): ``flops`` the
+  work slot 0's step does (flash over its visible key positions, decode
+  over every cached position: ``meta`` holds no lengths); ``dot_flops``
+  every product at its full shape, as ``benchmarks/hlo_analysis.py``
+  counts the reference's HLO dots; ``bytes_accessed`` each op's inputs
+  read and outputs written once, no fusion assumed, an upper bound on
+  an eager step's HBM traffic.  ``kernel_calls`` counts the LM kernels'.
+* **Transfers between slots** (``collectives``, train): every byte the
+  meshed step sends from one slot to another, counted from the layouts
+  (:func:`transfers`), by kind: the batch's rows to each data shard's
+  first slot, the parameters gathered there, the loss and whole
+  gradients sent to slot 0, the norm sent back, the gradient laid out
+  onto the moments' blocks, and the parameters relaid where the moments'
+  spec differs; ``bytes_by_kind`` and ``total_bytes`` are what the
+  busiest slot sends and receives.  Serving cells record ``None``: the
+  port runs no meshed serving step, so nothing moves between slots.
+
+What has no counterpart, since there is no compiler: ``lower`` and
 ``compile`` (their times are replaced by ``trace_s``),
-``memory_analysis``'s temp and generated-code bytes, ``cost_analysis``,
-the loop-expanded HLO flops and bytes, and the collective schedule.
+``memory_analysis``'s generated-code bytes and the HLO text.
 ``model_flops`` is the reference's formula.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -69,12 +114,22 @@ from ..configs.base import ShapeConfig
 from ..models import build, layers as L
 from ..train import optimizer as O
 from ..train import sharded as S
-from ..train.trainer import make_train_step
+from ..train.trainer import MeshStep, _data_slots, make_train_step
+from .memtrace import StepTrace
 from .mesh import Mesh, dp_axes_of
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 META = torch.device("meta")
+# an H100 80GB HBM3's memory, as torch.cuda.get_device_properties reads it
+CARD_BYTES = 85_017_493_504
+
+
+def meta_mesh(shape: tuple, axes: tuple) -> Mesh:
+    """A mesh of ``meta`` slots of ``shape`` over ``axes``."""
+    grid = np.empty(int(np.prod(shape)), dtype=object)
+    grid[:] = [META] * grid.size
+    return Mesh(grid.reshape(shape), axes)
 
 
 def make_mesh(*, multi_pod: bool, dev: bool) -> Mesh:
@@ -84,9 +139,7 @@ def make_mesh(*, multi_pod: bool, dev: bool) -> Mesh:
     else:
         shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    grid = np.empty(int(np.prod(shape)), dtype=object)
-    grid[:] = [META] * grid.size
-    return Mesh(grid.reshape(shape), axes)
+    return meta_mesh(shape, axes)
 
 
 def dev_shape(shape: ShapeConfig, mesh: Mesh) -> ShapeConfig:
@@ -213,37 +266,138 @@ def _same(what, got, want) -> None:
                              f"{tuple(w.shape)} {w.dtype}")
 
 
-def run_step(cell: Cell, shape: ShapeConfig | None = None):
-    """The cell's step on ``meta`` trees at one data shard's batch of
-    ``shape`` (default: the cell's): (outputs, state, batch), where
-    outputs are what the step returns ((params, opt_state, metrics) to
-    train; (logits, caches), and the encoder's output for an
-    encoder-decoder's prefill, to serve) and state what it was given
-    (params and opt_state, or params and caches)."""
-    shape = shape or cell.shape
-    api = cell.api
+def _slot_laid(tree, specs, mesh):
+    """(tree of ``sharded.Laid``, slot 0's blocks): ``tree`` laid out by
+    ``specs`` as slot 0's program sees it: its own block of each leaf a
+    ``meta`` tensor, every other slot's block one more of the same
+    shape, which the trace does not hold."""
+    c0 = (0,) * mesh.devices.ndim
+    own = []
+
+    def one(leaf, spec):
+        lay = S.Layout(mesh, spec)
+        shape = [sl.stop - sl.start for sl in lay.block_slices(leaf.shape, c0)]
+        mine, other = (torch.empty(shape, dtype=leaf.dtype, device=META)
+                       for _ in range(2))
+        own.append(mine)
+        return S.Laid(lay, tuple(leaf.shape),
+                      [mine] + [other] * (mesh.devices.size - 1))
+
+    return L.tree_map(one, tree, specs), own
+
+
+def _like(tree):
+    return L.tree_map(lambda t: torch.empty_like(t)
+                      if isinstance(t, torch.Tensor) else t, tree)
+
+
+class SlotStep(MeshStep):
+    """Slot 0's share of :class:`MeshStep` under ``trace``: the other data
+    shards' gradients and the other slots' updates are not run; each is
+    a tensor of the shape of slot 0's own, made under ``trace.paused()``
+    (on another slot), that takes bytes of its own on slot 0 when it is
+    sent there (the arrival buffer of ``Tensor.to`` between cards)."""
+
+    def __init__(self, trace: StepTrace, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.trace = trace
+        self._like = {}
+
+    def send(self, t, src: int, dst: int):
+        return t if src == dst else torch.empty_like(t)
+
+    def _elsewhere(self, what: str, i: int, run):
+        """Slot 0's result of ``run``, with a stand-in kept (not held:
+        slot 0's own tensors must leave when the step drops them), or on
+        another slot ``i`` a stand-in of the same shapes."""
+        if i == 0:
+            out = run()
+            with self.trace.paused():
+                self._like[what] = _like(out)
+            return out
+        with self.trace.paused():
+            return _like(self._like[what])
+
+    def shard_grads(self, params, batch, cnt, i: int):
+        return self._elsewhere("grads", i, lambda: super(
+            SlotStep, self).shard_grads(params, batch, cnt, i))
+
+    def slot_update(self, i: int, p, g, state, gnorm):
+        return self._elsewhere("update", i, lambda: super(
+            SlotStep, self).slot_update(i, p, g, state, gnorm))
+
+
+def _train_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
+    """Slot 0's share of the meshed train step (see the module
+    docstring): (outputs gathered whole, state, batch)."""
+    api, mesh = cell.api, cell.mesh
+    params, p_own = _slot_laid(*cell.trees["params"], mesh)
+    opt, o_own = _slot_laid(*cell.trees["opt"], mesh)
+    batch = api.input_specs(shape)
+    parts = SlotStep(trace, api, O.AdamWConfig(), mesh, dp_axes=cell.dp_axes,
+                     param_specs=cell.trees["params"][1],
+                     opt_specs=cell.trees["opt"][1],
+                     batch_specs=api.input_pspecs(shape))
+    step = make_train_step(api, parts.opt_cfg, grads_fn=parts.grads,
+                           update_fn=parts.update)
+    rows = {k: v[parts.b_lay[k].block_slices(v.shape, parts.coords[0])]
+            for k, v in batch.items()}
+    trace.hold((p_own, o_own))
+    trace.hold(batch, arguments=sum(t.nbytes for t in rows.values()))
+    with trace:
+        new_p, new_o, metrics = step(params, opt, batch)
+    out = (S.gather_tree(new_p), S.gather_tree(new_o), metrics)
+    return out, (cell.trees["params"][0], cell.trees["opt"][0]), rows
+
+
+def _serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
+    """Slot 0's serving step (see the module docstring): (outputs, state,
+    batch)."""
+    api, mesh = cell.api, cell.mesh
     b = shard_batch(cell, shape)
-    params = cell.trees["params"][0]
-    batch = api.input_specs(dataclasses.replace(shape, global_batch=b))
+    kw = {"long_mode": _is_long_mode(shape)} if shape.kind == "decode" else {}
+    shard = dataclasses.replace(shape, global_batch=b)
+    with L.use_mesh(mesh, dp_axes=()):           # the shard's own trees
+        c_specs = api.cache_pspecs(b, shape.seq_len, **kw)
+        i_specs = api.input_pspecs(shard)
+    c_tree = api.abstract_cache(b, shape.seq_len, **kw)
+    i_tree = api.input_specs(shard)
+    params, p_own = _slot_laid(*cell.trees["params"], mesh)
+    caches, c_own = _slot_laid(c_tree, c_specs, mesh)
+    inputs, i_own = _slot_laid(i_tree, i_specs, mesh)
+    trace.hold((p_own, c_own, i_own))
+    step = api.prefill if shape.kind == "prefill" else api.decode
+    with trace, torch.no_grad():
+        out = step(S.gather_tree(params), S.gather_tree(inputs),
+                   S.gather_tree(caches))
+    return out, (cell.trees["params"][0], c_tree), i_tree
+
+
+def run_step(cell: Cell, shape: ShapeConfig | None = None,
+             trace: StepTrace | None = None):
+    """Slot 0's program of the cell's step on ``meta`` trees at one data
+    shard's batch of ``shape`` (default: the cell's), under ``trace``
+    where one is given: (outputs, state, batch), where outputs are what
+    the step returns ((params, opt_state, metrics) to train, whole;
+    (logits, caches), and the encoder's output for an encoder-decoder's
+    prefill, to serve), state what it was given (params and opt_state,
+    or params and caches, whole) and batch the shard's inputs."""
+    shape = shape or cell.shape
+    trace = StepTrace() if trace is None else trace
+    shard_batch(cell, shape)
     with L.use_mesh(cell.mesh, dp_axes=cell.dp_axes):
         if shape.kind == "train":
-            opt = cell.trees["opt"][0]
-            out = make_train_step(api, O.AdamWConfig())(params, opt, batch)
-            return out, (params, opt), batch
-        kw = {"long_mode": _is_long_mode(shape)} \
-            if shape.kind == "decode" else {}
-        caches = api.abstract_cache(b, shape.seq_len, **kw)
-        with torch.no_grad():
-            step = api.prefill if shape.kind == "prefill" else api.decode
-            return step(params, batch, caches), (params, caches), batch
+            return _train_program(cell, shape, trace)
+        return _serve_program(cell, shape, trace)
 
 
-def trace_cell(cell: Cell, shape: ShapeConfig | None = None) -> dict:
+def trace_cell(cell: Cell, shape: ShapeConfig | None = None,
+               trace: StepTrace | None = None) -> dict:
     """:func:`run_step`, its outputs held to its inputs (see the module
     docstring); returns the outputs' shapes.  Raises where the card's
     route refuses the cell."""
     shape = shape or cell.shape
-    out, state, batch = run_step(cell, shape)
+    out, state, batch = run_step(cell, shape, trace)
     if shape.kind == "train":
         _same("parameters", out[0], state[0])
         _same("optimizer state", out[1], state[1])
@@ -260,9 +414,115 @@ def trace_cell(cell: Cell, shape: ShapeConfig | None = None) -> dict:
     return got
 
 
+def step_record(memory: dict, trace: StepTrace, *,
+                lower_bound: bool = False) -> dict:
+    """The record's peak bytes, ``fits``, ``arguments_fit`` and work, from
+    ``memory`` (:func:`memory`) and a traced program (see the module
+    docstring); ``lower_bound``: the program ran at a smaller shape than
+    the cell's."""
+    temp = trace.peak_bytes - trace.held_bytes
+    peak = memory["argument_size_in_bytes"] + temp
+    fits = peak <= CARD_BYTES
+    return {"memory": {**memory, "peak_bytes": peak,
+                       "temp_size_in_bytes": temp,
+                       "peak_is_lower_bound": lower_bound},
+            "fits": None if lower_bound and fits else fits,
+            "arguments_fit": memory["argument_size_in_bytes"] <= CARD_BYTES,
+            "flops": trace.flops, "dot_flops": trace.dot_flops,
+            "bytes_accessed": trace.bytes_accessed,
+            "kernel_calls": dict(trace.kernel_calls)}
+
+
+def _numel(sl) -> int:
+    return int(np.prod([s.stop - s.start for s in sl], dtype=np.int64))
+
+
+def transfers(cell: Cell) -> dict:
+    """{kind: {(from slot, to slot): bytes}}: what one step of the
+    meshed train step (``MeshStep``, one micro-batch) sends between
+    slots, from the layouts alone, in ``mesh.devices.flat`` indices: the
+    batch's rows and the count of its labels from slot 0 to each other
+    data shard's first slot ("batch"); each block
+    ``sharded.sources`` reads into the parameters gathered on each of
+    those slots ("gather"); the loss, cross-entropy, aux (all but an
+    encoder-decoder) and whole gradients of each to slot 0 ("grads");
+    the norm from slot 0 to every slot ("norm"); the gradient laid out
+    from slot 0 onto the moments' blocks ("scatter"); and, where the
+    moments' spec differs from the parameters', the parameters gathered
+    onto slot 0 and laid out by it ("relayout") and back ("layback")."""
+    mesh, api = cell.mesh, cell.api
+    coords = list(np.ndindex(*mesh.devices.shape))
+    slots = _data_slots(mesh, cell.dp_axes)
+    out = collections.defaultdict(collections.Counter)
+    f32 = 4
+    batch = api.input_specs(cell.shape)
+    with L.use_mesh(mesh, dp_axes=cell.dp_axes):
+        b_specs = api.input_pspecs(cell.shape)
+    scalars = 2 if api.cfg.family == "encdec" else 3
+    for i in slots[1:]:
+        for k, v in batch.items():
+            sl = S.Layout(mesh, b_specs[k]).block_slices(v.shape, coords[i])
+            out["batch"][0, i] += _numel(sl) * v.element_size()
+        out["batch"][0, i] += f32
+        out["grads"][i, 0] += scalars * f32
+    for i in range(1, len(coords)):
+        out["norm"][0, i] += f32
+
+    def gather_onto(kind, leaf, lay, dst):
+        for j, sl in S.sources(lay, leaf.shape, dst):
+            if j != dst:
+                out[kind][j, dst] += _numel(sl) * leaf.element_size()
+
+    def lay_out_from(kind, leaf, lay, src):
+        for i, c in enumerate(coords):
+            if i != src:
+                out[kind][src, i] += _numel(lay.block_slices(
+                    leaf.shape, c)) * leaf.element_size()
+
+    params, p_specs = cell.trees["params"]
+    m_specs = cell.trees["opt"][1]["m"]
+    for leaf, ps, ms in zip(L.tree_leaves(params), L.tree_leaves(p_specs),
+                            L.tree_leaves(m_specs)):
+        p_lay, m_lay = S.Layout(mesh, ps), S.Layout(mesh, ms)
+        for d in slots:
+            gather_onto("gather", leaf, p_lay, d)
+        for i in slots[1:]:
+            out["grads"][i, 0] += leaf.numel() * leaf.element_size()
+        lay_out_from("scatter", leaf, m_lay, 0)
+        if tuple(ps) != tuple(ms):
+            gather_onto("relayout", leaf, p_lay, 0)
+            lay_out_from("relayout", leaf, m_lay, 0)
+            gather_onto("layback", leaf, m_lay, 0)
+            lay_out_from("layback", leaf, p_lay, 0)
+    return {k: dict(v) for k, v in out.items()}
+
+
+def collectives(cell: Cell) -> dict | None:
+    """The ``collectives`` record of a train cell (None to serve): of
+    :func:`transfers`, the bytes the busiest slot sends and receives,
+    by kind (``bytes_by_kind``) and in all (``total_bytes``), which slot
+    that is (``slot``, a flat index), and every slot's bytes sent summed
+    (``mesh_total_bytes``)."""
+    if cell.shape.kind != "train":
+        return None
+    moves = transfers(cell)
+    zero = np.zeros(cell.mesh.devices.size, dtype=np.int64)
+    per = {k: zero.copy() for k in moves}
+    for k, m in moves.items():
+        for (src, dst), b in m.items():
+            per[k][src] += b
+            per[k][dst] += b
+    total = sum(per.values(), zero)
+    slot = int(np.argmax(total))
+    return {"bytes_by_kind": {k: int(v[slot]) for k, v in per.items()},
+            "total_bytes": int(total[slot]), "slot": slot,
+            "mesh_total_bytes": int(sum(sum(m.values())
+                                        for m in moves.values()))}
+
+
 def analyze(cell: Cell, *, chips: int, aux) -> dict:
-    """The cell's record: ``aux``, ``memory``, ``model_flops`` and
-    ``chips``."""
+    """The cell's record before its trace: ``aux``, ``memory``,
+    ``model_flops``, ``collectives`` and ``chips``."""
     shape = cell.shape
     out = dict(aux)
     out["memory"] = memory(cell)
@@ -274,40 +534,54 @@ def analyze(cell: Cell, *, chips: int, aux) -> dict:
         out["model_flops"] = 2.0 * n_act * shape.global_batch * shape.seq_len
     else:
         out["model_flops"] = 2.0 * n_act * shape.global_batch
+    out["collectives"] = collectives(cell)
     out["chips"] = chips
     return out
+
+
+def analyze_cell(cfg, shape: ShapeConfig, mesh, *,
+                 trace_shape: ShapeConfig | None = None) -> tuple[Cell, dict]:
+    """(cell, record) of ``cfg`` at ``shape`` on ``mesh``: bytes a slot,
+    transfers, and slot 0's program traced at ``trace_shape`` (default:
+    ``shape``)."""
+    t0 = time.perf_counter()
+    cell, aux = lower_cell(cfg, shape, mesh)
+    rec = analyze(cell, chips=int(mesh.devices.size), aux=aux)
+    t_lower = time.perf_counter() - t0
+    trace_shape = trace_shape or shape
+    trace = StepTrace()
+    t0 = time.perf_counter()
+    rec["trace_outputs"] = trace_cell(cell, trace_shape, trace)
+    t_trace = time.perf_counter() - t0
+    smaller = (trace_shape.global_batch, trace_shape.seq_len) != \
+        (shape.global_batch, shape.seq_len)
+    rec.update(step_record(rec["memory"], trace, lower_bound=smaller))
+    rec.update(mesh=dict(mesh.shape), lower_s=round(t_lower, 2),
+               trace_s=round(t_trace, 2), seq_len=shape.seq_len,
+               global_batch=shape.global_batch, kind=shape.kind,
+               trace_batch=shard_batch(cell, trace_shape),
+               trace_seq_len=trace_shape.seq_len)
+    return cell, rec
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, dev: bool,
              smoke: bool = False, out_dir: str | None = None,
              trace_shape: ShapeConfig | None = None) -> dict:
-    """One cell: its record, printed and written under ``out_dir``.
-    ``trace_shape`` traces the step at another shape than the one the
-    bytes are counted at (default: the same)."""
+    """One cell: its record (:func:`analyze_cell`), printed and written
+    under ``out_dir``."""
     cfg = (SMOKES if smoke else ARCHS)[arch]
     mesh = make_mesh(multi_pod=multi_pod, dev=dev)
     shape = SHAPES[shape_name]
     if dev:
         shape = dev_shape(shape, mesh)
-    chips = int(mesh.devices.size)
-    t0 = time.perf_counter()
-    cell, aux = lower_cell(cfg, shape, mesh)
-    rec = analyze(cell, chips=chips, aux=aux)
-    t_lower = time.perf_counter() - t0
-    trace_shape = trace_shape or shape
-    t0 = time.perf_counter()
-    rec["trace_outputs"] = trace_cell(cell, trace_shape)
-    t_trace = time.perf_counter() - t0
-    rec.update(arch=arch, shape=shape_name, multi_pod=multi_pod,
-               mesh=dict(mesh.shape), lower_s=round(t_lower, 2),
-               trace_s=round(t_trace, 2), dev=dev, seq_len=shape.seq_len,
-               global_batch=shape.global_batch, kind=shape.kind,
-               trace_batch=shard_batch(cell, trace_shape),
-               trace_seq_len=trace_shape.seq_len)
+    _, rec = analyze_cell(cfg, shape, mesh, trace_shape=trace_shape)
+    rec.update(arch=arch, shape=shape_name, multi_pod=multi_pod, dev=dev)
     print(json.dumps({k: rec[k] for k in
                       ("arch", "shape", "multi_pod", "chips", "model_flops",
-                       "trace_s")}, indent=None))
+                       "dot_flops", "fits", "trace_s")}, indent=None))
     print(f"  memory a slot: {rec['memory']}")
+    if rec["collectives"] is not None:
+        print(f"  collectives: {rec['collectives']}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         base = f"{arch}__{shape_name}__{'pod2' if multi_pod else 'pod1'}"

@@ -7,9 +7,17 @@ no counterpart file in the reference.  A :class:`Layout` is a
 ``mesh.devices.flat`` order, each on its slot's device, and the result,
 a :class:`Laid`, holds exactly the block that the reference's
 ``addressable_shards`` hold on the matching device.  :func:`gather`
-puts the blocks back together (the first slot of each block in slot
-order is read: replicas are equal by construction), and
+puts the blocks back together on one slot (each slice read from that
+slot's own block where it holds one, else from the first slot in slot
+order that does: replicas are equal by construction), and
 :func:`relayout` lays the same tensor out under another spec.
+
+Every move of a tensor from one slot to another goes through
+:func:`send`, with the two slots' indices: a block laid out from the
+slot that holds the whole tensor, a slice read into a gathering slot's
+tensor, and the meshed train step's own moves
+(``train/trainer.py::MeshStep``).  The dry run counts the same moves
+from the layouts (``launch/dryrun.py::collectives``).
 
 A spec entry names the mesh axes a dim is split over, major first, as
 JAX reads ``P(("pod", "data"))``; dims past the spec's end are
@@ -18,9 +26,10 @@ replicated.  A dim that the entry's axes do not divide raises
 checks it, head padding makes the model dims divisible, and
 ``_zero1_spec`` only picks divisible dims).
 
-Blocks that are the same slice on the same device are one tensor, so a
-spec replicated over slots of one card holds one copy there; a block of
-a tensor already on its slot's device is a view of it.
+Blocks on one card share its memory: a tensor laid out from a slot is
+viewed by the slots on its device, and one placed from the host is one
+tensor for the slots that hold the same slice on one device, so a spec
+replicated over slots of one card holds one copy there.
 """
 from __future__ import annotations
 
@@ -89,46 +98,81 @@ def _key(sl: tuple) -> tuple:
     return tuple((s.start, s.stop) for s in sl)
 
 
-def lay_out(x: torch.Tensor, layout: Layout) -> Laid:
-    """``x`` split into one block per slot of ``layout``'s mesh."""
+def send(t: torch.Tensor, mesh, src, dst: int,
+         out: torch.Tensor | None = None) -> torch.Tensor:
+    """``t``, held by slot ``src`` (``None``: by no slot, as a tensor read
+    from the host), on slot ``dst``: copied into ``out``, a tensor on that
+    slot, where one is given, else ``t`` on the slot's device (``t``
+    itself, or a view, when it is there already)."""
+    if out is not None:
+        return out.copy_(t)
+    return t.to(mesh.devices.flat[dst])
+
+
+def lay_out(x: torch.Tensor, layout: Layout, src: int | None = None) -> Laid:
+    """``x`` split into one block per slot of ``layout``'s mesh, each
+    sent from slot ``src``, where ``x`` lies; with ``src`` None (``x``
+    on the host or in no slot) the slots on one device that hold the
+    same slice share one copy."""
     shape = tuple(x.shape)
+    mesh = layout.mesh
     seen, blocks = {}, []
-    for coord, dev in zip(layout.coords(), layout.mesh.devices.flat):
+    for i, (coord, dev) in enumerate(zip(layout.coords(), mesh.devices.flat)):
         sl = layout.block_slices(shape, coord)
+        if src is not None:
+            blocks.append(send(x[sl], mesh, src, i))
+            continue
         k = (_key(sl), str(dev))
         if k not in seen:
-            seen[k] = x[sl].to(dev)
+            seen[k] = send(x[sl], mesh, None, i)
         blocks.append(seen[k])
     return Laid(layout, shape, blocks)
 
 
-def gather(laid: Laid, device=None) -> torch.Tensor:
-    """The whole tensor on ``device`` (default: the first slot's), from
-    the first block of each slice in slot order.  A tensor replicated on
-    every slot is its first block moved to ``device`` (no copy when it
-    is there already)."""
+def _whole(sl: tuple, shape) -> bool:
+    return all(s.start == 0 and s.stop == n for s, n in zip(sl, shape))
+
+
+def sources(layout: Layout, shape, slot: int) -> list[tuple[int, tuple]]:
+    """(slot read, slices) for each distinct block of a tensor of
+    ``shape`` that :func:`gather` onto ``slot`` reads, in slot order:
+    ``slot``'s own block where it holds that slice, else the first slot
+    in slot order that does."""
+    coords = layout.coords()
+    mine = _key(layout.block_slices(shape, coords[slot]))
+    out = {}
+    for i, c in enumerate(coords):
+        sl = layout.block_slices(shape, c)
+        k = _key(sl)
+        if k not in out or (k == mine and i == slot):
+            out[k] = (i, sl)
+    return sorted(out.values(), key=lambda v: v[0])
+
+
+def gather(laid: Laid, slot: int = 0) -> torch.Tensor:
+    """The whole tensor on slot ``slot`` (default: the first): that slot's
+    own block where it is whole (a replicated spec, or axes of size 1),
+    else a new tensor filled from :func:`sources`."""
     layout = laid.layout
-    dev = torch.device(device) if device is not None \
-        else layout.mesh.devices.flat[0]
-    if all(e is None or _axes(e) == () for e in layout.spec):
-        return laid.blocks[0].to(dev)
-    out = torch.empty(laid.shape, dtype=laid.dtype, device=dev)
-    done = set()
-    for coord, block in zip(layout.coords(), laid.blocks):
-        sl = layout.block_slices(laid.shape, coord)
-        if _key(sl) not in done:
-            done.add(_key(sl))
-            out[sl].copy_(block)
+    mesh = layout.mesh
+    if _whole(layout.block_slices(laid.shape, layout.coords()[slot]),
+              laid.shape):
+        return laid.blocks[slot]
+    out = torch.empty(laid.shape, dtype=laid.dtype,
+                      device=mesh.devices.flat[slot])
+    for i, sl in sources(layout, laid.shape, slot):
+        send(laid.blocks[i], mesh, i, slot, out=out[sl])
     return out
 
 
-def relayout(laid: Laid, layout: Layout) -> Laid:
+def relayout(laid: Laid, layout: Layout, slot: int = 0) -> Laid:
     """The same tensor laid out by ``layout`` (``laid`` itself when the
-    spec and mesh are the same)."""
+    spec and mesh are the same): gathered onto ``slot`` and laid out
+    from there."""
     if layout.mesh is laid.layout.mesh and \
             tuple(layout.spec) == tuple(laid.layout.spec):
         return laid
-    return lay_out(gather(laid), layout)
+    return lay_out(gather(laid, slot), layout, src=slot)
 
 
 def layouts(mesh, specs):
@@ -136,12 +180,12 @@ def layouts(mesh, specs):
     return L.tree_map(lambda s: Layout(mesh, s), specs)
 
 
-def lay_out_tree(tree, layout_tree):
-    return L.tree_map(lay_out, tree, layout_tree)
+def lay_out_tree(tree, layout_tree, src: int | None = None):
+    return L.tree_map(lambda x, lay: lay_out(x, lay, src), tree, layout_tree)
 
 
-def gather_tree(tree, device=None):
-    return L.tree_map(lambda a: gather(a, device), tree)
+def gather_tree(tree, slot: int = 0):
+    return L.tree_map(lambda a: gather(a, slot), tree)
 
 
 def block_tree(tree, slot: int):

@@ -124,70 +124,91 @@ def _data_slots(mesh, dp_axes) -> list[int]:
             if all(c[j] == 0 for j in other)]
 
 
-def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
-                         dp_axes=("data",), param_specs, opt_specs,
-                         batch_specs, grad_accum: int = 1):
-    """The train step on ``mesh``: (params, opt_state, batch) ->
-    (params, opt_state, metrics), where params and opt_state are trees
-    of ``sharded.Laid`` laid out by ``param_specs`` and ``opt_specs``,
-    and batch holds whole tensors split by ``batch_specs`` (see the
-    module docstring).  Raises ``ValueError`` when the batch's rows do
-    not split into ``grad_accum`` micro-batches of whole data shards."""
-    dp_axes = tuple(dp_axes)
-    slots = _data_slots(mesh, dp_axes)
-    dp = len(slots)
-    coords = list(np.ndindex(*mesh.devices.shape))
-    home = mesh.devices.flat[0]
-    p_lay = S.layouts(mesh, param_specs)
-    m_lay = S.layouts(mesh, opt_specs["m"])
-    step_lay = S.Layout(mesh, opt_specs["step"])
+class MeshStep:
+    """The parts of the train step on ``mesh`` (see the module docstring
+    and :func:`make_mesh_train_step`), each one slot's program: a data
+    shard's gradients on its first slot, their sum on slot 0, one slot's
+    AdamW on its blocks.  Every move between slots goes through
+    :meth:`send`.  The dry run (``launch/dryrun.py``) runs slot 0's share
+    of the same parts."""
 
-    def grads_fn(params, batch):
-        """One micro-batch: each data shard's loss, weighted, and its
-        gradient, summed over the shards in slot order on slot 0."""
+    def __init__(self, api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
+                 dp_axes=("data",), param_specs, opt_specs, batch_specs):
+        self.api = api
+        self.opt_cfg = opt_cfg
+        self.mesh = mesh
+        self.slots = _data_slots(mesh, tuple(dp_axes))
+        self.coords = list(np.ndindex(*mesh.devices.shape))
+        self.p_lay = S.layouts(mesh, param_specs)
+        self.m_lay = S.layouts(mesh, opt_specs["m"])
+        self.step_lay = S.Layout(mesh, opt_specs["step"])
+        self.b_lay = S.layouts(mesh, batch_specs)
+
+    def send(self, t, src: int, dst: int):
+        return S.send(t, self.mesh, src, dst)
+
+    def shard_grads(self, params, batch, cnt, i: int):
+        """Data shard ``i``'s (its first slot's flat index) part on that
+        slot: (loss, xent weighted, aux or None, gradients).  Its rows of
+        the batch, which lies on slot 0, run on the whole parameters
+        gathered there; the cross-entropy is weighted by the shard's share
+        of the labels that count (``cnt`` in all), an MoE's aux by 1/dp."""
+        rows = {k: self.send(v[self.b_lay[k].block_slices(
+            v.shape, self.coords[i])], 0, i) for k, v in batch.items()}
+        w = (rows["labels"] >= 0).sum().float() / self.send(cnt, 0, i)
+        dp = len(self.slots)
+
+        def objective(_, m):
+            out = m["xent"] * w
+            return out + (0.01 / dp) * m["aux"] if "aux" in m else out
+
+        l_d, m_d, g_d = loss_and_grads(self.api, S.gather_tree(params, i),
+                                       rows, objective)
+        return l_d, m_d["xent"] * w, m_d.get("aux"), g_d
+
+    def grads(self, params, batch):
+        """One micro-batch: each data shard's part, summed over the shards
+        in slot order on slot 0."""
         cnt = (batch["labels"] >= 0).sum().float()
+        dp = len(self.slots)
         loss = xent = aux = grads = None
-        for i in slots:
-            dev = mesh.devices.flat[i]
-            rows = {k: v[S.Layout(mesh, batch_specs[k]).block_slices(
-                v.shape, coords[i])].to(dev) for k, v in batch.items()}
-            w = (rows["labels"] >= 0).sum().float() / cnt.to(dev)
-
-            def objective(_, m, w=w):
-                out = m["xent"] * w
-                return out + (0.01 / dp) * m["aux"] if "aux" in m else out
-
-            l_d, m_d, g_d = loss_and_grads(api, S.gather_tree(params, dev),
-                                           rows, objective)
-            x_d = (m_d["xent"] * w).to(home)
-            a_d = m_d["aux"].to(home) / dp if "aux" in m_d else None
+        for i in self.slots:
+            l_d, x_d, a_d, g_d = self.shard_grads(params, batch, cnt, i)
+            x_d = self.send(x_d, i, 0)
+            a_d = self.send(a_d, i, 0) / dp if a_d is not None else None
             if grads is None:
-                loss, xent, aux, grads = l_d.to(home), x_d, a_d, \
-                    L.tree_map(lambda g: g.to(home), g_d)
+                loss, xent, aux, grads = self.send(l_d, i, 0), x_d, a_d, \
+                    L.tree_map(lambda g: self.send(g, i, 0), g_d)
             else:
-                loss = loss + l_d.to(home)
+                loss = loss + self.send(l_d, i, 0)
                 xent = xent + x_d
                 aux = None if aux is None else aux + a_d
-                grads = L.tree_map(lambda a, g: a + g.to(home), grads, g_d)
+                grads = L.tree_map(lambda a, g: a + self.send(g, i, 0), grads,
+                                   g_d)
         metrics = {"xent": xent} if aux is None else {"xent": xent,
                                                       "aux": aux}
         return loss, metrics, grads
 
-    def update_fn(params, grads, state):
-        """Each slot's AdamW on its moment block, with the matching
-        blocks of the parameters and the gradient and the whole
-        gradient's norm; parameters back into their layout."""
+    def slot_update(self, i: int, p, g, state, gnorm):
+        """Slot ``i``'s AdamW on its moment blocks, with the matching
+        blocks of the parameters ``p`` and gradient ``g`` (both laid out
+        like the moments) and the whole gradient's norm."""
+        st = {"step": state["step"].blocks[i],
+              "m": S.block_tree(state["m"], i),
+              "v": S.block_tree(state["v"], i)}
+        return O.update_with_norm(self.opt_cfg, S.block_tree(p, i),
+                                  S.block_tree(g, i), st,
+                                  self.send(gnorm, 0, i))
+
+    def update(self, params, grads, state):
+        """Each slot's :meth:`slot_update`, the gradient laid out from slot
+        0 onto the moments' blocks; parameters back into their layout."""
         gnorm = O.global_norm(grads)
-        g = S.lay_out_tree(grads, m_lay)
-        p = L.tree_map(S.relayout, params, m_lay)
+        g = S.lay_out_tree(grads, self.m_lay, src=0)
+        p = L.tree_map(S.relayout, params, self.m_lay)
         new_p, new_m, new_v, new_step = [], [], [], []
-        for i, dev in enumerate(mesh.devices.flat):
-            st = {"step": state["step"].blocks[i],
-                  "m": S.block_tree(state["m"], i),
-                  "v": S.block_tree(state["v"], i)}
-            np_i, ns_i, om = O.update_with_norm(
-                opt_cfg, S.block_tree(p, i), S.block_tree(g, i), st,
-                gnorm.to(dev))
+        for i in range(self.mesh.devices.size):
+            np_i, ns_i, om = self.slot_update(i, p, g, state, gnorm)
             new_p.append(np_i)
             new_m.append(ns_i["m"])
             new_v.append(ns_i["v"])
@@ -200,13 +221,28 @@ def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
                 for j, (lay, ref) in enumerate(zip(
                     L.tree_leaves(lay_tree), L.tree_leaves(params)))])
 
-        params = L.tree_map(S.relayout, laid(new_p, m_lay), p_lay)
-        state = {"step": S.Laid(step_lay, (), new_step),
-                 "m": laid(new_m, m_lay), "v": laid(new_v, m_lay)}
+        params = L.tree_map(S.relayout, laid(new_p, self.m_lay), self.p_lay)
+        state = {"step": S.Laid(self.step_lay, (), new_step),
+                 "m": laid(new_m, self.m_lay), "v": laid(new_v, self.m_lay)}
         return params, state, {"grad_norm": gnorm, "lr": om["lr"]}
 
+
+def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
+                         dp_axes=("data",), param_specs, opt_specs,
+                         batch_specs, grad_accum: int = 1):
+    """The train step on ``mesh``: (params, opt_state, batch) ->
+    (params, opt_state, metrics), where params and opt_state are trees
+    of ``sharded.Laid`` laid out by ``param_specs`` and ``opt_specs``,
+    and batch holds whole tensors on slot 0, split by ``batch_specs``
+    (see the module docstring and :class:`MeshStep`).  Raises
+    ``ValueError`` when the batch's rows do not split into
+    ``grad_accum`` micro-batches of whole data shards."""
+    parts = MeshStep(api, opt_cfg, mesh, dp_axes=dp_axes,
+                     param_specs=param_specs, opt_specs=opt_specs,
+                     batch_specs=batch_specs)
+    dp = len(parts.slots)
     step = make_train_step(api, opt_cfg, grad_accum=grad_accum,
-                           grads_fn=grads_fn, update_fn=update_fn)
+                           grads_fn=parts.grads, update_fn=parts.update)
 
     def checked(params, opt_state, batch):
         b = batch["labels"].shape[0]

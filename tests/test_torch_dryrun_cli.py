@@ -2,8 +2,12 @@
 (``python -m repro_torch.launch.dryrun``), on the CPU: every cell of
 ``--all`` at ``--dev --smoke`` on both dev meshes traces, and the
 command writes one record a cell (item (e) of
-``tests/test_torch_dryrun.py``).  About three minutes: the recurrent
-families' train cells loop over 512 time steps of meta ops."""
+``tests/test_torch_dryrun.py``), each with the analysis half's keys:
+peak and temp bytes (traced at the cell's own shape, so no lower
+bound), ``fits`` and ``arguments_fit``, flops, dot flops,
+bytes accessed, and transfers for a train cell (None to serve).  About
+five minutes: the recurrent families' train cells loop over 512 time
+steps of meta ops, under the trace's dispatch mode."""
 import json
 import os
 import subprocess
@@ -26,3 +30,17 @@ def test_command_line_dev_smoke_all_cells(tmp_path):
                      .read_text())
     assert rec["mesh"] == {"pod": 2, "data": 2, "model": 4}
     assert rec["memory"]["argument_size_in_bytes"] > 0 and rec["trace_s"] >= 0
+    for name in files:
+        rec = json.loads((tmp_path / name).read_text())
+        m = rec["memory"]
+        assert m["peak_bytes"] == m["argument_size_in_bytes"] \
+            + m["temp_size_in_bytes"] and m["temp_size_in_bytes"] > 0, name
+        assert rec["fits"] and rec["arguments_fit"], name
+        assert m["peak_is_lower_bound"] is False, name
+        assert 0 < rec["flops"] and 0 < rec["dot_flops"] \
+            and 0 < rec["bytes_accessed"], name
+        if rec["kind"] == "train":
+            c = rec["collectives"]
+            assert c["total_bytes"] == sum(c["bytes_by_kind"].values()) > 0
+        else:
+            assert rec["collectives"] is None, name
