@@ -132,15 +132,25 @@ Phases, each uncaught, so any failure exits non-zero:
 10. training on a mesh: the same llama3.2-3b cut (2 layers, batch 4 x
    seq 512) in fp32, 3 steps of the unmeshed Trainer, then of
    ``Trainer(mesh=...)`` on (data, model) meshes of slots on the one
-   card, (1, 1), and (2, 1) and (2, 2) with ZeRO-1, launch counts zeroed
-   just before each run and read just after (rmsnorm and
-   flash_attention > 0): (1, 1) equal to the unmeshed run bit for bit
-   in loss, grad_norm and every parameter and moment, the others each
-   leaf within 1e-4 of its largest element and the losses within rtol
-   1e-5; every slot's blocks the shapes ``param_pspecs`` and
-   ``opt_pspecs`` dictate; the (2, 2) run's Function calls against
-   their plain versions (forward and gradients) and timed cold; step ms
-   and tokens/s per mesh.  Then a checkpoint at step 2 on (2, 2),
+   card, (1, 1) and (1, 2), and (2, 1) and (2, 2) with ZeRO-1.  (1, 2)
+   and (2, 2) split the compute over the model axis as the reference's
+   GSPMD step does (each model slot its own 12 query heads, 4 KV heads,
+   MLP columns and vocabulary block, the partials summed on the data
+   row's first slot); (1, 1) and (2, 1) run each data row on the whole
+   parameters.  Launch counts are zeroed just before each run and read
+   just after (rmsnorm and flash_attention > 0): (1, 1) equal to the
+   unmeshed run bit for bit in loss, grad_norm and every parameter and
+   moment, the others each leaf within 1e-4 of its largest element and
+   the losses within rtol 1e-5; every slot's blocks the shapes
+   ``param_pspecs`` and ``opt_pspecs`` dictate; each run's
+   ``max_memory_allocated`` beside the parent commit's on the same
+   meshes (``tools/torch_mesh_train_peak.py``); the (2, 2) run's
+   Function calls, at a slot's heads, against their plain versions
+   (forward and gradients) and timed cold; step ms and tokens/s per
+   mesh.  The flash_attention Function also at a slot's heads of the
+   production model degree (16) for the four architectures that split
+   (down to one query head of one KV head at D 256, gemma3-12b),
+   against the plain version.  Then a checkpoint at step 2 on (2, 2),
    restored on (1, 1) and on (2, 1), whose step 3 loss must equal the
    uninterrupted run's within rtol 1e-5;
 11. the dry run (``launch/dryrun.py``): every ``ARCHS x shapes_for``
@@ -157,10 +167,16 @@ Phases, each uncaught, so any failure exits non-zero:
    record's ``fits`` and ``arguments_fit``, the peak judged against the
    card's own ``total_memory`` (unknown where a lower bound fits),
    flops, dot flops, bytes accessed, the LM kernels' calls, the train cells'
-   transfers between slots, and ``trace_s``.  Any failed cell fails the
+   transfers between slots, whether the step splits over the model axis
+   (``model_split``), and ``trace_s``.  Any failed cell fails the
    run; the dry-run processes never initialise CUDA, allocate nothing and
    launch nothing, and this process's allocated card memory is unchanged
-   across the phase's wait.  Then the card witness: each of WITNESSES
+   across the phase's wait.  The train_4k cells of llama3.2-3b,
+   gemma3-12b/27b and internvl2-76b split (each slot runs its own heads,
+   MLP columns and vocabulary block), and no other cell does; a line
+   each gives its peak beside the one the gathered step traced, which
+   it must be under, and llama3.2-3b's must fit.  Then the card witness:
+   each of WITNESSES
    (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
    8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
    real step on the card after ``reset_peak_memory_stats`` with only its
@@ -278,9 +294,25 @@ TRAIN_KERNELS = ("rmsnorm", "flash_attention")
 # within 1e-4 of its largest element (the fp32 gradient tolerance) and
 # the losses within rtol 1e-5; a checkpoint at step 2 of SAVE_MESH
 # resumes on each of RESUME_MESHES
-MESH_TRAIN_SHAPES = ((1, 1), (2, 1), (2, 2))
+# resumes on each of RESUME_MESHES; (1, 2) and (2, 2) split the compute
+# over the model axis (models/api.py::model_split), (1, 1) and (2, 1)
+# run it gathered
+MESH_TRAIN_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2))
 MESH_TRAIN_TOL, MESH_SAVE_AT = 1e-4, 2
 SAVE_MESH, RESUME_MESHES = (2, 2), ((1, 1), (2, 1))
+# each run's max_memory_allocated above what was allocated before it, in
+# bytes, for the parent commit's port (every mesh gathered), measured on
+# the NVIDIA H100 80GB HBM3 at 700.00 W by tools/torch_mesh_train_peak.py
+# (two runs, equal to the byte)
+PARENT_MESH_PEAK = {"1x1": 19_092_874_240, "1x2": 17_849_448_448,
+                    "2x1": 19_060_478_464, "2x2": 21_441_979_392}
+# the attention of a split step's slot at the production model degree
+# (16): (query heads, KV heads, head dim, window) of llama3.2-3b,
+# gemma3-12b's local and global layers, gemma3-27b and internvl2-76b,
+# held to the plain version, forward and gradients, at batch 2 x 1,536
+SPLIT_FLASH = ((2, 1, 128, 0), (1, 1, 256, 1024), (1, 1, 256, 0),
+               (2, 1, 128, 1024), (4, 1, 128, 0))
+SPLIT_FLASH_BATCH, SPLIT_FLASH_SEQ = 2, 1536
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
@@ -292,6 +324,15 @@ BF16_FLOP_PER_S = 989e12
 # traced at --dev's shape, and the seconds to wait for its processes
 DRYRUN_DEV_TRACE = ("jamba-v0.1-52b", "xlstm-125m")
 DRYRUN_WAIT_S = 900
+# the train_4k cells whose step splits over the model axis, each with
+# its peak bytes a slot on (16, 16) and (2, 16, 16) as the gathered step
+# traced them (counts from shapes, the same on any host); the split
+# peak must be lower, and llama3.2-3b's must fit the card
+DRYRUN_SPLIT_PEAK_BEFORE = {"llama3.2-3b": (219.103e9, 125.218e9),
+                            "gemma3-12b": (265.715e9, 188.624e9),
+                            "gemma3-27b": (505.477e9, 373.759e9),
+                            "internvl2-76b": (1068.528e9, 849.484e9)}
+DRYRUN_SPLIT_FITS = ("llama3.2-3b",)
 # its card witness: configurations phases 8-10 run on the card, (arch,
 # kind, layers or None for all, dtype or None for the config's, seq,
 # batch), each traced on meta at a (1, 1) mesh and run for one step on
@@ -2062,6 +2103,30 @@ def hold_blocks(trainer, params, opt) -> dict:
     return held
 
 
+def split_flash(torch, card, fn, plain_fn) -> None:
+    """The flash_attention Function at each SPLIT_FLASH shape, fp32 and
+    bf16, causal with the window given: forward within TOL (2e-2 in bf16)
+    and gradients within GRAD_TOL of each max of the plain version's."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    b, t = SPLIT_FLASH_BATCH, SPLIT_FLASH_SEQ
+    worst = {}
+    for hq, hkv, d, window in SPLIT_FLASH:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, h, t, d), generator=gen, device=DEVICE)
+                       .to(dt) for h in (hq, hkv, hkv))
+            kw = {"causal": True, "window": window}
+            err = hold_to_plain(torch, "flash_attention", fn, plain_fn,
+                                (q, k, v), kw)
+            g = hold_gradients(torch, "flash_attention", fn, plain_fn,
+                               (q, k, v), kw)
+            worst[(hq, hkv, d, window, str(dt)[6:])] = (float(f"{err:.3g}"),
+                                                         float(f"{g:.3g}"))
+    print(f"mesh train split shapes: flash_attention at a slot's heads of "
+          f"the production model degree, batch {b} x {t}, (query heads, KV "
+          f"heads, head dim, window, dtype): (forward max abs err, gradient "
+          f"error / max) {worst}  [{card}]")
+
+
 def mesh_train_phase(torch, card) -> list[dict]:
     """Phase 10: training on a mesh (see the module docstring).  Returns
     the ``kernels`` rows of the (2, 2) run, keyed ``"path":
@@ -2120,14 +2185,29 @@ def mesh_train_phase(torch, card) -> list[dict]:
     rows = []
     for mesh_shape in MESH_TRAIN_SHAPES:
         tag = "x".join(map(str, mesh_shape))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         tr = trainer(mesh_shape)
+        split = mesh_shape[1] > 1 and tr.api.model_split()
         record = mesh_shape == SAVE_MESH
         with (recording(torch, ops, TRAIN_KERNELS) if record
               else contextlib.nullcontext({})) as recorded:
             kernels.reset_launch_counts()
             params, opt, step = tr.run(ATTN_TRAIN_STEPS)
             launches = kernels.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        parent = PARENT_MESH_PEAK[tag]
         print(f"mesh train {tag} main path launches: {launches}")
+        print(f"mesh train {tag}: compute "
+              f"{'split over the model axis' if split else 'gathered'}; "
+              f"max_memory_allocated over the run {peak} bytes "
+              f"({peak / 2**30:.3f} GiB) above the {base / 2**30:.3f} GiB "
+              "allocated before it; the parent commit's (gathered), by "
+              f"tools/torch_mesh_train_peak.py: {parent} bytes "
+              f"({parent / 2**30:.3f} GiB)  [{card}]")
         assert step == ATTN_TRAIN_STEPS
         assert all(launches[k] > 0 for k in TRAIN_KERNELS), (tag, launches)
         got = {key: [m[key] for m in tr.metrics_log]
@@ -2175,6 +2255,8 @@ def mesh_train_phase(torch, card) -> list[dict]:
         del tr, params, opt, recorded
         torch.cuda.empty_cache()
     del flat_params, flat_opt
+    split_flash(torch, card, originals["flash_attention"],
+                plain["flash_attention"])
 
     # ---- a checkpoint at step 2 on SAVE_MESH, step 3 on other meshes
     with tempfile.TemporaryDirectory() as tmp:
@@ -2384,7 +2466,8 @@ def dryrun_line(c: dict, total: int, card: str) -> str:
             f"{c['flops']:.6g}, dot_flops {c['dot_flops']:.6g} (model_flops "
             f"{c['model_flops']:.6g}), bytes accessed "
             f"{c['bytes_accessed']:.6g}, kernel calls {c['kernel_calls']}; "
-            f"{moved}; traced at {c['trace_batch']} x {c['trace_seq_len']} "
+            f"{moved}; model_split {c['model_split']}; traced at "
+            f"{c['trace_batch']} x {c['trace_seq_len']} "
             f"in {c['trace_s']} s on the card's host, outputs "
             f"{c['trace_outputs']}  [{card}]")
 
@@ -2499,8 +2582,23 @@ def dryrun_phase(torch, card, procs, out) -> None:
         assert (c["collectives"] is None) == (c["kind"] != "train"), tag
         assert c["memory"]["peak_is_lower_bound"] == (
             c["arch"] in DRYRUN_DEV_TRACE and c["kind"] != "decode"), tag
+        assert c["model_split"] == (c["kind"] == "train" and c["arch"] in
+                                    DRYRUN_SPLIT_PEAK_BEFORE), tag
     assert not failed, [(c.get("arch"), c.get("shape"), c.get("multi_pod"),
                          c.get("witness"), c["error"]) for c in failed]
+    for c in cells:
+        if not c["model_split"]:
+            continue
+        before = DRYRUN_SPLIT_PEAK_BEFORE[c["arch"]][c["multi_pod"]]
+        peak = c["memory"]["peak_bytes"]
+        print(f"dryrun split {c['arch']} {c['shape']} pod{1 + c['multi_pod']}"
+              f": peak {gb(peak)} a slot, split over the model axis "
+              f"(gathered: {gb(before)}); fits {c['fits']}, on this "
+              f"card's {gb(total)}: {fits_card(c['memory'], total)}  "
+              f"[{card}]")
+        assert peak < before, (c["arch"], c["multi_pod"], peak, before)
+        if c["arch"] in DRYRUN_SPLIT_FITS:
+            assert c["fits"], (c["arch"], c["multi_pod"], peak)
     judged = [fits_card(c["memory"], total) for c in cells]
     args_fit = sum(c["memory"]["argument_size_in_bytes"] <= total
                    for c in cells)

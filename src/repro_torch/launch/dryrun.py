@@ -44,18 +44,27 @@ touches a device but ``meta``.
     (:class:`~repro_torch.train.trainer.MeshStep`) as slot 0 runs them.
     It holds its blocks of the parameters and moments and the batch
     (which the port's step takes whole on slot 0: its shard's rows are
-    arguments, the other shards' rows bytes beyond them); gathers the whole
-    parameters (``sharded.gather_tree``); runs ``loss_and_grads`` on its
-    shard's rows; takes the other dp - 1 shards' whole gradients as they
-    arrive, one leaf at a time, and sums them in slot order; then
-    ``global_norm``, its block of ``lay_out_tree`` / ``relayout`` and its
-    ``update_with_norm``.  The other slots' work is not run: their
-    results are tensors of the same shapes that count only when sent to
-    slot 0 (:class:`SlotStep`).
-  - prefill and decode: the port has no meshed serving step; slot 0 holds
-    its blocks of the bf16 parameters, caches and inputs, gathers the
-    whole parameters and its shard's caches and inputs, and runs the
-    step on them.
+    arguments, the other shards' rows bytes beyond them) and runs
+    ``loss_and_grads`` on its shard's rows.  Where the step splits over
+    the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b and
+    internvl2-76b on a model axis wider than one), slot (0, 0) runs its
+    own blocks' share of each split layer and, as its row's first slot,
+    the norms, residuals and replicated projections, and receives the
+    other model slots' partials, each a stand-in made under
+    ``trace.paused()`` that takes bytes on slot 0 only when sent there
+    (:class:`_Elsewhere`); the gradient sum, the norm and the layouts
+    count only slot 0's blocks.  Otherwise it gathers the whole
+    parameters (``sharded.gather_tree``) and runs the shard on them.  It
+    then takes the other dp - 1 shards' gradients (whole, or its blocks')
+    as they arrive, one leaf at a time, and sums them in slot order; then
+    the global norm, its block of the gradient's and parameters' layouts
+    and its ``update_with_norm``.  The other slots' work is not run:
+    their results are tensors of the same shapes that count only when
+    sent to slot 0 (:class:`SlotStep`).
+  - prefill and decode: the port has no meshed serving step, and serving
+    on the model axis is not ported; slot 0 holds its blocks of the bf16
+    parameters, caches and inputs, gathers the whole parameters and its
+    shard's caches and inputs, and runs the step on them.
 
   The outputs are held to the inputs: train returns parameters and
   optimizer state of the same shapes and dtypes, decode and prefill the
@@ -82,13 +91,20 @@ touches a device but ``meta``.
   an eager step's HBM traffic.  ``kernel_calls`` counts the LM kernels'.
 * **Transfers between slots** (``collectives``, train): every byte the
   meshed step sends from one slot to another, counted from the layouts
-  (:func:`transfers`), by kind: the batch's rows to each data shard's
-  first slot, the parameters gathered there, the loss and whole
-  gradients sent to slot 0, the norm sent back, the gradient laid out
-  onto the moments' blocks, and the parameters relaid where the moments'
-  spec differs; ``bytes_by_kind`` and ``total_bytes`` are what the
-  busiest slot sends and receives.  Serving cells record ``None``: the
-  port runs no meshed serving step, so nothing moves between slots.
+  and shapes in closed form (:func:`transfers`), by kind: the batch's
+  rows to each data shard's first slot, the loss and gradients sent on
+  to be summed, the norm, the gradient laid out onto the moments'
+  blocks, and the parameters relaid where the moments' spec differs;
+  a gathered step also gathers the parameters onto each data shard's
+  first slot, a split one sends each split layer's activations and
+  partials within each data row, forward, backward and again in remat's
+  recompute, and the embedding's and loss's combines.
+  ``bytes_by_kind`` and ``total_bytes`` are what the busiest slot sends
+  and receives.  Serving cells record ``None``: the port runs no meshed
+  serving step, so nothing moves between slots.
+* **Split** (``model_split``): whether the cell's step splits its
+  compute over the model axis (:func:`model_split`); serving steps and
+  the families ``ModelAPI.model_split`` leaves out run gathered.
 
 What has no counterpart, since there is no compiler: ``lower`` and
 ``compile`` (their times are replaced by ``trace_s``),
@@ -100,6 +116,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -114,7 +131,8 @@ from ..configs.base import ShapeConfig
 from ..models import build, layers as L
 from ..train import optimizer as O
 from ..train import sharded as S
-from ..train.trainer import MeshStep, _data_slots, make_train_step
+from ..train.trainer import (MeshStep, _model_dim, loss_and_grads,
+                             make_train_step)
 from .memtrace import StepTrace
 from .mesh import Mesh, dp_axes_of
 
@@ -291,20 +309,79 @@ def _like(tree):
                       if isinstance(t, torch.Tensor) else t, tree)
 
 
+class _Elsewhere(torch.autograd.Function):
+    """Another slot's part of a split layer, as slot 0's trace sees it:
+    ``fn`` runs under ``trace.paused()`` for its outputs' shapes, and
+    backward gives each activation that asks for one a stand-in gradient
+    made under ``trace.paused()`` too, so nothing of that slot's work
+    counts on slot 0 until it is sent there.  Its parameter blocks
+    (leaves) get none: their gradients, summed over the layers on that
+    slot, are stand-ins too (:meth:`SlotStep.loss_and_grads`)."""
+
+    @staticmethod
+    def forward(ctx, trace, fn, *args):
+        ctx.trace = trace
+        ctx.like = [(a.shape, a.dtype, a.device)
+                    if isinstance(a, torch.Tensor) and a.grad_fn is not None
+                    else None for a in args]
+        with trace.paused():
+            return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with ctx.trace.paused():
+            return (None, None) + tuple(
+                torch.empty(like[0], dtype=like[1], device=like[2])
+                if like is not None and need else None
+                for like, need in zip(ctx.like, ctx.needs_input_grad[2:]))
+
+
 class SlotStep(MeshStep):
     """Slot 0's share of :class:`MeshStep` under ``trace``: the other data
     shards' gradients and the other slots' updates are not run; each is
     a tensor of the shape of slot 0's own, made under ``trace.paused()``
     (on another slot), that takes bytes of its own on slot 0 when it is
-    sent there (the arrival buffer of ``Tensor.to`` between cards)."""
+    sent there (the arrival buffer of ``Tensor.to`` between cards).  In a
+    split step the other model slots of slot 0's row run under
+    :class:`_Elsewhere`, and every other slot's part of the gradient sum,
+    norm and layouts (:meth:`at`) under ``trace.paused()``."""
 
     def __init__(self, trace: StepTrace, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.trace = trace
         self._like = {}
 
-    def send(self, t, src: int, dst: int):
-        return t if src == dst else torch.empty_like(t)
+    def send(self, t, src: int, dst: int, out=None):
+        if src == dst:
+            return t if out is None else out.copy_(t)
+        if dst != 0:
+            with self.trace.paused():
+                return torch.empty_like(t) if out is None else out
+        return torch.empty_like(t) if out is None else out.copy_(t)
+
+    def at(self, slot: int, fn, *args):
+        if slot == 0:
+            return fn(*args)
+        with self.trace.paused():
+            return fn(*args)
+
+    def loss_and_grads(self, given, rows, objective):
+        """The other model slots' parameter blocks, which no gradient
+        reaches in the trace, get stand-ins made under ``trace.paused()``."""
+        def absent(t):
+            with self.trace.paused():
+                return torch.empty_like(t)
+        return loss_and_grads(self.api, given, rows, objective,
+                              absent=absent if self.split else None)
+
+    def model_row(self, i: int) -> S.ModelRow:
+        def run(slot, fn, *args, **kwargs):
+            if slot == 0:
+                return fn(*args, **kwargs)
+            return _Elsewhere.apply(self.trace, functools.partial(
+                fn, **kwargs), *args)
+
+        return S.ModelRow(self.rows[i], self.send, run)
 
     def _elsewhere(self, what: str, i: int, run):
         """Slot 0's result of ``run``, with a stand-in kept (not held:
@@ -437,27 +514,117 @@ def _numel(sl) -> int:
     return int(np.prod([s.stop - s.start for s in sl], dtype=np.int64))
 
 
+def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
+    """A split step's layers, in order, each (under remat, bytes its
+    forward sends from the row's first slot to model slot m, and from
+    slot m back, for m in 1 .. tp-1): its backward sends the same bytes
+    the other way, and a recompute its forward's again."""
+    cfg = cell.api.cfg
+    params, specs = cell.trees["params"]
+    t, d = cell.shape.seq_len, cfg.d_model
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    x = b * t * d * e
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def layer(blk, blk_specs):
+        hm = blk["mixer"]["wq"].shape[-2] // tp
+        gp = hm * tp // kvh
+        to, back = [0] * tp, [0] * tp
+        for m in range(1, tp):
+            to[m] += x
+            back[m] += x
+            if _model_dim(blk_specs["mixer"]["wk"]) is None:
+                lo, hi = L._slot_kv_heads(m, hm, gp)
+                to[m] += 2 * b * t * (hi - lo) * hd * e
+            if _model_dim(blk_specs["ffn"]["w_in"]) is not None:
+                to[m] += x
+                back[m] += x
+        return to, back
+
+    out = []
+    remat = cfg.remat == "full"
+    for per in range(cfg.n_periods):
+        for blk, blk_specs in zip(params["stack"], specs["stack"]):
+            out.append((remat, *layer(blk, blk_specs)))
+    for blk, blk_specs in zip(params["rem"], specs["rem"]):
+        out.append((False, *layer(blk, blk_specs)))
+    return out
+
+
+def _split_moves(cell: Cell, parts: MeshStep, out) -> None:
+    """The moves within each data row of a split step (see
+    :func:`transfers`), added to ``out``."""
+    cfg = cell.api.cfg
+    batch = cell.api.input_specs(cell.shape)
+    b = shard_batch(cell)
+    tt = batch["tokens"].shape[1]
+    ck = min(cfg.loss_chunk, tt)
+    while tt % ck:
+        ck -= 1
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    xt = b * tt * cfg.d_model * e
+    f32 = 4
+    for i in parts.slots:
+        row = parts.rows[i]
+        tp = len(row)
+        layers = _layer_moves(cell, tp, b)
+        for m in range(1, tp):
+            h, s = row[0], row[m]
+            out["embed"][h, s] += b * tt * batch["tokens"].element_size() \
+                + xt
+            out["embed"][s, h] += xt
+            out["loss"][h, s] += xt + b * tt * (
+                3 * f32 + batch["labels"].element_size())
+            out["loss"][s, h] += xt + b * tt * 3 * f32
+            for remat, to, back in layers:
+                out["forward"][h, s] += to[m]
+                out["forward"][s, h] += back[m]
+                out["backward"][s, h] += to[m]
+                out["backward"][h, s] += back[m]
+                if remat:
+                    out["recompute"][h, s] += to[m]
+                    out["recompute"][s, h] += back[m]
+
+
 def transfers(cell: Cell) -> dict:
     """{kind: {(from slot, to slot): bytes}}: what one step of the
     meshed train step (``MeshStep``, one micro-batch) sends between
     slots, from the layouts alone, in ``mesh.devices.flat`` indices: the
     batch's rows and the count of its labels from slot 0 to each other
-    data shard's first slot ("batch"); each block
-    ``sharded.sources`` reads into the parameters gathered on each of
-    those slots ("gather"); the loss, cross-entropy, aux (all but an
-    encoder-decoder) and whole gradients of each to slot 0 ("grads");
-    the norm from slot 0 to every slot ("norm"); the gradient laid out
-    from slot 0 onto the moments' blocks ("scatter"); and, where the
-    moments' spec differs from the parameters', the parameters gathered
-    onto slot 0 and laid out by it ("relayout") and back ("layback")."""
+    data shard's first slot ("batch"); the loss, cross-entropy and aux
+    (all but an encoder-decoder) of each to slot 0, and its gradients
+    ("grads"); the norm from slot 0 to every slot ("norm"); the gradient
+    laid out onto the moments' blocks ("scatter"); and, where the
+    moments' spec differs from the parameters', the parameters laid out
+    by the moments' spec ("relayout") and back ("layback").
+
+    A gathered step (``MeshStep.split`` false) also gathers each block
+    ``sharded.sources`` reads into the parameters on each data shard's
+    first slot ("gather"), sends each shard's whole gradient to slot 0,
+    lays the gradient out from slot 0, and relays the parameters through
+    slot 0.  A split step gathers nothing: within each data row, the
+    split layers' forward sends (the normed activation to each model
+    slot, the KV heads each slot reads where ``wk``/``wv`` are
+    replicated, the partials back to the first slot: "forward"), their
+    backward's ("backward"), the forward's again where remat recomputes a
+    period ("recompute"), the embedding's tokens, partials and their
+    gradient ("embed"), and the loss's normed chunks, maxima, labels and
+    sums ("loss"); each split leaf's gradient is sent block by block to
+    the first row's slot of that block, the replicated leaves' whole to
+    slot 0, each of the first row's other slots sends slot 0 its part of
+    the norm, and every layout reads each slot's block from the slots
+    that hold it (``sharded.plan``)."""
     mesh, api = cell.mesh, cell.api
     coords = list(np.ndindex(*mesh.devices.shape))
-    slots = _data_slots(mesh, cell.dp_axes)
+    with L.use_mesh(mesh, dp_axes=cell.dp_axes):
+        b_specs = api.input_pspecs(cell.shape)
+    parts = MeshStep(api, O.AdamWConfig(), mesh, dp_axes=cell.dp_axes,
+                     param_specs=cell.trees["params"][1],
+                     opt_specs=cell.trees["opt"][1], batch_specs=b_specs)
+    slots = parts.slots
     out = collections.defaultdict(collections.Counter)
     f32 = 4
     batch = api.input_specs(cell.shape)
-    with L.use_mesh(mesh, dp_axes=cell.dp_axes):
-        b_specs = api.input_pspecs(cell.shape)
     scalars = 2 if api.cfg.family == "encdec" else 3
     for i in slots[1:]:
         for k, v in batch.items():
@@ -479,22 +646,58 @@ def transfers(cell: Cell) -> dict:
                 out[kind][src, i] += _numel(lay.block_slices(
                     leaf.shape, c)) * leaf.element_size()
 
+    def read(kind, leaf, held, lay):
+        for j, pieces in enumerate(S.plan(held, leaf.shape, lay)):
+            for i, piece in pieces:
+                if i != j:
+                    out[kind][i, j] += _numel(piece) * leaf.element_size()
+
     params, p_specs = cell.trees["params"]
     m_specs = cell.trees["opt"][1]["m"]
+    if parts.split:
+        _split_moves(cell, parts, out)
+        first = parts.rows[slots[0]]
     for leaf, ps, ms in zip(L.tree_leaves(params), L.tree_leaves(p_specs),
                             L.tree_leaves(m_specs)):
         p_lay, m_lay = S.Layout(mesh, ps), S.Layout(mesh, ms)
-        for d in slots:
-            gather_onto("gather", leaf, p_lay, d)
+        if not parts.split:
+            for d in slots:
+                gather_onto("gather", leaf, p_lay, d)
+            for i in slots[1:]:
+                out["grads"][i, 0] += leaf.numel() * leaf.element_size()
+            lay_out_from("scatter", leaf, m_lay, 0)
+            if tuple(ps) != tuple(ms):
+                gather_onto("relayout", leaf, p_lay, 0)
+                lay_out_from("relayout", leaf, m_lay, 0)
+                gather_onto("layback", leaf, m_lay, 0)
+                lay_out_from("layback", leaf, p_lay, 0)
+            continue
+        held = first if _model_dim(ps) is not None else first[:1]
         for i in slots[1:]:
-            out["grads"][i, 0] += leaf.numel() * leaf.element_size()
-        lay_out_from("scatter", leaf, m_lay, 0)
+            for m, dst in enumerate(held):
+                src = parts.rows[i][m]
+                out["grads"][src, dst] += _numel(p_lay.block_slices(
+                    leaf.shape, coords[dst])) * leaf.element_size()
+        read("scatter", leaf, [(j, p_lay.block_slices(leaf.shape, coords[j]))
+                               for j in held], m_lay)
         if tuple(ps) != tuple(ms):
-            gather_onto("relayout", leaf, p_lay, 0)
-            lay_out_from("relayout", leaf, m_lay, 0)
-            gather_onto("layback", leaf, m_lay, 0)
-            lay_out_from("layback", leaf, p_lay, 0)
+            every = range(len(coords))
+            read("relayout", leaf, [(j, p_lay.block_slices(
+                leaf.shape, coords[j])) for j in every], m_lay)
+            read("layback", leaf, [(j, m_lay.block_slices(
+                leaf.shape, coords[j])) for j in every], p_lay)
+    if parts.split:
+        for j in first[1:]:
+            out["norm"][j, 0] += f32
     return {k: dict(v) for k, v in out.items()}
+
+
+def model_split(cell: Cell) -> bool:
+    """Whether the cell's step splits its compute over the model axis:
+    a train cell of an architecture that ``ModelAPI.model_split`` names,
+    on a model axis wider than one.  Serving steps run gathered."""
+    return cell.shape.kind == "train" and cell.mesh.shape["model"] > 1 \
+        and cell.api.model_split()
 
 
 def collectives(cell: Cell) -> dict | None:
@@ -535,6 +738,7 @@ def analyze(cell: Cell, *, chips: int, aux) -> dict:
     else:
         out["model_flops"] = 2.0 * n_act * shape.global_batch
     out["collectives"] = collectives(cell)
+    out["model_split"] = model_split(cell)
     out["chips"] = chips
     return out
 

@@ -79,6 +79,19 @@ class ModelAPI:
     def param_pspecs(self):
         return L.pspec_tree(self.param_defs())
 
+    def model_split(self) -> bool:
+        """Whether a meshed train step splits this architecture's compute
+        over the model axis (``train/trainer.py::MeshStep``): where every
+        layer is GQA attention (global, local or NoPE) and the gated MLP,
+        with an embedding and logits, as in llama3.2-3b, gemma3-12b/27b
+        and internvl2-76b.  MLA, MoE, the recurrent mixers and the
+        encoder-decoder keep the gathered step."""
+        cfg = self.cfg
+        return (cfg.family in ("dense", "vlm") and cfg.mla is None
+                and cfg.moe is None
+                and all(k in ("attn", "local", "nope")
+                        for k in cfg.period_pattern))
+
     # ---------------------------------------------------------------- cache
     def cache_defs(self, batch: int, seq: int, *, long_mode: bool = False):
         """ParamDefs of the dense caches (zeros, ``cfg.dtype``); a VLM's

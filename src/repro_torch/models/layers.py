@@ -15,14 +15,28 @@ head padding and which dims shard over ``"model"``.
 
 The specs lay out *state*: ``train/sharded.py`` splits the parameters
 and optimizer moments into one block per slot of a ``launch/mesh.py``
-mesh as the reference's ``NamedSharding`` does.  The compute does not
-follow them: the reference's activation constraints (``shard()``) are
-left out, an identity on a mesh too, and a meshed training step runs
-each data shard's rows on whole gathered parameters
-(``train/trainer.py``).  So
-``moe_apply`` is the reference's no-mesh branch over the tokens it is
-given: run on one data shard's rows, that is the reference's per-shard
-capacity under ``shard_map``.
+mesh as the reference's ``NamedSharding`` does.  The compute follows
+them where the reference's GSPMD step splits it, in a meshed train step
+of an architecture whose every layer is GQA attention and the gated MLP
+(``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b, internvl2-76b)
+on a mesh whose model axis is wider than one.  There each parameter is
+a :class:`Blocks` leaf, the data row's blocks on its model slots, and
+the split forms run what the reference's constraints (``shard()``)
+split on each slot's own blocks: its query heads and ``wo``'s matching
+rows (``attn_apply``), its MLP columns and ``w_out``'s rows
+(``mlp_apply``), its vocabulary rows (``embed_apply``) and its block of
+the logits (:func:`xent_terms`); the partials meet on the row's first
+slot, summed in slot order, at the reference's constraint points
+(``train/sharded.py``'s ``to_model_slots`` and ``sum_model_slots``).
+What the reference does not split runs once, on the row's first slot:
+the norms, residual adds, and the k/v projections and their rope where
+the model degree does not divide the KV heads.  Every other meshed step
+(the other families, serving, a model axis of one) runs on whole
+tensors, the compute left unsplit: a data shard's rows on whole
+gathered parameters (``train/trainer.py``).  So ``moe_apply`` is the
+reference's no-mesh branch over the tokens it is given: run on one data
+shard's rows, that is the reference's per-shard capacity under
+``shard_map``.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``
@@ -239,6 +253,46 @@ def take_layer(tree, i: int):
     """Layer ``i`` of a stacked tree: a view of each leaf, so a cache
     written through it is written in the stack."""
     return tree_map(lambda a: a[i], tree)
+
+
+@dataclass(frozen=True, eq=False)
+class Blocks:
+    """A parameter of a meshed train step's data row on the model axis:
+    ``blocks[m]`` is the row's model slot m's block, split along ``dim``
+    as the spec splits it over ``"model"``, or, where the spec does not
+    split it (``dim`` None), one block, the whole tensor, on the row's
+    first slot.  ``row`` (``train/sharded.py::ModelRow``) runs each
+    slot's work and moves activations between the row's slots.  A leaf
+    of the port's trees.  Indexing (``take_layer``) is recorded in
+    ``index`` and done by the slot that uses the block, inside its own
+    work (:meth:`part`), so its gradient's scatter into the stacked
+    block is that slot's work too."""
+    blocks: tuple
+    row: object
+    dim: int | None = None
+    index: tuple = ()
+
+    def __getitem__(self, i) -> "Blocks":
+        return Blocks(self.blocks, self.row,
+                      None if self.dim is None else self.dim - 1,
+                      self.index + (i,))
+
+    def part(self, block: torch.Tensor) -> torch.Tensor:
+        """``block`` (one of ``blocks``) at ``index``."""
+        return block[self.index] if self.index else block
+
+    @property
+    def whole(self) -> torch.Tensor:
+        """The tensor, where the spec does not split it."""
+        if self.dim is not None:
+            raise ValueError("a parameter split over the model axis has no "
+                             "whole tensor on one slot")
+        return self.part(self.blocks[0])
+
+
+def is_split(tree) -> bool:
+    """Whether ``tree``'s leaves are :class:`Blocks` (a split step)."""
+    return any(isinstance(a, Blocks) for a in tree_leaves(tree))
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -546,6 +600,14 @@ def attn_apply(p, x, cfg, *, kind="attn", causal=True, positions=None,
     kv_override: precomputed (k, v) for cross-attention (with ``kv_len``).
     The cache's tensors are written in place and returned.
     """
+    if isinstance(p["wq"], Blocks):
+        if cache is not None or kv_override is not None or \
+                positions is not None:
+            raise NotImplementedError(
+                "attention split over the model axis with a cache, "
+                "cross-attention or positions: see ROADMAP's **Serving on "
+                "the model axis**")
+        return _attn_split(p, x, cfg, kind=kind, causal=causal), cache
     b, t, d = x.shape
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     h = p["wq"].shape[1]                  # padded head count (>= cfg heads)
@@ -703,6 +765,8 @@ def mlp_defs(cfg, tp: int, d_ff: int = 0) -> dict:
 
 
 def mlp_apply(p, x, cfg):
+    if isinstance(p["w_in"], Blocks):
+        return _mlp_split(p, x, cfg)
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     a = _act(cfg.act)(torch.einsum("btd,df->btf", xn,
                                    p["w_gate"].to(xn.dtype)))
@@ -820,14 +884,204 @@ def embed_defs(cfg, tp: int) -> dict:
 def embed_apply(p, tokens, cfg):
     """Rows of the table in ``cfg.dtype``: gathered first, then rounded
     (round to nearest even, as JAX's cast of the whole table)."""
-    x = p["tokens"][tokens.long()].to(getattr(torch, cfg.dtype))
+    if isinstance(p["tokens"], Blocks):
+        x = _embed_split(p["tokens"], tokens, cfg)
+    else:
+        x = p["tokens"][tokens.long()].to(getattr(torch, cfg.dtype))
     if cfg.name.startswith("gemma3"):
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def logits_apply(p, x, cfg):
+    if isinstance(p["final_ln"], Blocks):
+        raise NotImplementedError(
+            "whole logits of a step split over the model axis: the loss "
+            "takes each slot's block (xent_terms); see ROADMAP's **Serving "
+            "on the model axis**")
     xn = rms_norm(x, p["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return torch.einsum("btd,vd->btv", xn, p["tokens"].to(xn.dtype))
     return torch.einsum("btd,dv->btv", xn, p["head"].to(xn.dtype))
+
+
+# ========================================================= the model axis
+# The split forms of a meshed train step (see the module docstring):
+# each takes Blocks leaves, whose row runs slot m's work with
+# ``row.run(m, fn, *args)`` and moves activations with ``row.send``,
+# ``row.scatter`` (sharded.to_model_slots) and ``row.reduce``
+# (sharded.sum_model_slots).
+def _vocab_block(w: Blocks, dim: int, what: str) -> None:
+    if w.dim != dim:
+        raise NotImplementedError(
+            f"the {what} split over the model axis along dim {w.dim}: the "
+            "vocabulary does not divide the model degree, and the "
+            "row-parallel fallback is not ported; see ROADMAP's "
+            "**Row-parallel logits on the model axis**")
+
+
+def _slot_kv_heads(m: int, hm: int, gp: int) -> tuple[int, int]:
+    """The KV heads [lo, hi) that slot m's query heads [m hm, (m+1) hm)
+    read, where KV head j serves padded heads [j gp, (j+1) gp)."""
+    if gp % hm and hm % gp:
+        raise NotImplementedError(
+            f"{hm} query heads a slot in groups of {gp}: a slot's heads "
+            "would read its KV heads unevenly")
+    lo = m * hm // gp
+    return lo, lo + max(hm // gp, 1)
+
+
+def _attn_slot(m, xn, wq, wo, k, v, wk, wv, *, cfg, kind, causal, gp, at):
+    """Slot m's part of split attention: its query heads against its KV
+    heads (``k``/``v`` sent to it, or projected here from its ``wk``/
+    ``wv`` blocks), the padded heads zeroed by their global index, and
+    ``wo``'s matching rows: a partial output (B,T,D).  ``at`` takes a
+    stacked block to the layer's (``Blocks.part``)."""
+    wq, wo = at(wq), at(wo)
+    b, t, _ = xn.shape
+    hm, hd = wq.shape[1], wq.shape[2]
+    q = torch.einsum("btd,dhk->bthk", xn, wq.to(xn.dtype))
+    cos, sin = rope_tables(torch.arange(t, device=xn.device), hd,
+                           cfg.rope_theta)
+    if k is None:
+        k = torch.einsum("btd,dhk->bthk", xn, at(wk).to(xn.dtype))
+        v = torch.einsum("btd,dhk->bthk", xn, at(wv).to(xn.dtype))
+        if kind != "nope":
+            k = apply_rope(k, cos, sin)
+    if kind != "nope":
+        q = apply_rope(q, cos, sin)
+    kvh = k.shape[2]
+    window = cfg.window_size if kind == "local" else 0
+    out = _sdpa(q.reshape(b, t, kvh, hm // kvh, hd), k, v, causal=causal,
+                window=window).reshape(b, t, hm, hd)
+    g = cfg.num_heads // cfg.num_kv_heads
+    if gp != g:                               # padded heads, by global index
+        j = m * hm + torch.arange(hm, device=out.device)
+        out = out * ((j % gp) < g).to(out.dtype)[:, None]
+    return torch.einsum("bthk,hkd->btd", out, wo.to(out.dtype))
+
+
+def _attn_split(p, x, cfg, *, kind, causal):
+    """``attn_apply`` without a cache on a row's model slots: the norm
+    once on the first slot; where ``wk``/``wv`` are split each slot
+    projects its own KV heads, else k and v are projected and roped once
+    and each slot is sent only the KV heads its query heads read."""
+    row = p["wq"].row
+    tp = len(p["wq"].blocks)
+    hm = p["wq"].blocks[0].shape[-2]
+    gp = hm * tp // cfg.num_kv_heads
+    xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    ks = vs = wks = wvs = (None,) * tp
+    if p["wk"].dim is None:
+        wk, wv = p["wk"].whole, p["wv"].whole
+        k = torch.einsum("btd,dhk->bthk", xn, wk.to(xn.dtype))
+        v = torch.einsum("btd,dhk->bthk", xn, wv.to(xn.dtype))
+        if kind != "nope":
+            cos, sin = rope_tables(torch.arange(x.shape[1], device=x.device),
+                                   k.shape[-1], cfg.rope_theta)
+            k = apply_rope(k, cos, sin)
+        ranges = [_slot_kv_heads(m, hm, gp) for m in range(tp)]
+        ks = row.scatter(k, dim=2, ranges=ranges)
+        vs = row.scatter(v, dim=2, ranges=ranges)
+    else:
+        wks, wvs = p["wk"].blocks, p["wv"].blocks
+    parts = [row.run(m, _attn_slot, m, xs[m], p["wq"].blocks[m],
+                     p["wo"].blocks[m], ks[m], vs[m], wks[m], wvs[m],
+                     cfg=cfg, kind=kind, causal=causal, gp=gp,
+                     at=p["wq"].part)
+             for m in range(tp)]
+    return x + row.reduce(parts)
+
+
+def _mlp_slot(xn, wg, wi, wo, *, act, at):
+    wg, wi, wo = at(wg), at(wi), at(wo)
+    a = _act(act)(torch.einsum("btd,df->btf", xn, wg.to(xn.dtype)))
+    u = torch.einsum("btd,df->btf", xn, wi.to(xn.dtype))
+    h = a * u
+    return torch.einsum("btf,fd->btd", h, wo.to(h.dtype))
+
+
+def _mlp_split(p, x, cfg):
+    """``mlp_apply`` on a row's model slots: each slot's columns of
+    ``w_gate``/``w_in`` and rows of ``w_out``, the partials summed; on
+    the first slot whole where the spec does not split ``d_ff``."""
+    if p["w_in"].dim is None:
+        return mlp_apply({k: v.whole for k, v in p.items()}, x, cfg)
+    row = p["w_in"].row
+    xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    parts = [row.run(m, _mlp_slot, xs[m], p["w_gate"].blocks[m],
+                     p["w_in"].blocks[m], p["w_out"].blocks[m], act=cfg.act,
+                     at=p["w_in"].part)
+             for m in range(len(xs))]
+    return x + row.reduce(parts)
+
+
+def _embed_slot(tokens, table, lo: int, *, dtype, at):
+    """Slot's rows of the embedding: the rows of its vocabulary block
+    [lo, lo + V/tp) in ``dtype``, zeros for tokens outside it."""
+    table = at(table)
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < table.shape[0])
+    x = table[local.clamp(0, table.shape[0] - 1)].to(dtype)
+    return x * inside[..., None].to(dtype)
+
+
+def _embed_split(tab: Blocks, tokens, cfg):
+    """The lookup on a row's model slots, each in its vocabulary rows,
+    summed: one slot's row is non-zero for each token, so the sum is the
+    row itself, exactly."""
+    _vocab_block(tab, 0, "embedding")
+    row = tab.row
+    vb = tab.blocks[0].shape[len(tab.index)]
+    dt = getattr(torch, cfg.dtype)
+    parts = [row.run(m, _embed_slot, row.send_to(tokens, m), blk, m * vb,
+                     dtype=dt, at=tab.part)
+             for m, blk in enumerate(tab.blocks)]
+    return row.reduce(parts)
+
+
+def _logits_slot(xn, w, *, tied: bool, at):
+    """Slot's block of the logits (B,T,V/tp) in fp32 and its maximum
+    (B,T), which takes no gradient."""
+    w = at(w)
+    lg = (torch.einsum("btd,vd->btv", xn, w.to(xn.dtype)) if tied
+          else torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))).float()
+    return lg, lg.detach().amax(dim=-1)
+
+
+def _xent_slot(lg, top, labels, lo: int):
+    """Slot's sum of exp(logit - top) over its vocabulary block and the
+    gold logit where the label falls in it (else 0), stacked (2,B,T)."""
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < lg.shape[-1])
+    gold = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+    return torch.stack([torch.exp(lg - top[..., None]).sum(dim=-1),
+                        gold[..., 0] * inside])
+
+
+def xent_terms(p, x, labels, cfg):
+    """(lse, gold), each (B,T) fp32 on the row's first slot: the
+    log-sum-exp of the logits of ``x`` (B,T,D) and the logit of each
+    label, from each model slot's block of the vocabulary, where no slot
+    holds the whole (B,T,V).  The maximum is each slot's, taken over the
+    slots; the sums of exp and the gold logits (one slot's is non-zero)
+    are summed in slot order."""
+    w = p["tokens"] if cfg.tie_embeddings else p["head"]
+    _vocab_block(w, 0 if cfg.tie_embeddings else 1, "logits' weight")
+    row = w.row
+    tp = len(w.blocks)
+    xn = rms_norm(x, p["final_ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    out = [row.run(m, _logits_slot, xs[m], w.blocks[m],
+                   tied=cfg.tie_embeddings, at=w.part) for m in range(tp)]
+    top = out[0][1]
+    for m in range(1, tp):
+        top = torch.maximum(top, row.send_from(out[m][1], m))
+    vb = out[0][0].shape[-1]
+    terms = row.reduce([row.run(m, _xent_slot, out[m][0],
+                                row.send_to(top, m),
+                                row.send_to(labels, m), m * vb)
+                        for m in range(tp)])
+    return top + torch.log(terms[0]), terms[1]

@@ -14,11 +14,21 @@ each period's body runs under ``torch.utils.checkpoint`` (non-reentrant),
 as the reference's ``jax.checkpoint``: its activations are recomputed in
 the backward pass instead of kept.  The loss is the reference's chunked
 cross-entropy, a Python loop over sequence chunks.
+
+A meshed train step that splits over the model axis (parameters as
+``layers.Blocks``) runs the same code: the layers take their split
+forms, each chunk's logits stay in each model slot's vocabulary block
+(``layers.xent_terms``), and a period's recompute runs its whole body
+again, so the split layers' sends are re-issued in the backward pass
+(checkpoint's early stop, which would end the recompute at the last
+saved tensor, before the period's last sum, is off there).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from . import layers as L
 from . import mamba as M
@@ -175,9 +185,13 @@ def decoder_forward(params, cfg, x, *, caches=None, cache_len=None,
             aux_sum = aux_sum + aux
         return x, aux_sum
 
+    split = L.is_split(params)
     for per in range(cfg.n_periods):
         if remat:
-            x, aux_sum = checkpoint(period_body, x, per, use_reentrant=False)
+            with set_checkpoint_early_stop(False) if split \
+                    else contextlib.nullcontext():
+                x, aux_sum = checkpoint(period_body, x, per,
+                                        use_reentrant=False)
         else:
             x, aux_sum = period_body(x, per)
         aux_total = aux_total + aux_sum
@@ -193,19 +207,25 @@ def decoder_forward(params, cfg, x, *, caches=None, cache_len=None,
 def chunked_xent(params, cfg, hidden, labels, mask):
     """Cross-entropy without materialising (B,T,V): a loop over sequence
     chunks of ``cfg.loss_chunk`` (or T if shorter, lowered until it divides
-    T, as the reference), each chunk's logits (B,chunk,V) in fp32."""
+    T, as the reference), each chunk's logits (B,chunk,V) in fp32, or,
+    split over the model axis, (B,chunk,V/tp) on each model slot."""
     t = hidden.shape[1]
     ck = min(cfg.loss_chunk, t)
     while t % ck:
         ck -= 1
+    split = L.is_split(params["embed"])
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s in range(0, t, ck):
         lab, m = labels[:, s:s + ck], mask[:, s:s + ck]
-        logits = L.logits_apply(params["embed"], hidden[:, s:s + ck],
-                                cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        if split:
+            lse, gold = L.xent_terms(params["embed"], hidden[:, s:s + ck],
+                                     lab, cfg)
+        else:
+            logits = L.logits_apply(params["embed"], hidden[:, s:s + ck],
+                                    cfg).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
         nll = (lse - gold) * m
         tot = tot + nll.sum()
         cnt = cnt + m.sum()

@@ -16,8 +16,15 @@ Every move of a tensor from one slot to another goes through
 :func:`send`, with the two slots' indices: a block laid out from the
 slot that holds the whole tensor, a slice read into a gathering slot's
 tensor, and the meshed train step's own moves
-(``train/trainer.py::MeshStep``).  The dry run counts the same moves
-from the layouts (``launch/dryrun.py::collectives``).
+(``train/trainer.py::MeshStep``), the split layers' among them: a
+:class:`ModelRow` is a data row's slots on the model axis, and its two
+collectives, :func:`to_model_slots` (Megatron's *f*) and
+:func:`sum_model_slots` (*g*), are autograd Functions whose forward and
+backward move through the row's ``send``.  :func:`redistribute` lays
+out a tensor held in blocks by some slots under another spec, each slot
+reading its slice from the slots that hold it (:func:`plan`).  The dry
+run counts the same moves from the layouts
+(``launch/dryrun.py::collectives``).
 
 A spec entry names the mesh axes a dim is split over, major first, as
 JAX reads ``P(("pod", "data"))``; dims past the spec's end are
@@ -191,3 +198,173 @@ def gather_tree(tree, slot: int = 0):
 def block_tree(tree, slot: int):
     """Slot ``slot``'s block of every leaf of a tree of :class:`Laid`."""
     return L.tree_map(lambda a: a.blocks[slot], tree)
+
+
+# ------------------------------------------------------- the model axis
+class ModelRow:
+    """A data row's slots on the model axis (flat indices, model
+    coordinate order; ``slots[0]``, the row's first slot, holds its
+    replicated activations), with the two things a split layer asks of
+    it: ``send(t, src, dst)`` moves a tensor between slots (flat
+    indices), and ``run(slot, fn, *args, **kwargs)`` runs a slot's work,
+    ``fn(*args, **kwargs)``, by default where it is called (the dry run
+    runs only its own slot's)."""
+
+    def __init__(self, slots, send, run=None):
+        self.slots = tuple(slots)
+        self._send = send
+        self._run = run
+
+    def send(self, t, src: int, dst: int):
+        return self._send(t, src, dst)
+
+    def send_to(self, t, m: int):
+        """``t``, on the row's first slot, sent to model slot ``m``."""
+        return self.send(t, self.slots[0], self.slots[m])
+
+    def send_from(self, t, m: int):
+        """``t``, on model slot ``m``, sent to the row's first slot."""
+        return self.send(t, self.slots[m], self.slots[0])
+
+    def run(self, m: int, fn, *args, **kwargs):
+        if self._run is None:
+            return fn(*args, **kwargs)
+        return self._run(self.slots[m], fn, *args, **kwargs)
+
+    def scatter(self, x, dim: int | None = None, ranges=None) -> tuple:
+        return to_model_slots(self, x, dim, ranges)
+
+    def reduce(self, parts):
+        return sum_model_slots(self, parts)
+
+
+class _ToModelSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, dim, ranges, x):
+        ctx.row, ctx.dim, ctx.ranges = row, dim, ranges
+        ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
+        return tuple(row.send_to(x if ranges is None else
+                                 x.narrow(dim, lo, hi - lo), m)
+                     for m, (lo, hi) in enumerate(
+                         ranges or [(None, None)] * len(row.slots)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        row = ctx.row
+        if ctx.ranges is None:
+            out = row.send_from(grads[0], 0)
+            for m in range(1, len(grads)):
+                out = out + row.send_from(grads[m], m)
+            return None, None, None, out
+        out = torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        for m, ((lo, hi), g) in enumerate(zip(ctx.ranges, grads)):
+            out.narrow(ctx.dim, lo, hi - lo).add_(row.send_from(g, m))
+        return None, None, None, out
+
+
+class _SumModelSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, *parts):
+        ctx.row = row
+        out = row.send_from(parts[0], 0)
+        for m in range(1, len(parts)):
+            out = out + row.send_from(parts[m], m)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(ctx.row.send_to(g, m)
+                               for m in range(len(ctx.row.slots)))
+
+
+def to_model_slots(row: ModelRow, x, dim: int | None = None, ranges=None):
+    """``x``, on the row's first slot, on each of its model slots: whole,
+    or where ``ranges`` gives each slot m an interval [lo, hi) of dim
+    ``dim``, that slice (slices may overlap).  Backward sums the slots'
+    gradients in slot order onto the first slot, each into its slice."""
+    return _ToModelSlots.apply(row, dim, ranges, x)
+
+
+def sum_model_slots(row: ModelRow, parts):
+    """The sum, in slot order, of ``parts[m]`` on model slot m, on the
+    row's first slot; backward sends the gradient back to each slot."""
+    return _SumModelSlots.apply(row, *parts)
+
+
+def _intersect(a: tuple, b: tuple):
+    out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
+                for x, y in zip(a, b))
+    return out if all(s.start < s.stop for s in out) else None
+
+
+def _within(piece: tuple, block: tuple) -> tuple:
+    return tuple(slice(p.start - b.start, p.stop - b.start)
+                 for p, b in zip(piece, block))
+
+
+def plan(held, shape, layout: Layout) -> list[list[tuple]]:
+    """For each slot of ``layout``'s mesh (flat order), the pieces it
+    reads to hold its block of a tensor of ``shape`` that the slots in
+    ``held`` hold in blocks, ``held`` a list of (slot, slices of the
+    whole): (source slot, the piece's slices of the whole), one for
+    each distinct held block its own block meets, read from the slot
+    itself where it holds that block, else from the first in slot
+    order that does."""
+    coords = layout.coords()
+    out = []
+    for j, c in enumerate(coords):
+        want = layout.block_slices(shape, c)
+        first = {}
+        for i, sl in held:
+            k = _key(sl)
+            if k not in first or i == j:
+                first[k] = (i, sl)
+        pieces = []
+        for i, sl in sorted(first.values(), key=lambda v: v[0]):
+            piece = _intersect(sl, want)
+            if piece is not None:
+                pieces.append((i, piece))
+        out.append(pieces)
+    return out
+
+
+def redistribute(blocks: dict, shape, layout: Layout, send_fn,
+                 at) -> Laid:
+    """A tensor of ``shape`` held in blocks, ``blocks`` {slot: (slices of
+    the whole, tensor)}, laid out by ``layout``: each slot's block read
+    as :func:`plan` says, a view of its own block where that holds it,
+    else one piece sent, else pieces copied into a new tensor, one for
+    the slots of a device that hold the same slice (each still sent its
+    pieces, which are there already), as :func:`lay_out` holds one copy.
+    ``send_fn(t, src, dst, out=None)`` moves (``MeshStep.send``) and
+    ``at(slot, fn)`` runs a slot's part (``MeshStep.at``)."""
+    mesh = layout.mesh
+    held = [(i, sl) for i, (sl, _) in sorted(blocks.items())]
+    coords = layout.coords()
+    built = {}
+
+    def one(j, pieces):
+        want = layout.block_slices(shape, coords[j])
+        if len(pieces) == 1 and _key(pieces[0][1]) == _key(want):
+            i, piece = pieces[0]
+            sl, t = blocks[i]
+            return send_fn(t[_within(piece, sl)], i, j)
+        k = (_key(want), str(mesh.devices.flat[j]))
+        if k in built:
+            for i, piece in pieces:
+                sl, t = blocks[i]
+                send_fn(t[_within(piece, sl)], i, j)
+            return built[k]
+        first = blocks[pieces[0][0]][1]
+        out = torch.empty([s.stop - s.start for s in want], dtype=first.dtype,
+                          device=mesh.devices.flat[j])
+        for i, piece in pieces:
+            sl, t = blocks[i]
+            send_fn(t[_within(piece, sl)], i, j,
+                    out=out[_within(piece, want)])
+        built[k] = out
+        return out
+
+    return Laid(layout, tuple(shape),
+                [at(j, lambda j=j, p=p: one(j, p))
+                 for j, p in enumerate(plan(held, shape, layout))])

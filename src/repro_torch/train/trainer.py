@@ -14,21 +14,35 @@ silently.
 ``Trainer(mesh=..., dp_axes=..., zero1=...)`` lays the parameters out
 over the mesh's slots by ``api.param_pspecs()`` and the optimizer state
 by ``opt_pspecs`` (``train/sharded.py``), each slot holding the block
-the reference's ``NamedSharding`` puts on the matching device.  The
-compute of :func:`make_mesh_train_step` gathers the whole parameters
-onto each data row's first slot and runs that data shard's batch rows
-through the normal kernels; it does not split heads or MLP columns over
-the model axis (a Megatron-style split would rewrite every family's
-forward, and slots on one card share its SMs).  Each shard's loss is
-weighted so that the shards sum to the reference's global loss: the
-cross-entropy by the shard's share of the labels that count, an MoE's
-aux at 1/dp (the reference's ``pmean``); the MoE's capacity is the
-shard's own, as under the reference's ``shard_map``.  The shards'
-gradients are summed in slot order, clipped by the whole gradient's
-norm, and laid out onto the moments' blocks, where each slot runs the
-AdamW arithmetic on its block; under ZeRO-1 the updated parameter
-slices are then gathered over the data axes into the parameters'
-layout.
+the reference's ``NamedSharding`` puts on the matching device.  Each
+data shard's batch rows run on its data row of slots, in one of two
+ways (:class:`MeshStep`):
+
+* split, where ``api.model_split()`` (llama3.2-3b, gemma3-12b/27b,
+  internvl2-76b: GQA attention and the gated MLP in every layer) and
+  the model axis is wider than one: the row's model slots compute as
+  the reference's GSPMD step does, each on its own blocks of the
+  parameters (its query heads, MLP columns and vocabulary block; see
+  ``models/layers.py``), the partials summed in slot order on the row's
+  first slot, which holds the replicated activations and runs the
+  norms.  Nothing is gathered: each split leaf's gradient is summed per
+  block over the data rows onto the first row's slot of that block,
+  each replicated leaf's onto slot 0, and the norm is the slot-order
+  sum of each slot's blocks' squares;
+* gathered, for every other family and a model axis of one: the whole
+  parameters are gathered onto the row's first slot, which runs the
+  shard's rows through the normal kernels, and the shards' whole
+  gradients are summed in slot order on slot 0.
+
+Each shard's loss is weighted so that the shards sum to the reference's
+global loss: the cross-entropy by the shard's share of the labels that
+count, an MoE's aux at 1/dp (the reference's ``pmean``); the MoE's
+capacity is the shard's own, as under the reference's ``shard_map``.
+The gradient, clipped by its global norm, is laid out onto the moments'
+blocks from the slots that hold it, and each slot runs the AdamW
+arithmetic on its block; under ZeRO-1 the updated parameter slices are
+then brought back over the data axes into the parameters' layout (the
+gathered step through slot 0, the split one slot to slot).
 
 A step's three parts run under ``torch.profiler`` ranges named
 ``train_step.forward``, ``train_step.backward`` and
@@ -37,6 +51,7 @@ A step's three parts run under ``torch.profiler`` ranges named
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import time
 from dataclasses import dataclass, field
@@ -53,30 +68,55 @@ from . import sharded as S
 from .checkpoint import Checkpointer
 
 
-def loss_and_grads(api: ModelAPI, params, batch, objective=None):
+def loss_and_grads(api: ModelAPI, params, batch, objective=None, *,
+                   absent=None):
     """(loss, metrics, grads): ``api.train_loss`` and the gradient of the
-    loss with respect to every leaf of ``params``; raises
-    ``RuntimeError`` naming the leaves the loss does not reach.
-    ``objective(loss, metrics)``, where given, is the scalar returned
-    and differentiated in place of the loss."""
+    loss with respect to every leaf of ``params`` (a tuple of one for
+    each block of a ``layers.Blocks`` leaf); raises ``RuntimeError``
+    naming the leaves the loss does not reach, or, where ``absent`` is
+    given, takes ``absent(tensor)`` as their gradient (the dry run's
+    other slots).  ``objective(loss, metrics)``, where given, is the
+    scalar returned and differentiated in place of the loss."""
     items = L.tree_items(params)
-    leaves = [p.detach().requires_grad_(True) for _, p in items]
+    fresh = lambda t: t.detach().requires_grad_(True)  # noqa: E731
+    given = [dataclasses.replace(p, blocks=tuple(map(fresh, p.blocks)))
+             if isinstance(p, L.Blocks) else fresh(p) for _, p in items]
+    leaves = [t for p in given
+              for t in (p.blocks if isinstance(p, L.Blocks) else (p,))]
     with torch.enable_grad():
         with record_function("train_step.forward"):
-            loss, metrics = api.train_loss(L.tree_unflatten(params, leaves),
+            loss, metrics = api.train_loss(L.tree_unflatten(params, given),
                                            batch)
             if objective is not None:
                 loss = objective(loss, metrics)
         with record_function("train_step.backward"):
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    missing = ["/".join(map(str, path))
-               for (path, _), g in zip(items, grads) if g is None]
+            grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    if absent is not None:
+        grads = iter([absent(t) if g is None else g
+                      for t, g in zip(leaves, grads)])
+    grads = [tuple(next(grads) for _ in p.blocks)
+             if isinstance(p, L.Blocks) else next(grads) for p in given]
+    missing = ["/".join(map(str, path)) for (path, _), g in zip(items, grads)
+               if any(x is None for x in (g if isinstance(g, tuple)
+                                          else (g,)))]
     if missing:
         raise RuntimeError(f"no gradient reaches {len(missing)} parameter "
                            f"leaves: {missing}")
     detach = lambda t: t.detach() if isinstance(t, torch.Tensor) else t  # noqa: E731
     return (loss.detach(), {k: detach(v) for k, v in metrics.items()},
-            L.tree_unflatten(params, list(grads)))
+            L.tree_unflatten(params, grads))
+
+
+def _blockwise(fn):
+    """``fn`` on tensors, and on the held blocks of a ``sharded.Laid``,
+    block by block (the split step's gradients)."""
+    def apply(a, *rest):
+        if isinstance(a, S.Laid):
+            return S.Laid(a.layout, a.shape, [
+                None if x is None else fn(x, *(r.blocks[k] for r in rest))
+                for k, x in enumerate(a.blocks)])
+        return fn(a, *rest)
+    return apply
 
 
 def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
@@ -100,13 +140,13 @@ def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
                       for k, v in batch.items()}
                 loss_i, _, g = grads_fn(params, mb)
                 if gsum is None:
-                    gsum = L.tree_map(lambda a: torch.zeros(
-                        a.shape, dtype=torch.float32, device=a.device), g)
+                    gsum = L.tree_map(_blockwise(lambda a: torch.zeros(
+                        a.shape, dtype=torch.float32, device=a.device)), g)
                     lsum = torch.zeros((), dtype=torch.float32,
                                        device=loss_i.device)
-                gsum = L.tree_map(torch.add, gsum, g)
+                gsum = L.tree_map(_blockwise(torch.add), gsum, g)
                 lsum = lsum + loss_i
-            grads = L.tree_map(lambda g: g / grad_accum, gsum)
+            grads = L.tree_map(_blockwise(lambda g: g / grad_accum), gsum)
             loss = lsum / grad_accum
             metrics = {}
         with record_function("train_step.optimizer"):
@@ -124,13 +164,23 @@ def _data_slots(mesh, dp_axes) -> list[int]:
             if all(c[j] == 0 for j in other)]
 
 
+def _model_dim(spec):
+    """The dim a spec splits over ``"model"``, or None."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
 class MeshStep:
     """The parts of the train step on ``mesh`` (see the module docstring
     and :func:`make_mesh_train_step`), each one slot's program: a data
-    shard's gradients on its first slot, their sum on slot 0, one slot's
-    AdamW on its blocks.  Every move between slots goes through
-    :meth:`send`.  The dry run (``launch/dryrun.py``) runs slot 0's share
-    of the same parts."""
+    shard's gradients on its row of slots, their sum, one slot's AdamW
+    on its blocks.  ``split`` says whether the row's model slots split
+    the compute.  Every move between slots goes through :meth:`send`,
+    and every slot's part of a step through :meth:`at` (or its row's
+    ``run``).  The dry run (``launch/dryrun.py``) runs slot 0's share of
+    the same parts."""
 
     def __init__(self, api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
                  dp_axes=("data",), param_specs, opt_specs, batch_specs):
@@ -143,16 +193,52 @@ class MeshStep:
         self.m_lay = S.layouts(mesh, opt_specs["m"])
         self.step_lay = S.Layout(mesh, opt_specs["step"])
         self.b_lay = S.layouts(mesh, batch_specs)
+        tp = int(mesh.shape.get("model", 1))
+        self.split = tp > 1 and api.model_split()
+        self.rows = {}
+        if "model" in mesh.axis_names:
+            ax = mesh.axis_names.index("model")
+            for i in self.slots:
+                c = list(self.coords[i])
+                self.rows[i] = [int(np.ravel_multi_index(
+                    tuple(c[:ax] + [m] + c[ax + 1:]), mesh.devices.shape))
+                    for m in range(tp)]
 
-    def send(self, t, src: int, dst: int):
-        return S.send(t, self.mesh, src, dst)
+    def send(self, t, src: int, dst: int, out=None):
+        return S.send(t, self.mesh, src, dst, out=out)
+
+    def at(self, slot: int, fn, *args):
+        """Slot ``slot``'s part of a step: ``fn(*args)``."""
+        return fn(*args)
+
+    def model_row(self, i: int) -> S.ModelRow:
+        """Data shard ``i``'s (its first slot's flat index) row of model
+        slots."""
+        return S.ModelRow(self.rows[i], self.send)
+
+    def row_blocks(self, params, i: int):
+        """Data row ``i``'s view of the parameters: each leaf a
+        ``layers.Blocks`` of the row's blocks where its spec splits it
+        over the model axis, else of its first slot's (whole) block."""
+        row = self.model_row(i)
+
+        def leaf(laid):
+            dim = _model_dim(laid.layout.spec)
+            if dim is None:
+                return L.Blocks((laid.blocks[i],), row)
+            return L.Blocks(tuple(laid.blocks[j] for j in row.slots), row,
+                            dim)
+
+        return L.tree_map(leaf, params)
 
     def shard_grads(self, params, batch, cnt, i: int):
-        """Data shard ``i``'s (its first slot's flat index) part on that
-        slot: (loss, xent weighted, aux or None, gradients).  Its rows of
-        the batch, which lies on slot 0, run on the whole parameters
-        gathered there; the cross-entropy is weighted by the shard's share
-        of the labels that count (``cnt`` in all), an MoE's aux by 1/dp."""
+        """Data shard ``i``'s (its first slot's flat index) part on its
+        row: (loss, xent weighted, aux or None, gradients).  Its rows of
+        the batch, which lies on slot 0, run on the row's blocks (split)
+        or on the whole parameters gathered onto slot ``i``; the
+        cross-entropy is weighted by the shard's share of the labels that
+        count (``cnt`` in all), an MoE's aux by 1/dp.  A split leaf's
+        gradient is a tuple of its blocks' on the row's slots."""
         rows = {k: self.send(v[self.b_lay[k].block_slices(
             v.shape, self.coords[i])], 0, i) for k, v in batch.items()}
         w = (rows["labels"] >= 0).sum().float() / self.send(cnt, 0, i)
@@ -162,13 +248,37 @@ class MeshStep:
             out = m["xent"] * w
             return out + (0.01 / dp) * m["aux"] if "aux" in m else out
 
-        l_d, m_d, g_d = loss_and_grads(self.api, S.gather_tree(params, i),
-                                       rows, objective)
+        given = self.row_blocks(params, i) if self.split \
+            else S.gather_tree(params, i)
+        l_d, m_d, g_d = self.loss_and_grads(given, rows, objective)
         return l_d, m_d["xent"] * w, m_d.get("aux"), g_d
+
+    def loss_and_grads(self, given, rows, objective):
+        return loss_and_grads(self.api, given, rows, objective)
+
+    def _sum_blocks(self, acc, params, g_d, i: int):
+        """Data row ``i``'s block gradients added, block by block in slot
+        order, onto the first row's slot of each block: a tree of
+        ``sharded.Laid`` holding only those blocks."""
+        first, mine = self.rows[self.slots[0]], self.rows[i]
+
+        def leaf(laid, g, a=None):
+            blocks = [None] * self.mesh.devices.size
+            for m, gm in enumerate(g):
+                dst = first[m]
+                gm = self.send(gm, mine[m], dst)
+                blocks[dst] = gm if a is None else \
+                    self.at(dst, torch.add, a.blocks[dst], gm)
+            return S.Laid(laid.layout, laid.shape, blocks)
+
+        if acc is None:
+            return L.tree_map(leaf, params, g_d)
+        return L.tree_map(leaf, params, g_d, acc)
 
     def grads(self, params, batch):
         """One micro-batch: each data shard's part, summed over the shards
-        in slot order on slot 0."""
+        in slot order: on slot 0 whole (gathered), or block by block on
+        the first row's slots (split)."""
         cnt = (batch["labels"] >= 0).sum().float()
         dp = len(self.slots)
         loss = xent = aux = grads = None
@@ -176,18 +286,60 @@ class MeshStep:
             l_d, x_d, a_d, g_d = self.shard_grads(params, batch, cnt, i)
             x_d = self.send(x_d, i, 0)
             a_d = self.send(a_d, i, 0) / dp if a_d is not None else None
-            if grads is None:
-                loss, xent, aux, grads = self.send(l_d, i, 0), x_d, a_d, \
-                    L.tree_map(lambda g: self.send(g, i, 0), g_d)
+            first = loss is None
+            if first:
+                loss, xent, aux = self.send(l_d, i, 0), x_d, a_d
             else:
                 loss = loss + self.send(l_d, i, 0)
                 xent = xent + x_d
                 aux = None if aux is None else aux + a_d
-                grads = L.tree_map(lambda a, g: a + self.send(g, i, 0), grads,
-                                   g_d)
+            if self.split:
+                grads = self._sum_blocks(grads, params, g_d, i)
+            elif first:
+                grads = L.tree_map(lambda g: self.send(g, i, 0), g_d)
+            else:
+                grads = L.tree_map(lambda a, g: a + self.send(g, i, 0),
+                                   grads, g_d)
         metrics = {"xent": xent} if aux is None else {"xent": xent,
                                                       "aux": aux}
         return loss, metrics, grads
+
+    def norm(self, grads):
+        """The gradient's global norm on slot 0: of the whole gradient
+        there (gathered), or the square root of the slot-order sum of each
+        holding slot's sum of its blocks' squares (split), where a
+        replicated leaf's one block counts once."""
+        if not self.split:
+            return O.global_norm(grads)
+        held = {}
+        for laid in L.tree_leaves(grads):
+            for j, b in enumerate(laid.blocks):
+                if b is not None:
+                    held.setdefault(j, []).append(b)
+
+        def sq(bs):
+            return sum(torch.sum(torch.square(b.float())) for b in bs)
+
+        total = None
+        for j in sorted(held):
+            part = self.send(self.at(j, sq, held[j]), j, 0)
+            total = part if total is None else total + part
+        return torch.sqrt(total)
+
+    def regroup(self, laid: S.Laid, layout: S.Layout) -> S.Laid:
+        """``laid`` (whose absent blocks are None) laid out by ``layout``:
+        ``sharded.relayout`` through slot 0 (gathered), or each slot's
+        block read from the slots that hold it (split)."""
+        if not self.split:
+            return S.relayout(laid, layout)
+        if layout.mesh is laid.layout.mesh and all(
+                b is not None for b in laid.blocks) and \
+                tuple(layout.spec) == tuple(laid.layout.spec):
+            return laid
+        coords = laid.layout.coords()
+        held = {j: (laid.layout.block_slices(laid.shape, coords[j]), b)
+                for j, b in enumerate(laid.blocks) if b is not None}
+        return S.redistribute(held, laid.shape, layout, self.send, self.at)
 
     def slot_update(self, i: int, p, g, state, gnorm):
         """Slot ``i``'s AdamW on its moment blocks, with the matching
@@ -201,11 +353,15 @@ class MeshStep:
                                   self.send(gnorm, 0, i))
 
     def update(self, params, grads, state):
-        """Each slot's :meth:`slot_update`, the gradient laid out from slot
-        0 onto the moments' blocks; parameters back into their layout."""
-        gnorm = O.global_norm(grads)
-        g = S.lay_out_tree(grads, self.m_lay, src=0)
-        p = L.tree_map(S.relayout, params, self.m_lay)
+        """Each slot's :meth:`slot_update`, the gradient laid out onto the
+        moments' blocks (from slot 0, or from the slots that hold it);
+        parameters back into their layout."""
+        gnorm = self.norm(grads)
+        if self.split:
+            g = L.tree_map(self.regroup, grads, self.m_lay)
+        else:
+            g = S.lay_out_tree(grads, self.m_lay, src=0)
+        p = L.tree_map(self.regroup, params, self.m_lay)
         new_p, new_m, new_v, new_step = [], [], [], []
         for i in range(self.mesh.devices.size):
             np_i, ns_i, om = self.slot_update(i, p, g, state, gnorm)
@@ -221,7 +377,7 @@ class MeshStep:
                 for j, (lay, ref) in enumerate(zip(
                     L.tree_leaves(lay_tree), L.tree_leaves(params)))])
 
-        params = L.tree_map(S.relayout, laid(new_p, self.m_lay), self.p_lay)
+        params = L.tree_map(self.regroup, laid(new_p, self.m_lay), self.p_lay)
         state = {"step": S.Laid(self.step_lay, (), new_step),
                  "m": laid(new_m, self.m_lay), "v": laid(new_v, self.m_lay)}
         return params, state, {"grad_norm": gnorm, "lr": om["lr"]}

@@ -29,6 +29,7 @@ from repro_torch import kernels as tk
 from repro_torch.configs import SMOKES
 from repro_torch.models import build, encdec as E, layers as L, \
     transformer as T
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 FAMILIES = ["llama3.2-3b", "gemma3-12b", "gemma3-27b", "minicpm3-4b",

@@ -36,6 +36,7 @@ from repro_torch.configs import ARCHS, SHAPES, SMOKES, shapes_for
 from repro_torch.kernels import _build
 from repro_torch.launch import dryrun as D
 from repro_torch.models import layers as L
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RECURRENT = ("jamba-v0.1-52b", "xlstm-125m")
 # the recurrent families' train and prefill cells trace at this sequence

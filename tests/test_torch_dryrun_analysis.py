@@ -53,6 +53,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build, layers as L
 from repro_torch.train import Trainer, optimizer as O, sharded as S
 from repro_torch.train.trainer import make_mesh_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 META = torch.device("meta")
@@ -354,9 +355,14 @@ def _recorded_sends(monkeypatch):
 
 @pytest.mark.parametrize("zero1", [False, True])
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
-def test_transfers_equal_the_bytes_a_meshed_step_sends(mesh_shape, zero1,
-                                                       monkeypatch):
-    cfg = SMOKES["llama3.2-3b"]
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "phi3.5-moe-42b-a6.6b"])
+def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
+                                                       zero1, monkeypatch):
+    """llama3.2-3b's step splits over the model axis (its layers' forward,
+    backward and remat-recompute sends, the embedding's and the loss's
+    combines, the gradient summed block by block); phi3.5-moe's gathers
+    the parameters onto each data row's first slot."""
+    cfg = SMOKES[arch]
     shape = ShapeConfig("s", "train", 16, 8)
     mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
     api = build(cfg, tp=mesh_shape[1])
@@ -379,7 +385,14 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(mesh_shape, zero1,
     for m in kinds.values():
         counted.update(m)
     assert dict(counted) == dict(moved)
-    assert ("relayout" in kinds) == zero1
+    split = D.model_split(cell)
+    assert split == (arch == "llama3.2-3b")
+    assert ("layback" in kinds) == zero1
+    # a split step's slots read their moments' slices from their own blocks
+    assert ("relayout" in kinds) == (zero1 and not split)
+    assert ("gather" in kinds) != split
+    assert all(k in kinds for k in ("forward", "backward", "recompute",
+                                    "embed", "loss")) == split
     rec = D.collectives(cell)
     per = np.zeros(8, dtype=np.int64)
     for (src, dst), n in moved.items():

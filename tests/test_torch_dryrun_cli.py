@@ -17,7 +17,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_command_line_dev_smoke_all_cells(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    # one intra-op thread: the trace's ops are small, and the test's
+    # neighbours under pytest -n take the other cores
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--dev",
          "--smoke", "--both-meshes", "--out", str(tmp_path)],

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build, layers as L
 from repro_torch.store import pagedkv as tpagedkv
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CFG = SMOKES["llama3.2-3b"]
 CPU = "cpu"

@@ -30,6 +30,7 @@ from repro_torch.train.trainer import Trainer
 
 from test_torch_mesh_train import (BATCH, CPU, DENSE, MOE, RTOL, SEQ, SLOTS,
                                    _cfg, _jcfg, _shape, _start)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jmesh(shape):

@@ -43,10 +43,13 @@ from repro_torch.train import optimizer as O
 from repro_torch.train import sharded as S
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.trainer import Trainer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SLOTS = 8
 DENSE, MOE = "llama3.2-3b", "phi3.5-moe-42b-a6.6b"
+# split over the model axis too (llama3.2-3b, DENSE, does as well)
+SPLIT = ("gemma3-12b", "internvl2-76b", "gemma3-27b")
 MESHES = [(8, 1), (2, 4), (4, 2)]
 # phi3.5-moe's smoke at a capacity that drops tokens: the reference's
 # meshed run (capacity per data shard) leaves its unmeshed one by more
@@ -208,8 +211,13 @@ def _restore_np(path, step, like):
     return L.tree_map(lambda t: t.numpy(), tree)
 
 
-def _shape():
-    return ShapeConfig("t", "train", seq_len=SEQ, global_batch=BATCH)
+def _seq(name=None):
+    """SEQ text positions, after a VLM's patches."""
+    return SEQ + (SMOKES[name].num_patches if name else 0)
+
+
+def _shape(name=None):
+    return ShapeConfig("t", "train", seq_len=_seq(name), global_batch=BATCH)
 
 
 def _ref_run(tmp_path, name, mesh_shape, zero1, tag):
@@ -219,8 +227,8 @@ def _ref_run(tmp_path, name, mesh_shape, zero1, tag):
     d = tmp_path / f"ref_{tag}"
     shutil.copytree(_start(tmp_path / f"start_{tag}", name, tp), d)
     mesh = j_make_host_mesh(SLOTS, shape=mesh_shape) if mesh_shape else None
-    tr = JTrainer(jbuild(_jcfg(name), tp=tp), JShape("t", "train", SEQ,
-                                                     BATCH),
+    tr = JTrainer(jbuild(_jcfg(name), tp=tp), JShape("t", "train",
+                                                     _seq(name), BATCH),
                   mesh=mesh, zero1=zero1, ckpt_dir=str(d), ckpt_every=1)
     params, opt, _ = tr.run(STEPS)
     return tr, params, opt, d
@@ -231,8 +239,8 @@ def _port_run(tmp_path, name, mesh_shape, zero1, tag):
     d = tmp_path / f"port_{tag}"
     shutil.copytree(_start(tmp_path / f"pstart_{tag}", name, tp), d)
     mesh = make_host_mesh(devices=[CPU] * SLOTS, shape=mesh_shape)
-    tr = Trainer(build(_cfg(name), tp=tp), _shape(), mesh=mesh, zero1=zero1,
-                 ckpt_dir=str(d), ckpt_every=1)
+    tr = Trainer(build(_cfg(name), tp=tp), _shape(name), mesh=mesh,
+                 zero1=zero1, ckpt_dir=str(d), ckpt_every=1)
     params, opt, _ = tr.run(STEPS)
     return tr, params, opt, d
 
@@ -282,9 +290,21 @@ def moe_unmeshed_losses(tmp_path_factory):
     return [m["loss"] for m in tr.metrics_log]
 
 
-@pytest.mark.parametrize("zero1", [False, True], ids=["plain", "zero1"])
-@pytest.mark.parametrize("mesh_shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("name", [DENSE, MOE])
+def _runs():
+    """(name, mesh, zero1) of the 3-step runs: the dense arch and the MoE
+    on MESHES; the other architectures whose step splits over the model
+    axis (``ModelAPI.model_split``) on its meshes wider than one; each
+    that splits also on (1, 8), which pads the smokes' 4 heads to 8 and
+    replicates their 2 KV heads; gemma3-27b (8 layers) without ZeRO-1."""
+    runs = [(n, m) for n in (DENSE, MOE) for m in MESHES]
+    runs += [(n, m) for n in SPLIT for m in MESHES[1:]]
+    runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT]
+    return [(n, m, z) for n, m in runs for z in (False, True)
+            if not (z and n == "gemma3-27b")]
+
+
+@pytest.mark.parametrize("name,mesh_shape,zero1", _runs(), ids=[
+    f"{n}-{m[0]}x{m[1]}-{'zero1' if z else 'plain'}" for n, m, z in _runs()])
 def test_meshed_training_matches_the_reference(spmd_devices, tmp_path,
                                                moe_unmeshed_losses, name,
                                                mesh_shape, zero1):

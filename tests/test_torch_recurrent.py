@@ -22,6 +22,7 @@ from repro.models import build as jbuild, mamba as JM, xlstm as JX
 from repro_torch.configs import SMOKES
 from repro_torch.models import build, layers as L, mamba as M, \
     transformer as T, xlstm as X
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -63,6 +63,7 @@ from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.collectives import compressed_psum_mean
 from repro_torch.train.trainer import StragglerMonitor, Trainer, \
     loss_and_grads, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 FAMILIES = ["llama3.2-3b", "gemma3-12b", "minicpm3-4b",
