@@ -166,16 +166,18 @@ Phases, each uncaught, so any failure exits non-zero:
    arguments, outputs and aliases, the traced peak and temp bytes, the
    record's ``fits`` and ``arguments_fit``, the peak judged against the
    card's own ``total_memory`` (unknown where a lower bound fits),
-   flops, dot flops, bytes accessed, the LM kernels' calls, the train cells'
-   transfers between slots, whether the step splits over the model axis
-   (``model_split``), and ``trace_s``.  Any failed cell fails the
+   flops, dot flops, bytes accessed, the LM kernels' calls, the train
+   and split serving cells' transfers between slots, whether the step
+   splits over the model axis (``model_split``), and ``trace_s``.  Any failed cell fails the
    run; the dry-run processes never initialise CUDA, allocate nothing and
    launch nothing, and this process's allocated card memory is unchanged
-   across the phase's wait.  The train_4k cells of llama3.2-3b,
-   gemma3-12b/27b and internvl2-76b split (each slot runs its own heads,
-   MLP columns and vocabulary block), and no other cell does; a line
-   each gives its peak beside the one the gathered step traced, which
-   it must be under, and llama3.2-3b's must fit.  Then the card witness:
+   across the phase's wait.  Every cell of llama3.2-3b, gemma3-12b/27b
+   and internvl2-76b splits (each slot runs its own heads, MLP columns,
+   vocabulary block and, serving, its own block of every cache), and no
+   other cell does; a line each gives its peak beside the one the
+   gathered step traced, which it must be under; llama3.2-3b's train_4k,
+   internvl2-76b's prefill_32k and decode_32k and gemma3-27b's long_500k
+   must fit.  Then the card witness:
    each of WITNESSES
    (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
    8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
@@ -185,9 +187,29 @@ Phases, each uncaught, so any failure exits non-zero:
    llama3.2-3b cut on a (2, 2) mesh of slots on the card, ZeRO-1 off:
    ``lower_cell``'s bytes a slot of parameters and moments equal the
    blocks ``Trainer(mesh=...)`` holds;
-12. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
-   keyed by ``mesh``, and the dense, recurrent, train and mesh_train
-   paths', keyed by ``path``), then ``{"ok": true, "device": ...}``
+12. serving on the model axis (``launch/serve.py::MeshServe``): phase
+   8's gemma3-12b cut (6 layers, bf16, 4 x (1,536 + 32) into caches of
+   2,048) on meshes of slots on the one card: (1, 2), heads and caches
+   split by KV heads; (1, 16), one query head a slot, the 8 KV heads
+   replicated, the global cache (128 positions a slot) and the rings
+   (64) split by positions and merged 16 ways; (2, 2) in long mode at
+   batch 1 (1 x (1,536 + 8)), the global cache's positions over the two
+   data rows.  For each: launch counts zeroed just before and read just
+   after (rmsnorm, flash_attention and decode_attention > 0, its partial
+   entry where the cache splits by positions), the prefill's and every
+   step's logits against phase 8's unmeshed run on the same parameters
+   and against the same split run on the plain versions, within 2e-2 of
+   the logits' scale; every slot's cache block the shape its spec gives
+   and within 2e-2 of the scale of the unmeshed caches' rows; each
+   kernel call against its plain version (a partial block at length 0
+   among them); prefill ms, decode-step ms and ``max_memory_allocated``
+   (the slots share one card: overhead, not scaling).  The (1, 16)
+   run's flash calls (one head a slot, D 256) and partial calls are
+   timed cold against their bounds;
+13. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``, and the dense, recurrent, train, mesh_train and
+   mesh serve paths', keyed by ``path``; decode_attention's partial
+   entry a row of its own), then ``{"ok": true, "device": ...}``
    last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
@@ -314,6 +336,18 @@ SPLIT_FLASH = ((2, 1, 128, 0), (1, 1, 256, 1024), (1, 1, 256, 0),
                (2, 1, 128, 1024), (4, 1, 128, 0))
 SPLIT_FLASH_BATCH, SPLIT_FLASH_SEQ = 2, 1536
 
+# serving on the model axis (phase 12): phase 8's gemma3-12b cut in bf16
+# through launch/serve.py::MeshServe on meshes of MESH_SLOT slots, each
+# (mesh, long mode): (1, 2) splits heads and caches by KV heads; (1, 16)
+# runs one query head a slot with the 8 KV heads replicated, the caches
+# split by positions (128 of the global a slot, 64 of each ring) and
+# merged 16 ways; (2, 2) in long mode at batch 1, the global cache's
+# positions over the two data rows.  Phase 8's prompt and caches, 32
+# steps (8 at batch 1); the rows of the kernels line come from (1, 16)
+MESH_SERVE = (((1, 2), False), ((1, 16), False), ((2, 2), True))
+MESH_SERVE_LONG_STEPS = 8
+MESH_SERVE_ROWS = "1x16"
+
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
 HBM_BYTES_PER_S = 3.35e12
@@ -333,6 +367,24 @@ DRYRUN_SPLIT_PEAK_BEFORE = {"llama3.2-3b": (219.103e9, 125.218e9),
                             "gemma3-27b": (505.477e9, 373.759e9),
                             "internvl2-76b": (1068.528e9, 849.484e9)}
 DRYRUN_SPLIT_FITS = ("llama3.2-3b",)
+# the serving cells of those four, which split too since serving on the
+# model axis: each one's peak a slot on (16, 16) and (2, 16, 16) as the
+# gathered step traced them (run 24c); the split peak must be lower, and
+# the three that did not fit gathered must fit
+DRYRUN_SERVE_PEAK_BEFORE = {
+    ("llama3.2-3b", "prefill_32k"): (20.803e9, 13.991e9),
+    ("llama3.2-3b", "decode_32k"): (39.192e9, 23.186e9),
+    ("gemma3-12b", "prefill_32k"): (39.747e9, 32.327e9),
+    ("gemma3-12b", "decode_32k"): (46.081e9, 35.494e9),
+    ("gemma3-12b", "long_500k"): (61.906e9, 61.906e9),
+    ("gemma3-27b", "prefill_32k"): (77.412e9, 67.402e9),
+    ("gemma3-27b", "decode_32k"): (83.986e9, 70.689e9),
+    ("gemma3-27b", "long_500k"): (103.627e9, 103.627e9),
+    ("internvl2-76b", "prefill_32k"): (191.366e9, 170.563e9),
+    ("internvl2-76b", "decode_32k"): (241.164e9, 195.461e9)}
+DRYRUN_SERVE_FITS = (("internvl2-76b", "prefill_32k"),
+                     ("internvl2-76b", "decode_32k"),
+                     ("gemma3-27b", "long_500k"))
 # its card witness: configurations phases 8-10 run on the card, (arch,
 # kind, layers or None for all, dtype or None for the config's, seq,
 # batch), each traced on meta at a (1, 1) mesh and run for one step on
@@ -343,7 +395,8 @@ WITNESSES = (("llama3.2-3b", "train", 2, "float32", 512, 4),
 WITNESS_TOL = 0.10
 
 TOL = {"agg_combine": 2e-5, "spmm": 1e-5, "gemm": 1e-5, "sddmm": 1e-5,
-       "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5}
+       "rmsnorm": 1e-5, "flash_attention": 3e-5, "decode_attention": 3e-5,
+       "decode_attention_partial": 3e-5}
 TOL_BF16 = 2e-2
 SERVICE_TOL = 2e-5
 KERNEL_SOURCES = {
@@ -361,6 +414,9 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/flash_attention.py:98"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:90"),
+    "decode_attention_partial": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:90"),
 }
 
 
@@ -1084,10 +1140,10 @@ def compare_routed(torch, what, got, want, masks, *, prefix, witness=None):
 def lm_library(torch, name, args, kwargs):
     """One PyTorch call computing an LM kernel's function on its
     arguments: ``F.rms_norm``; SDPA causal, or under the window's band
-    mask; for decode_attention over a dense cache's page view (each
-    sequence one chain of pages in order; a paged pool has no one-call
-    equivalent), SDPA over that cache under a length mask.  KV heads are
-    repeated outside the timed call."""
+    mask; for decode_attention (and its partial entry) over a dense
+    cache's page view (each sequence one chain of pages in order; a
+    paged pool has no one-call equivalent), SDPA over that cache under a
+    length mask.  KV heads are repeated outside the timed call."""
     import torch.nn.functional as F
     if name == "rmsnorm":
         x, w = args
@@ -1122,14 +1178,24 @@ def lm_library(torch, name, args, kwargs):
 
 def hold_to_plain(torch, name, fn, plain_fn, args, kwargs) -> float:
     """One recorded kernel call against its plain version on the same
-    arguments: 2e-2 for bf16, else TOL[name]; returns the max abs err."""
+    arguments, each output of a call that returns several
+    (decode_attention_partial's out and lse, whose -inf must match):
+    2e-2 for an output rounded to bf16, else TOL[name] (the partial's
+    fp32 out and lse from bf16 operands too); returns the max abs err
+    over finite values."""
     got = fn(*args, **kwargs)
     want = plain_fn(*args, **kwargs)
     torch.cuda.synchronize()
-    tol = TOL_BF16 if got.dtype == torch.bfloat16 else TOL[name]
-    err = float((got.float() - want.float()).abs().max())
-    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol), \
-        (name, tuple(got.shape), err)
+    err = 0.0
+    for g, w in (zip(got, want) if isinstance(got, tuple)
+                 else [(got, want)]):
+        tol = TOL_BF16 if g.dtype == torch.bfloat16 else TOL[name]
+        g, w = g.float(), w.float()
+        assert torch.equal(torch.isinf(g), torch.isinf(w)), name
+        fin = torch.isfinite(w)
+        err = max(err, float((g - w)[fin].abs().max()) if fin.any() else 0.0)
+        assert torch.allclose(g, w, rtol=tol, atol=tol), \
+            (name, tuple(g.shape), err)
     return err
 
 
@@ -1449,7 +1515,7 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
     none."""
     rows = []
     groups = []
-    for name in LM_KERNELS:
+    for name in LM_KERNELS + ("decode_attention_partial",):
         calls = list(recorded.get(name, {}).values())
         if not calls:
             continue
@@ -1492,7 +1558,8 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
             tag = f"{name} (window {window})"
         rows.append(row)
         print(f"{path} {tag}: {int(n)} launches over {len(calls)} argument "
-              f"layouts, max abs err {max_err:.3g} (tol {TOL_BF16} bf16); "
+              f"layouts, max abs err {max_err:.3g} (tol {TOL_BF16} on bf16 "
+              f"outputs, {TOL[name]} on fp32); "
               f"summed over the main path, each timed cold (inputs past the "
               f"L2): kernel {ms:.4f} ms on the card "
               f"({ms / n:.5f} a launch), plain {plain_ms:.4f}, library "
@@ -2298,6 +2365,171 @@ def mesh_train_phase(torch, card) -> list[dict]:
     return rows
 
 
+def mesh_generate(torch, serve, params, inp, prompt: int, steps: int,
+                  seq: int):
+    """``dense_generate`` through ``MeshServe`` (``serve``, parameters
+    laid out on its mesh): the prefill into fresh caches laid out by its
+    specs, then ``steps`` teacher-forced decode steps (each step's
+    offsets read from its ``lengths``).  Returns each call's logits as laid out (a
+    ``sharded.Laid`` at the logits spec), the prefill's and each step's
+    seconds (host clock to a synchronize) and the caches."""
+    b = inp["tokens"].shape[0]
+    caches = serve.init_caches(b, seq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = serve.prefill(params, serve.lay_out_inputs(
+        {"tokens": inp["tokens"][:, :prompt]}), caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits, step_s = [lg], []
+    lengths = torch.full((b,), prompt, dtype=torch.int32, device=DEVICE)
+    for i in range(prompt, prompt + steps):
+        t0 = time.perf_counter()
+        lg, caches = serve.decode(params, serve.lay_out_inputs(
+            {"tokens": inp["tokens"][:, i:i + 1], "lengths": lengths}),
+            caches)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg)
+        lengths = lengths + 1
+    return logits, prefill_s, step_s, caches
+
+
+def mesh_serve_phase(torch, card) -> list[dict]:
+    """Phase 12: serving on the model axis (see the module docstring).
+    Returns the ``kernels`` rows of the (1, 16) run, keyed ``"path":
+    "mesh serve"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import MeshServe
+    from repro_torch.models import build, layers as L
+    from repro_torch.train import sharded as S
+
+    names = LM_KERNELS + ("decode_attention_partial",)
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref,
+             "decode_attention_partial": ref.decode_attention_partial_ref}
+    originals = {name: getattr(ops, name) for name in names}
+    t_phase = time.perf_counter()
+    cfg = ARCHS[DENSE_ARCH].replace(num_layers=DENSE_LAYERS)
+    params = build(cfg).init_params(0, DEVICE)
+    rows = []
+    for (d, m), long_mode in MESH_SERVE:
+        t0 = time.perf_counter()
+        tag = f"mesh serve {d}x{m}" + (" long mode" if long_mode else "")
+        b, steps = (1, MESH_SERVE_LONG_STEPS) if long_mode \
+            else (DENSE_BATCH, DENSE_STEPS)
+        inp = dense_inputs(torch, cfg, b, DENSE_PROMPT, steps)
+        want, _, _, (want_caches, _, _) = dense_generate(
+            torch, build(cfg), params, inp, DENSE_PROMPT, steps, DENSE_SEQ)
+        want = torch.stack(want, 1)
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        serve = MeshServe(build(cfg, tp=m), mesh, long_mode=long_mode)
+        assert serve.split
+        laid = serve.lay_out_params(params)
+        run = lambda n: mesh_generate(  # noqa: E731
+            torch, serve, laid, inp, DENSE_PROMPT, n, DENSE_SEQ)
+        run(2)                          # warm: cuBLAS's plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with recording(torch, ops, names) as recorded:
+            kernels.reset_launch_counts()
+            out, pre_s, step_s, caches = run(steps)
+            launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        by_positions = m == 16 or long_mode
+        decode = "decode_attention_partial" if by_positions \
+            else "decode_attention"
+        print(f"{tag} main path launches: {launches}")
+        assert launches["rmsnorm"] > 0 and launches["flash_attention"] > 0 \
+            and launches[decode] > 0, (tag, launches)
+        for name in names:
+            assert sum(c for _, _, c in recorded[name].values()) \
+                == launches[name], (tag, name)
+        v, rows_a_block = cfg.vocab_size, b if long_mode else b // d
+        for lg in out:
+            assert lg.shape == (b, 1, v)
+            for j, blk in enumerate(lg.blocks):
+                assert tuple(blk.shape) == (rows_a_block, 1, v // m), \
+                    (tag, j, blk.shape)
+        got = torch.stack([S.gather(lg)[:, 0].float() for lg in out], 1)
+        assert torch.isfinite(got).all()
+        step = np.asarray(step_s)
+        print(f"{tag}: prefill {b} x {DENSE_PROMPT} in {pre_s * 1e3:.3f} ms; "
+              f"decode {len(step)} steps at batch {b}, best "
+              f"{step.min() * 1e3:.3f} ms, median "
+              f"{np.median(step) * 1e3:.3f} ms a step; "
+              f"max_memory_allocated {peak / 1e9:.3f} GB above the "
+              f"{base / 1e9:.3f} GB held before it (the slots share one "
+              f"card's SMs and memory: overhead, not scaling)  [{card}]")
+        compare_logits(torch, "split vs unmeshed (phase 8's path)", got,
+                       want, scale_tol=TOL_BF16, prefix=tag)
+        # each slot's block of every cache: the rows its spec gives it
+        worst = 0.0
+        for (path, blk_laid), whole in zip(
+                L.tree_items(caches), L.tree_leaves(want_caches)):
+            lay = blk_laid.layout
+            for j, c in enumerate(lay.coords()):
+                sl = lay.block_slices(whole.shape, c)
+                blk = blk_laid.blocks[j]
+                assert tuple(blk.shape) == tuple(whole[sl].shape), \
+                    (tag, path, j, blk.shape)
+                worst = max(worst, float((blk.float() - whole[sl].float())
+                                         .abs().max()))
+        scale = max(float(w.float().abs().max())
+                    for w in L.tree_leaves(want_caches))
+        print(f"{tag}: every slot's cache blocks the shapes their specs give"
+              f" and within {worst:.4g} of the unmeshed caches' rows (tol "
+              f"{TOL_BF16} x {scale:.3g})")
+        assert worst <= TOL_BF16 * scale, (tag, worst, scale)
+        # the same split run on the plain versions: the witness
+        with wrappers_as(ops, plain):
+            p_out = run(steps)[0]
+        compare_logits(torch, "split kernels vs split plain versions", got,
+                       torch.stack([S.gather(lg)[:, 0].float()
+                                    for lg in p_out], 1),
+                       scale_tol=TOL_BF16, prefix=tag)
+        errs = {k: max((hold_to_plain(torch, k, originals[k], plain[k], a,
+                                      kw)
+                        for a, kw, _ in recorded[k].values()), default=0.0)
+                for k in names}
+        print(f"{tag}: each kernel call against its plain version, max abs "
+              f"err {errs} (tol {TOL_BF16} on bf16 outputs, "
+              f"{TOL['decode_attention_partial']} on the partial's fp32 out "
+              "and lse)")
+        if by_positions:             # a slot's block at length 0, too
+            name = "decode_attention_partial"
+            err = 0.0
+            for a, kw, _ in recorded[name].values():
+                lengths = a[4].clone()
+                lengths[0] = 0
+                empty = a[:4] + (lengths,)
+                err = max(err, hold_to_plain(torch, name, originals[name],
+                                             plain[name], empty, kw))
+                o, lse = originals[name](*empty, **kw)
+                assert not o[0].any() and bool(torch.isneginf(lse[0]).all())
+            print(f"{tag}: decode_attention_partial's recorded calls with "
+                  f"sequence 0's block at length 0: zeros and -inf there, "
+                  f"max abs err {err:.3g} against the plain version")
+        if f"{d}x{m}" == MESH_SERVE_ROWS:
+            rows += dense_rows(torch, card, {
+                k: recorded[k] for k in ("flash_attention",
+                                         "decode_attention_partial")},
+                originals, plain, path="mesh serve",
+                extra={"mesh": MESH_SERVE_ROWS})
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        del serve, laid, out, p_out, caches, recorded, want_caches
+        torch.cuda.empty_cache()
+    print(f"mesh serve phase: {time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def step_ranges(torch, fn) -> tuple[dict, float]:
     """Host ms of each of the train step's profiler ranges (the trainer's
     ``train_step.forward``, ``.backward`` and ``.optimizer``) in one call
@@ -2579,17 +2811,21 @@ def dryrun_phase(torch, card, procs, out) -> None:
             print(f"{tag}: FAILED {c['error']}\n{c['traceback']}")
             continue
         print(f"{tag}: {dryrun_line(c, total, card)}")
-        assert (c["collectives"] is None) == (c["kind"] != "train"), tag
         assert c["memory"]["peak_is_lower_bound"] == (
             c["arch"] in DRYRUN_DEV_TRACE and c["kind"] != "decode"), tag
-        assert c["model_split"] == (c["kind"] == "train" and c["arch"] in
-                                    DRYRUN_SPLIT_PEAK_BEFORE), tag
+        assert c["model_split"] == (c["arch"] in DRYRUN_SPLIT_PEAK_BEFORE), \
+            tag
+        assert (c["collectives"] is None) == (c["kind"] != "train"
+                                              and not c["model_split"]), tag
     assert not failed, [(c.get("arch"), c.get("shape"), c.get("multi_pod"),
                          c.get("witness"), c["error"]) for c in failed]
     for c in cells:
         if not c["model_split"]:
             continue
-        before = DRYRUN_SPLIT_PEAK_BEFORE[c["arch"]][c["multi_pod"]]
+        train = c["kind"] == "train"
+        before = (DRYRUN_SPLIT_PEAK_BEFORE[c["arch"]] if train else
+                  DRYRUN_SERVE_PEAK_BEFORE[c["arch"], c["shape"]])[
+                      c["multi_pod"]]
         peak = c["memory"]["peak_bytes"]
         print(f"dryrun split {c['arch']} {c['shape']} pod{1 + c['multi_pod']}"
               f": peak {gb(peak)} a slot, split over the model axis "
@@ -2597,8 +2833,9 @@ def dryrun_phase(torch, card, procs, out) -> None:
               f"card's {gb(total)}: {fits_card(c['memory'], total)}  "
               f"[{card}]")
         assert peak < before, (c["arch"], c["multi_pod"], peak, before)
-        if c["arch"] in DRYRUN_SPLIT_FITS:
-            assert c["fits"], (c["arch"], c["multi_pod"], peak)
+        if (c["arch"] in DRYRUN_SPLIT_FITS) if train else \
+                ((c["arch"], c["shape"]) in DRYRUN_SERVE_FITS):
+            assert c["fits"], (c["arch"], c["shape"], c["multi_pod"], peak)
     judged = [fits_card(c["memory"], total) for c in cells]
     args_fit = sum(c["memory"]["argument_size_in_bytes"] <= total
                    for c in cells)
@@ -2884,7 +3121,10 @@ def main() -> int:
     # ------------------------------------------------ 11. the dry run
     dryrun_phase(torch, card, dry_procs, dry_out)
 
-    # ------------------------------------------------ 12. result lines
+    # ------------------------------------------------ 12. serving on a mesh
+    rows += mesh_serve_phase(torch, card)
+
+    # ------------------------------------------------ 13. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

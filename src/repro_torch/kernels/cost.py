@@ -94,8 +94,9 @@ def decode_positions(k_pages, page_table, lengths) -> int:
 
 def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
     """(bytes, flops) one LM kernel call needs: each input read once, each
-    output written once, at its element size; attention counts the key
-    positions this call's mask, window and lengths leave visible."""
+    output written once, at its element size (decode_attention_partial's
+    out and lse in fp32); attention counts the key positions this call's
+    mask, window and lengths leave visible."""
     if name == "rmsnorm":
         x, w = args
         return 2 * x.numel() * x.element_size() + w.numel() * 4, 4.0 * x.numel()
@@ -109,7 +110,10 @@ def lm_call_cost(name: str, args, kwargs) -> tuple[float, float]:
     q, k_pages, _, pt, lengths = args
     hkv, d = k_pages.shape[2], k_pages.shape[3]
     n = decode_positions(k_pages, pt, lengths)
-    return ((2 * n * hkv * d + 2 * q.numel()) * q.element_size()
+    out = q.numel() * q.element_size()
+    if name == "decode_attention_partial":      # out and lse in fp32
+        out = (q.numel() + q.shape[0] * q.shape[1]) * 4
+    return ((2 * n * hkv * d + q.numel()) * q.element_size() + out
             + (pt.numel() + lengths.numel()) * 4, 4.0 * n * q.shape[1] * d)
 
 
@@ -121,7 +125,7 @@ def lm_dot_flops(name: str, args, kwargs) -> float:
         q, k, _ = args
         b, hq, t, d = q.shape
         return 4.0 * b * hq * t * k.shape[2] * d
-    if name == "decode_attention":
+    if name in ("decode_attention", "decode_attention_partial"):
         q, k_pages, _, pt, _ = args
         return 4.0 * q.shape[0] * q.shape[1] * pt.shape[1] \
             * k_pages.shape[1] * q.shape[2]

@@ -35,6 +35,12 @@
 //   the splits in split order and writes acc / l (zeros for a sequence
 //   with no position, as the TPU kernel's flush gives).
 //
+// The partial entries (repro_decode_attention_partial_*) run the same
+// split kernel and a combine that writes, for a slot's block of a
+// sequence-split cache, what a merge across slots needs: acc / l in fp32
+// (not rounded to q's type) and lse = m + log(l), the log-sum-exp of the
+// scaled scores; a sequence with no position gives zeros and -inf.
+//
 // Split boundaries sit at multiples of SL, which depends on the pools'
 // ps, D and element size only, and the merge order is fixed: a
 // sequence's output bits do not depend on the batch it rides in or on
@@ -295,11 +301,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T>
+template <typename O, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ ws,
-                      const int* __restrict__ lengths, T* __restrict__ out,
-                      int hq, int d, int cap, int sl, int n_split) {
+                      const int* __restrict__ lengths, O* __restrict__ out,
+                      float* __restrict__ lse, int hq, int d, int cap, int sl,
+                      int n_split) {
   extern __shared__ float ml[];                   // [2][used]: m then l
   const int bq = blockIdx.x;                      // b * Hq + query head
   const int used = (visible(lengths, bq / hq, cap) + sl - 1) / sl;
@@ -316,6 +323,8 @@ decode_combine_kernel(const float* __restrict__ ws,
   __syncthreads();
   float l = 0.f;
   for (int s = 0; s < used; ++s) l = fmaf(ml[s], ml[used + s], l);
+  if (kLse && threadIdx.x == 0)                   // -inf where nothing is seen
+    lse[bq] = l > 0.f ? mx + logf(l) : -__int_as_float(0x7f800000);
   for (int e = threadIdx.x; e < d; e += kThreads) {
     float a = 0.f;
 #pragma unroll 8
@@ -325,11 +334,25 @@ decode_combine_kernel(const float* __restrict__ ws,
   }
 }
 
+template <typename O, bool kLse>
+int combine(const void* lengths, void* out, float* lse, const float* ws,
+            int rows, int hq, int d, int cap, int sl, int n_split,
+            cudaStream_t stream) {
+  const size_t ml_bytes = sizeof(float) * 2 * n_split;
+  const int rc = repro_torch::allow_shared(decode_combine_kernel<O, kLse>,
+                                           ml_bytes);
+  if (rc != 0) return rc;
+  decode_combine_kernel<O, kLse><<<rows, kThreads, ml_bytes, stream>>>(
+      ws, static_cast<const int*>(lengths), static_cast<O*>(out), lse, hq, d,
+      cap, sl, n_split);
+  return repro_torch::launch_status();
+}
+
 template <typename T, int GT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* page_table, const void* lengths, void* out, void* ws,
-           int b, int hkv, int group, int d, int n_pool, int ps, int pp,
-           int pps, float scale, cudaStream_t stream) {
+           const void* page_table, const void* lengths, void* out, void* lse,
+           void* ws, int b, int hkv, int group, int d, int n_pool, int ps,
+           int pp, int pps, float scale, cudaStream_t stream) {
   const int lds = row_elems<T>(d), chunks = lds / 4;
   int lps = 1;                                    // lanes a key slot
   while (lps * kLaneChunks < chunks) lps *= 2;
@@ -349,21 +372,20 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     rc = repro_torch::launch_status();
     if (rc != 0) return rc;
   }
-  const size_t ml_bytes = sizeof(float) * 2 * n_split;
-  const int rc = repro_torch::allow_shared(decode_combine_kernel<T>,
-                                           ml_bytes);
-  if (rc != 0) return rc;
-  decode_combine_kernel<T><<<b * hkv * group, kThreads, ml_bytes, stream>>>(
-      static_cast<const float*>(ws), static_cast<const int*>(lengths),
-      static_cast<T*>(out), hkv * group, d, pp * ps, sl, n_split);
-  return repro_torch::launch_status();
+  const float* w = static_cast<const float*>(ws);
+  if (lse != nullptr)                             // the partial: fp32, lse
+    return combine<float, true>(lengths, out, static_cast<float*>(lse), w,
+                                b * hkv * group, hkv * group, d, pp * ps, sl,
+                                n_split, stream);
+  return combine<T, false>(lengths, out, nullptr, w, b * hkv * group,
+                           hkv * group, d, pp * ps, sl, n_split, stream);
 }
 
 template <typename T>
 int run(const void* q, const void* k_pages, const void* v_pages,
-        const void* page_table, const void* lengths, void* out, void* ws,
-        int b, int hkv, int group, int d, int n_pool, int ps, int pp,
-        int pages_per_split, float scale, void* stream) {
+        const void* page_table, const void* lengths, void* out, void* lse,
+        void* ws, int b, int hkv, int group, int d, int n_pool, int ps,
+        int pp, int pages_per_split, float scale, void* stream) {
   if (d < 1 || d > 4 * kThreads || pages_per_split < 1 ||
       pages_per_split > kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -371,8 +393,8 @@ int run(const void* q, const void* k_pages, const void* v_pages,
   const auto fn = group == 1 ? &launch<T, 1> : group == 2 ? &launch<T, 2>
                 : group == 3 ? &launch<T, 3> : group == 4 ? &launch<T, 4>
                 : &launch<T, 8>;
-  return fn(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, group,
-            d, n_pool, ps, pp, pages_per_split, scale,
+  return fn(q, k_pages, v_pages, page_table, lengths, out, lse, ws, b, hkv,
+            group, d, n_pool, ps, pp, pages_per_split, scale,
             static_cast<cudaStream_t>(stream));
 }
 
@@ -386,9 +408,24 @@ int run(const void* q, const void* k_pages, const void* v_pages,
       const void* page_table, const void* lengths, void* out, void* ws,     \
       int b, int hkv, int group, int d, int n_pool, int ps, int pp,         \
       int pages_per_split, float scale, void* stream) {                     \
-    return run<T>(q, k_pages, v_pages, page_table, lengths, out, ws, b, hkv, \
-                  group, d, n_pool, ps, pp, pages_per_split, scale, stream); \
+    return run<T>(q, k_pages, v_pages, page_table, lengths, out, nullptr,   \
+                  ws, b, hkv, group, d, n_pool, ps, pp, pages_per_split,    \
+                  scale, stream);                                           \
+  }
+
+// The partial: out (b, Hq, d) fp32 and lse (b, Hq) fp32.
+#define REPRO_DECODE_PARTIAL_ENTRY(NAME, T)                                  \
+  extern "C" int NAME(                                                      \
+      const void* q, const void* k_pages, const void* v_pages,              \
+      const void* page_table, const void* lengths, void* out, void* lse,    \
+      void* ws, int b, int hkv, int group, int d, int n_pool, int ps,       \
+      int pp, int pages_per_split, float scale, void* stream) {             \
+    return run<T>(q, k_pages, v_pages, page_table, lengths, out, lse, ws,   \
+                  b, hkv, group, d, n_pool, ps, pp, pages_per_split, scale, \
+                  stream);                                                  \
   }
 
 REPRO_DECODE_ENTRY(repro_decode_attention_f32, float)
 REPRO_DECODE_ENTRY(repro_decode_attention_bf16, __nv_bfloat16)
+REPRO_DECODE_PARTIAL_ENTRY(repro_decode_attention_partial_f32, float)
+REPRO_DECODE_PARTIAL_ENTRY(repro_decode_attention_partial_bf16, __nv_bfloat16)

@@ -24,21 +24,32 @@ pools' page size, head dim and element size only, so a sequence's
 output bits do not depend on its batch or on the table's padded width.
 The TPU kernel's scalar-prefetched page table becomes a plain load of
 the page ids by each block.
+
+:func:`decode_attention_partial` is the same kernel over one slot's
+block of a sequence-split cache (a serving step split over the model
+axis): its own C entry runs the split kernel and a combine that writes
+the normalised fp32 accumulator and the log-sum-exp, what
+:func:`merge_partials` needs to merge the slots' blocks.  The merge is
+plain torch on the gathering slot, the counterpart of GSPMD's reduction
+across devices, not of a Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import decode_attention_ref
+from .ref import decode_attention_partial_ref, decode_attention_ref
 
 launches = 0
+partial_launches = 0
 
 PAGES_PER_SPLIT = 4           # pages a block owns: 64 positions at ps = 16
 SPLIT_SMEM = 160 * 1024       # at most this many bytes of K and V rows a block
 MAX_HEAD_DIM = 512
 _ENTRY = {torch.float32: "repro_decode_attention_f32",
           torch.bfloat16: "repro_decode_attention_bf16"}
+_PARTIAL_ENTRY = {torch.float32: "repro_decode_attention_partial_f32",
+                  torch.bfloat16: "repro_decode_attention_partial_bf16"}
 
 
 def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
@@ -96,26 +107,52 @@ def _checked(q, k_pages, v_pages, page_table, lengths) -> None:
     _build.check_sizes("decode_attention", b * hq, n_pool * ps, d, pp * ps)
 
 
+def _no_grad(q, k_pages, v_pages, name: str) -> None:
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError(f"{name} has no gradient (no training path "
+                           "decodes); call it under torch.no_grad() or on "
+                           "inputs that do not require one")
+
+
+def _device(q, name: str) -> None:
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: tensors on {q.device}; the kernel takes "
+                         "CUDA tensors (meta ones for its checks alone) and "
+                         "the plain version CPU ones")
+
+
+def _launch(entry, q, k_pages, v_pages, page_table, lengths, outs, ws,
+            pps) -> None:
+    """The C entry ``entry`` on the arguments, ``outs`` and ``ws`` device
+    pointers."""
+    b, hq, d = q.shape
+    n_pool, ps, hkv, _ = k_pages.shape
+    pp = page_table.shape[1]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), *outs, ws, b, hkv,
+            hq // hkv, d, n_pool, ps, pp, pps, 1.0 / d ** 0.5,
+            _build.stream(q.device))
+    _build.raise_on(rc, entry)
+
+
 def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, page_table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q (B,Hq,D); pages (P,ps,Hkv,D); page_table (B,PP); lengths (B,)
-    -> (B,Hq,D).  On ``meta`` tensors: the kernel's checks, an empty
-    output and the launch's scratch (:func:`workspace`), no launch.  No
-    gradient: no training path decodes, so a call that asks for one (an
-    input that requires it, grad mode on) raises."""
+    -> (B,Hq,D), zeros for a sequence at length 0.  On ``meta`` tensors:
+    the kernel's checks, an empty output and the launch's scratch
+    (:func:`workspace`), no launch.  No gradient: no training path
+    decodes, so a call that asks for one (an input that requires it,
+    grad mode on) raises."""
     global launches
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k_pages, v_pages)):
-        raise RuntimeError("decode_attention has no gradient (no training "
-                           "path decodes); call it under torch.no_grad() or "
-                           "on inputs that do not require one")
+    _no_grad(q, k_pages, v_pages, "decode_attention")
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_pages, v_pages, page_table, lengths)
-    if q.device.type not in ("cuda", "meta"):
-        raise ValueError(f"decode_attention: tensors on {q.device}; the "
-                         "kernel takes CUDA tensors (meta ones for its checks "
-                         "alone) and the plain version CPU ones")
+    _device(q, "decode_attention")
     _checked(q, k_pages, v_pages, page_table, lengths)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -123,17 +160,58 @@ def decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ws, pps = workspace(q, k_pages, page_table)
     if q.device.type == "meta":
         return out
-    dev, dt = q.device, q.dtype
-    b, hq, d = q.shape
-    n_pool, ps, hkv, _ = k_pages.shape
-    pp = page_table.shape[1]
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, _ENTRY[dt])(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), b, hkv, hq // hkv, d, n_pool, ps, pp, pps,
-            1.0 / d ** 0.5, _build.stream(dev))
-    _build.raise_on(rc, "decode_attention")
+    _launch(_ENTRY[q.dtype], q, k_pages, v_pages, page_table, lengths,
+            (out.data_ptr(),), ws.data_ptr(), pps)
     launches += 1
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, page_table: torch.Tensor,
+                             lengths: torch.Tensor):
+    """:func:`decode_attention` over a block of each sequence's positions:
+    (out, lse), out (B,Hq,D) fp32 normalised over the block's positions
+    < lengths[b], lse (B,Hq) fp32 the log-sum-exp of their scaled
+    scores; zeros and -inf at lengths[b] == 0.  The same checks, scratch
+    and ``meta`` branch as :func:`decode_attention`; counted in
+    ``partial_launches``."""
+    global partial_launches
+    _no_grad(q, k_pages, v_pages, "decode_attention_partial")
+    if q.device.type == "cpu":
+        return decode_attention_partial_ref(q, k_pages, v_pages, page_table,
+                                            lengths)
+    _device(q, "decode_attention_partial")
+    _checked(q, k_pages, v_pages, page_table, lengths)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    ws, pps = workspace(q, k_pages, page_table)
+    if q.device.type == "meta":
+        return out, lse
+    _launch(_PARTIAL_ENTRY[q.dtype], q, k_pages, v_pages, page_table,
+            lengths, (out.data_ptr(), lse.data_ptr()), ws.data_ptr(), pps)
+    partial_launches += 1
+    return out, lse
+
+
+def merge_partials(outs, lses, dtype: torch.dtype | None = None):
+    """The attention over the union of blocks of positions, from each
+    block's :func:`decode_attention_partial` (out (B,H,D) and lse (B,H),
+    fp32), given in slot order: sum_i exp(lse_i - m) out_i / sum_i
+    exp(lse_i - m) with m the largest lse, summed in slot order in fp32
+    and rounded once to ``dtype`` (default: fp32); zeros where no block
+    sees a position (every lse -inf).  Plain torch."""
+    m = lses[0]
+    for s in lses[1:]:
+        m = torch.maximum(m, s)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    acc = den = None
+    for o, s in zip(outs, lses):
+        w = torch.exp(s - m)
+        term = o * w[..., None]
+        acc = term if acc is None else acc + term
+        den = w if den is None else den + w
+    out = torch.where(den[..., None] > 0, acc / den.clamp(min=1e-30)[..., None],
+                      0.0)
+    return out.to(dtype or torch.float32)

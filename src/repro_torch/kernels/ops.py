@@ -14,8 +14,8 @@ priorities:
     AggCombine on the vector kernels, GEMM on the GEMM kernel (highest
     priority), the winning configuration.
 
-The LM path's kernels (rmsnorm, flash_attention, decode_attention) are
-imported here too: ``models/layers.py`` and ``launch/serve.py`` call them
+The LM path's kernels (rmsnorm, flash_attention, decode_attention and
+its partial entry) are imported here too: ``models/layers.py`` and ``launch/serve.py`` call them
 as attributes of this module, the way the bitstreams call the GNN ones.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..core.xbuilder import Bitstream
 from .agg_combine import agg_combine, agg_combine_partial
-from .decode_attention import decode_attention
+from .decode_attention import decode_attention, decode_attention_partial
 from .flash_attention import flash_attention
 from .gemm import gemm
 from .rmsnorm import rmsnorm
@@ -110,6 +110,7 @@ def program_config(xbuilder, name: str) -> float:
 
 
 __all__ = ["gemm", "spmm", "sddmm", "agg_combine", "agg_combine_partial",
-           "rmsnorm", "flash_attention", "decode_attention", "BITSTREAMS",
+           "rmsnorm", "flash_attention", "decode_attention",
+           "decode_attention_partial", "BITSTREAMS",
            "program_config", "octa_bitstream", "lsap_bitstream",
            "hetero_bitstream", "hetero_gemm_bitstream"]

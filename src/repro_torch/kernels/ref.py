@@ -142,4 +142,37 @@ def decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
     s = torch.where(pos < lengths.long()[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", p, v.float())
+    # a sequence with no position sees nothing: zeros, as the kernel writes
+    return torch.where((lengths > 0)[:, None, None], out, 0.0).to(q.dtype)
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 lengths: torch.Tensor):
+    """``decode_attention_ref`` over a block of a sequence's positions, as
+    a merge across blocks needs it: (out, lse), out (B,Hq,D) fp32
+    normalised over the positions < lengths[b], lse (B,Hq) fp32 the
+    log-sum-exp of their scaled scores; at lengths[b] == 0, zeros and
+    -inf."""
+    d = q.shape[-1]
+    k = paged_gather(k_pages, page_table)
+    v = paged_gather(v_pages, page_table)
+    rep = q.shape[1] // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * d ** -0.5
+    pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    seen = pos < lengths.long()[:, None, None]
+    s = torch.where(seen, s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", e, v.float())
+    out = torch.where(l[..., None] > 0, out / l.clamp(min=1e-30)[..., None],
+                      0.0)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l.clamp(min=1e-30)),
+                      float("-inf"))
+    return out, lse

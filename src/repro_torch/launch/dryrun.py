@@ -36,7 +36,7 @@ touches a device but ``meta``.
   (``global_batch / dp``, or the whole batch in long mode), under
   ``use_mesh`` with the cell's data axes, so an MoE's capacity is one
   shard's.  ``models/layers.py::on_card`` routes a ``meta`` tensor as a
-  CUDA one, and the three LM kernel wrappers run every check of their
+  CUDA one, and the LM kernel wrappers run every check of their
   launch on it and return empty outputs (and decode_attention's
   scratch): a cell whose trace raises is one the card refuses.
 
@@ -61,10 +61,19 @@ touches a device but ``meta``.
     and its ``update_with_norm``.  The other slots' work is not run:
     their results are tensors of the same shapes that count only when
     sent to slot 0 (:class:`SlotStep`).
-  - prefill and decode: the port has no meshed serving step, and serving
-    on the model axis is not ported; slot 0 holds its blocks of the bf16
-    parameters, caches and inputs, gathers the whole parameters and its
-    shard's caches and inputs, and runs the step on them.
+  - prefill and decode, where the step splits over the model axis
+    (:func:`model_split`): slot (0, 0)'s share of
+    ``launch/serve.py::MeshServe`` (:class:`SlotServe`), its data row's
+    step on its blocks of the bf16 parameters, caches and inputs laid out
+    by the cell's specs: its own query heads, MLP columns, vocabulary
+    block and cache blocks, and, as its row's first slot, the norms, the
+    replicated k/v projections and the merge of the partials, while the
+    other slots' parts run under ``trace.paused()``; what they send slot
+    0 takes bytes as it arrives.  A decode step writes at
+    :func:`decode_offsets` (the cache's last position).  Otherwise slot
+    0 holds its blocks of the bf16 parameters, caches and inputs,
+    gathers the whole parameters and its shard's caches and inputs, and
+    runs the step on them.
 
   The outputs are held to the inputs: train returns parameters and
   optimizer state of the same shapes and dtypes, decode and prefill the
@@ -98,13 +107,18 @@ touches a device but ``meta``.
   a gathered step also gathers the parameters onto each data shard's
   first slot, a split one sends each split layer's activations and
   partials within each data row, forward, backward and again in remat's
-  recompute, and the embedding's and loss's combines.
-  ``bytes_by_kind`` and ``total_bytes`` are what the busiest slot sends
-  and receives.  Serving cells record ``None``: the port runs no meshed
-  serving step, so nothing moves between slots.
+  recompute, and the embedding's and loss's combines.  A split serving
+  cell counts its step's moves the same way (:func:`serve_transfers`):
+  activations, k/v slices, partial sums and the cache rows by position
+  to prefill; the same at T = 1 to decode, plus the write offsets, the
+  query heads gathered onto each slot holding a block of a cache split
+  by positions and their ``(out, lse)`` partials.  ``bytes_by_kind`` and
+  ``total_bytes`` are what the busiest slot sends and receives.  A
+  gathered serving cell records ``None``: nothing moves between slots.
 * **Split** (``model_split``): whether the cell's step splits its
-  compute over the model axis (:func:`model_split`); serving steps and
-  the families ``ModelAPI.model_split`` leaves out run gathered.
+  compute over the model axis (:func:`model_split`): every cell of the
+  families ``ModelAPI.model_split`` names on a model axis wider than
+  one; the others run gathered.
 
 What has no counterpart, since there is no compiler: ``lower`` and
 ``compile`` (their times are replaced by ``trace_s``),
@@ -131,10 +145,10 @@ from ..configs.base import ShapeConfig
 from ..models import build, layers as L
 from ..train import optimizer as O
 from ..train import sharded as S
-from ..train.trainer import (MeshStep, _model_dim, loss_and_grads,
-                             make_train_step)
+from ..train.trainer import MeshStep, loss_and_grads, make_train_step
 from .memtrace import StepTrace
 from .mesh import Mesh, dp_axes_of
+from .serve import MeshServe, cache_spans
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -374,14 +388,16 @@ class SlotStep(MeshStep):
         return loss_and_grads(self.api, given, rows, objective,
                               absent=absent if self.split else None)
 
-    def model_row(self, i: int) -> S.ModelRow:
-        def run(slot, fn, *args, **kwargs):
-            if slot == 0:
-                return fn(*args, **kwargs)
-            return _Elsewhere.apply(self.trace, functools.partial(
-                fn, **kwargs), *args)
+    def run(self, slot: int, fn, *args, **kwargs):
+        """A slot's work in a row: slot 0's traced, another's
+        :class:`_Elsewhere`."""
+        if slot == 0:
+            return fn(*args, **kwargs)
+        return _Elsewhere.apply(self.trace, functools.partial(fn, **kwargs),
+                                *args)
 
-        return S.ModelRow(self.rows[i], self.send, run)
+    def model_row(self, i: int) -> S.ModelRow:
+        return S.ModelRow(self.rows[i], self.send, self.run)
 
     def _elsewhere(self, what: str, i: int, run):
         """Slot 0's result of ``run``, with a stand-in kept (not held:
@@ -427,9 +443,83 @@ def _train_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
     return out, (cell.trees["params"][0], cell.trees["opt"][0]), rows
 
 
+class SlotServe(MeshServe):
+    """Slot 0's share of :class:`~repro_torch.launch.serve.MeshServe`'s
+    split step under ``trace``: slot 0's own work runs, every other
+    slot's under ``trace.paused()``, and what another slot sends slot 0
+    takes bytes on slot 0 as it arrives (as :class:`SlotStep`).  A
+    decode step writes at ``offsets`` (global batch order), which stand
+    for ``lengths``' values: a ``meta`` tensor holds none."""
+
+    def __init__(self, trace: StepTrace, *args, offsets=(), **kwargs):
+        super().__init__(*args, **kwargs)
+        self.trace = trace
+        self.offsets = offsets
+
+    send = SlotStep.send
+    model_row = SlotStep.model_row
+
+    def run(self, slot: int, fn, *args, **kwargs):
+        """A slot's work in a row, no backward: slot 0's traced,
+        another's under ``trace.paused()``."""
+        if slot == 0:
+            return fn(*args, **kwargs)
+        with self.trace.paused():
+            return fn(*args, **kwargs)
+
+    def row_offsets(self, i: int, batch) -> tuple:
+        lengths = batch["lengths"]
+        rows = lengths.layout.block_slices(lengths.shape, self.coords[i])[0]
+        return tuple(self.offsets[rows])
+
+
+def decode_offsets(shape: ShapeConfig) -> tuple:
+    """The write offset of every sequence a split decode step is traced
+    and counted at: the cache's last position (the step that fills it)."""
+    return (shape.seq_len - 1,) * shape.global_batch
+
+
+def _split_serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
+    """Slot 0's share of the split serving step (see the module
+    docstring): its row's step on the cell's layouts, other slots'
+    parts paused; (outputs, state, batch) as :func:`_serve_program`."""
+    api, mesh = cell.api, cell.mesh
+    long_mode = _is_long_mode(shape)
+    b, s = shape.global_batch, shape.seq_len
+    kw = {"long_mode": long_mode} if shape.kind == "decode" else {}
+    with L.use_mesh(mesh, dp_axes=cell.dp_axes):
+        c_specs = api.cache_pspecs(b, s, **kw)
+        i_specs = api.input_pspecs(shape)
+    c_tree = api.abstract_cache(b, s, **kw)
+    params, p_own = _slot_laid(*cell.trees["params"], mesh)
+    caches, c_own = _slot_laid(c_tree, c_specs, mesh)
+    inputs, i_own = _slot_laid(api.input_specs(shape), i_specs, mesh)
+    trace.hold((p_own, c_own, i_own))
+    decode = shape.kind == "decode"
+    serve = SlotServe(trace, api, mesh, dp_axes=dp_axes_of(mesh),
+                      long_mode=long_mode,
+                      offsets=decode_offsets(shape) if decode else ())
+    with trace, torch.no_grad():
+        out = serve.row_step(0, api.decode if decode else api.prefill,
+                             params, inputs, caches, decode)
+    rows = shard_batch(cell, shape)
+    shard = dataclasses.replace(shape, global_batch=rows)
+    v = api.cfg.vocab_size
+    for j, blk in out.items():
+        if tuple(blk.shape) != (rows, 1, v // serve.tp):
+            raise ValueError(f"slot {j}'s logits block {tuple(blk.shape)}, "
+                             f"expected {(rows, 1, v // serve.tp)}")
+    logits = torch.empty((rows, 1, v), dtype=out[0].dtype, device=META)
+    own = api.abstract_cache(rows, s, **kw)      # the shard's, as gathered
+    return (logits, own), (cell.trees["params"][0], own), \
+        api.input_specs(shard)
+
+
 def _serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
     """Slot 0's serving step (see the module docstring): (outputs, state,
     batch)."""
+    if model_split(cell):
+        return _split_serve_program(cell, shape, trace)
     api, mesh = cell.api, cell.mesh
     b = shard_batch(cell, shape)
     kw = {"long_mode": _is_long_mode(shape)} if shape.kind == "decode" else {}
@@ -533,10 +623,10 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
         for m in range(1, tp):
             to[m] += x
             back[m] += x
-            if _model_dim(blk_specs["mixer"]["wk"]) is None:
+            if S.model_dim(blk_specs["mixer"]["wk"]) is None:
                 lo, hi = L._slot_kv_heads(m, hm, gp)
                 to[m] += 2 * b * t * (hi - lo) * hd * e
-            if _model_dim(blk_specs["ffn"]["w_in"]) is not None:
+            if S.model_dim(blk_specs["ffn"]["w_in"]) is not None:
                 to[m] += x
                 back[m] += x
         return to, back
@@ -672,7 +762,7 @@ def transfers(cell: Cell) -> dict:
                 gather_onto("layback", leaf, m_lay, 0)
                 lay_out_from("layback", leaf, p_lay, 0)
             continue
-        held = first if _model_dim(ps) is not None else first[:1]
+        held = first if S.model_dim(ps) is not None else first[:1]
         for i in slots[1:]:
             for m, dst in enumerate(held):
                 src = parts.rows[i][m]
@@ -692,23 +782,145 @@ def transfers(cell: Cell) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
+def _layers(cell: Cell):
+    """Each layer of the cell in order: (its parameters' specs, its kind,
+    its ``k`` cache leaf and spec)."""
+    cfg = cell.api.cfg
+    _, p_specs = cell.trees["params"]
+    c_tree, c_specs = cell.trees["caches"]
+    for per in range(cfg.n_periods):
+        for pos, kind in enumerate(cfg.period_pattern):
+            yield (p_specs["stack"][pos], kind, c_tree["stack"][pos]["k"],
+                   c_specs["stack"][pos]["k"])
+    for pos, kind in enumerate(cfg.remainder_kinds):
+        yield (p_specs["rem"][pos], kind, c_tree["rem"][pos]["k"],
+               c_specs["rem"][pos]["k"])
+
+
+def serve_transfers(cell: Cell) -> dict:
+    """{kind: {(from slot, to slot): bytes}}: what one split serving step
+    (``MeshServe``, prefill or one decode step at
+    :func:`decode_offsets`) sends between slots, from the layouts alone,
+    within each running data row (every row; in long mode the first,
+    whose sequence's blocks lie on every row's slots): the tokens to
+    each model slot and their embedding rows back ("embed"); the normed
+    activation to each model slot before each split attention, MLP and
+    the logits ("activations") and each slot's partial output back
+    ("partials"); to prefill where ``wk``/``wv`` are replicated, the KV
+    heads each slot reads ("kv"); the new k/v rows from the slot that
+    made them to each slot whose block holds their position and heads
+    (``layers.write_plan``, "cache"); to decode, the write offsets to
+    each slot that ropes or reads ("positions"), and over a cache split
+    by positions, the query heads gathered onto each reading slot
+    (``layers.query_plan``, "query"), its (out, lse) partials to the
+    first slot and the merged heads out to each model slot ("merge");
+    in long mode, the other rows' logits blocks ("logits")."""
+    api, mesh, shape = cell.api, cell.mesh, cell.shape
+    cfg = api.cfg
+    long_mode = _is_long_mode(shape)
+    serve = MeshServe(api, mesh, dp_axes=dp_axes_of(mesh),
+                      long_mode=long_mode)
+    coords = serve.coords
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    f32 = 4
+    inputs = api.input_specs(shape)
+    tok = inputs["tokens"]
+    decode = shape.kind == "decode"
+    b = shape.global_batch if long_mode else shard_batch(cell)
+    tt = tok.shape[1]
+    t = 1 if decode else shape.seq_len
+    d, hd, kvh = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    x = b * t * d * e
+    out = collections.defaultdict(collections.Counter)
+    for i in serve.running:
+        row = serve.rows[i]
+        tp, h = len(row), row[0]
+        for m in range(1, tp):
+            out["embed"][h, row[m]] += b * tt * tok.element_size()
+            out["embed"][row[m], h] += b * tt * d * e
+            out["activations"][h, row[m]] += b * d * e     # the logits
+        for specs, kind, leaf, c_spec in _layers(cell):
+            split_kv = S.model_dim(specs["mixer"]["wk"]) is not None
+            hm = L.padded_heads(cfg.num_heads, kvh, tp) // tp
+            gp = hm * tp // kvh
+            kvm = kvh // tp if split_kv else kvh
+            heads = [(m * kvm, (m + 1) * kvm) for m in range(tp)] \
+                if split_kv else [(0, kvh)]
+            makers = row if split_kv else [h]
+            layer_x = 2 if S.model_dim(specs["ffn"]["w_in"]) is not None \
+                else 1
+            for m in range(1, tp):
+                out["activations"][h, row[m]] += layer_x * x
+                out["partials"][row[m], h] += layer_x * x
+            spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
+                                      coords, i)
+            cap = size[0]
+            if not decode:
+                if not split_kv:
+                    for m in range(1, tp):
+                        lo, hi = L._slot_kv_heads(m, hm, gp)
+                        out["kv"][h, row[m]] += 2 * b * t * (hi - lo) * hd * e
+                n = min(t, cap) if kind == "local" else t
+                for j, k, (lo, hi) in L.write_plan(spans, heads, rows=n):
+                    if makers[k] != j:
+                        out["cache"][makers[k], j] += 2 * b * (hi - lo) \
+                            * kvm * hd * e
+                continue
+            offs = decode_offsets(shape)[:b]
+            pos = [o % cap if kind == "local" else min(max(o, 0), cap - 1)
+                   for o in offs]
+            for j, k, got in L.write_plan(spans, heads, pos=pos):
+                if makers[k] != j:
+                    out["cache"][makers[k], j] += 2 * len(got) * kvm * hd * e
+            readers = L.CacheBlocks((None,) * len(spans), spans, size,
+                                    S.ModelRow(row, None)).readers()
+            for j in sorted(set(row) | {j for j, _ in readers}):
+                if j != h:
+                    out["positions"][h, j] += b * inputs["lengths"] \
+                        .element_size()
+            if all(sp[0] == (0, cap) for _, sp in readers):
+                continue
+            for j, (_, hs) in readers:
+                for m, lo, hi in L.query_plan(hs, hm, gp, tp):
+                    if row[m] != j:
+                        out["query"][row[m], j] += b * (hi - lo) * hd * e
+                nq = (hs[1] - hs[0]) * gp
+                if j != h:
+                    out["merge"][j, h] += b * nq * (hd + 1) * f32
+            for m in range(1, tp):
+                out["merge"][h, row[m]] += b * hm * hd * e
+    if long_mode:
+        lay = S.Layout(mesh, serve.logits_spec)
+        lshape = (b, 1, cfg.vocab_size)
+        first = serve.rows[serve.running[0]]
+        for j, c in enumerate(coords):
+            if j not in first:
+                want = S._key(lay.block_slices(lshape, c))
+                src = next(r for r in first if S._key(lay.block_slices(
+                    lshape, coords[r])) == want)
+                out["logits"][src, j] += b * cfg.vocab_size // len(first) * e
+    return {k: dict(v) for k, v in out.items()}
+
+
 def model_split(cell: Cell) -> bool:
     """Whether the cell's step splits its compute over the model axis:
-    a train cell of an architecture that ``ModelAPI.model_split`` names,
-    on a model axis wider than one.  Serving steps run gathered."""
-    return cell.shape.kind == "train" and cell.mesh.shape["model"] > 1 \
-        and cell.api.model_split()
+    a cell of an architecture that ``ModelAPI.model_split`` names, on a
+    model axis wider than one (a train step, or a serving step:
+    ``MeshServe``)."""
+    return cell.mesh.shape["model"] > 1 and cell.api.model_split()
 
 
 def collectives(cell: Cell) -> dict | None:
-    """The ``collectives`` record of a train cell (None to serve): of
-    :func:`transfers`, the bytes the busiest slot sends and receives,
-    by kind (``bytes_by_kind``) and in all (``total_bytes``), which slot
-    that is (``slot``, a flat index), and every slot's bytes sent summed
-    (``mesh_total_bytes``)."""
-    if cell.shape.kind != "train":
+    """The ``collectives`` record of a train cell or a split serving cell
+    (None for a gathered serving cell, which moves nothing between
+    slots): of :func:`transfers` (:func:`serve_transfers`), the bytes
+    the busiest slot sends and receives, by kind (``bytes_by_kind``) and
+    in all (``total_bytes``), which slot that is (``slot``, a flat
+    index), and every slot's bytes sent summed (``mesh_total_bytes``)."""
+    if cell.shape.kind != "train" and not model_split(cell):
         return None
-    moves = transfers(cell)
+    moves = transfers(cell) if cell.shape.kind == "train" \
+        else serve_transfers(cell)
     zero = np.zeros(cell.mesh.devices.size, dtype=np.int64)
     per = {k: zero.copy() for k in moves}
     for k, m in moves.items():

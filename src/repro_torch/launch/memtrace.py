@@ -22,7 +22,8 @@ same trace runs on CPU and CUDA tensors alike.
   ``dot_flops`` alike; an LM kernel call on the card's route (CUDA or
   ``meta`` tensors), which no aten op shows, by its cost function
   (``kernels/cost.py``).  The trace sees those calls by wrapping the
-  three wrappers where the models call them (``kernels/ops.py``) for
+  LM kernels' wrappers where the models call them (``kernels/ops.py``;
+  decode_attention's partial entry among them) for
   as long as it is entered; a call on CPU tensors runs the plain
   version, whose aten ops it sees itself.  ``flops``
   its work over the positions its mask or lengths leave (the page
@@ -47,7 +48,8 @@ from torch.utils.flop_counter import flop_registry
 from ..kernels import cost, ops
 from ..models import layers as L
 
-LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+LM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+              "decode_attention_partial")
 _NO_TRAFFIC = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
                          "new_empty_strided"))
 

@@ -15,6 +15,12 @@ XLA.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --requests 8 [--full] [--device cpu]
+
+:class:`MeshServe` is the dense-cache step (``ModelAPI.prefill`` /
+``decode``) on a ``launch/mesh.py`` mesh, the counterpart of the
+reference's ``prefill_step`` / ``serve_step`` jitted with shardings
+(``repro/launch/dryrun.py``).  ``PagedLM`` never runs on a mesh, in
+the reference as here.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from ..device import resolve_device
 from ..kernels import ops as K
 from ..models import build, layers as L
 from ..store.pagedkv import PagePool, PagedKVManager, Sequence
+from ..train import sharded as S
 
 
 class PagedLM:
@@ -126,6 +133,245 @@ class PagedLM:
 
     def decode_step(self, seqs: list[Sequence]) -> list[int]:
         return torch.argmax(self.decode_logits(seqs), dim=-1).tolist()
+
+
+def cache_spans(layout: S.Layout, shape, coords, i: int):
+    """(blocks' spans, (S, KVH)) of a cache leaf of ``shape`` ((..., B, S,
+    KVH, hd)) laid out by ``layout``, as data row ``i`` (its first
+    slot's flat index) sees it: each slot's ((p0, p1), (h0, h1)) where
+    its block holds the rows of slot ``i``'s block, else None."""
+    lead = len(shape) - 4
+    mine = layout.block_slices(shape, coords[i])[lead]
+    spans = []
+    for c in coords:
+        sl = layout.block_slices(shape, c)
+        spans.append(((sl[lead + 1].start, sl[lead + 1].stop),
+                      (sl[lead + 2].start, sl[lead + 2].stop))
+                     if sl[lead] == mine else None)
+    return tuple(spans), (shape[lead + 1], shape[lead + 2])
+
+
+class MeshServe:
+    """The meshed serving step: ``api``'s prefill and decode on ``mesh``,
+    the parameters laid out by ``param_pspecs``, the caches by
+    ``cache_pspecs(..., long_mode=)``, the inputs by the input specs
+    (batch over the data axes; replicated in long mode) and the logits
+    returned at the reference's ``logits_spec`` (B, 1, V): batch over the
+    data axes, vocabulary over ``"model"``.
+
+    * Split (``split``), where ``api.model_split()`` and the model axis is
+      wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b): each
+      data row's model slots run the step as the reference's GSPMD step
+      does, each on its own heads, MLP columns and vocabulary block and
+      its own block of every cache (``models/layers.py``'s split forms);
+      the logits stay on the slots, a vocabulary block each, never
+      gathered.  No slot holds the whole parameters or a whole cache.
+    * Gathered, for every other family or a model axis of one: the whole
+      parameters and the row's caches gathered onto the row's first
+      slot, the step run there, the caches written back into the blocks.
+
+    In normal mode each data row runs its own rows of the batch.  In
+    long mode (``long_mode``, decode at batch 1) the batch is replicated
+    over the data rows, and the first row runs it: the sequence's blocks
+    of a global cache lie on every row's slots, which run their partials
+    for it, and a ring replicated over the data rows is written on every
+    row's replica (so the replicas stay equal, as the reference's GSPMD
+    keeps them) and read on the first row's; the other rows' logits
+    blocks are sent from the first row's.
+
+    Decoding, the host reads each sequence's write offset from the
+    ``lengths`` input once a step (:meth:`row_offsets`), the one source
+    of the offsets that the attention reads on the device: the new k/v
+    rows go only to the slots that hold their positions.  Every move
+    between slots goes through :meth:`send`, every slot's work through
+    the row's ``run``."""
+
+    def __init__(self, api, mesh, *, dp_axes=("data",),
+                 long_mode: bool = False):
+        self.api, self.mesh = api, mesh
+        self.dp_axes = tuple(dp_axes)
+        self.long_mode = long_mode
+        self.active = () if long_mode else self.dp_axes
+        self.coords = list(np.ndindex(*mesh.devices.shape))
+        self.tp = tp = int(mesh.shape.get("model", 1))
+        self.split = tp > 1 and api.model_split()
+        vocab_ok = api.cfg.vocab_size % tp == 0
+        with L.use_mesh(mesh, self.active):
+            self.p_specs = api.param_pspecs()
+            self.logits_spec = L.resolve_pspec(
+                (L.DP, None, "model" if vocab_ok else None))
+        self.slots = S.data_slots(mesh, self.dp_axes)
+        self.rows = S.model_rows(mesh, self.dp_axes)
+        # the rows that run: each data row, or in long mode the first
+        self.running = self.slots[:1] if long_mode else self.slots
+
+    # ------------------------------------------------------------ layouts
+    def send(self, t, src: int, dst: int, out=None):
+        return S.send(t, self.mesh, src, dst, out=out)
+
+    def model_row(self, i: int) -> S.ModelRow:
+        return S.ModelRow(self.rows[i], self.send)
+
+    def lay_out_params(self, params):
+        return S.lay_out_tree(params, S.layouts(self.mesh, self.p_specs))
+
+    def cache_specs(self, batch: int, seq: int):
+        """``cache_pspecs(..., long_mode=)`` with DP the data axes in both
+        modes: in long mode a global cache's sequence goes over them (and
+        over ``"model"`` where the KV heads do not divide), as
+        ``attn_cache_defs`` says, and the batch of every cache (the local
+        layers' rings take the normal mode's defs) is replicated.  (The
+        reference's dry run resolves long mode's specs with no data axes,
+        so its long_500k caches do not split over them; so does
+        ``launch/dryrun.py``, whose bytes a slot are the reference's.)"""
+        defs = self.api.cache_defs(batch, seq, long_mode=self.long_mode)
+        with L.use_mesh(self.mesh, self.dp_axes):
+            specs = self.api.cache_pspecs(batch, seq,
+                                          long_mode=self.long_mode)
+        if not self.long_mode:
+            return specs
+
+        def replicated_batch(d, spec):
+            lead = len(d.shape) - 4
+            return L.PSpec(*(None if i == lead else e
+                             for i, e in enumerate(spec)))
+        return L.tree_map(replicated_batch, defs, specs)
+
+    def init_caches(self, batch: int, seq: int, specs=None):
+        """Zero caches laid out by :meth:`cache_specs` (or ``specs``):
+        each slot's block a contiguous tensor of its own, one for the
+        slots of a device that hold the same slice (as
+        ``sharded.lay_out`` holds one)."""
+        defs = self.api.cache_defs(batch, seq, long_mode=self.long_mode)
+        specs = self.cache_specs(batch, seq) if specs is None else specs
+
+        def leaf(d, spec):
+            lay = S.Layout(self.mesh, spec)
+            seen, blocks = {}, []
+            for c, dev in zip(self.coords, self.mesh.devices.flat):
+                sl = lay.block_slices(d.shape, c)
+                k = (S._key(sl), str(dev))
+                if k not in seen:
+                    seen[k] = torch.zeros([x.stop - x.start for x in sl],
+                                          dtype=getattr(torch, d.dtype),
+                                          device=dev)
+                blocks.append(seen[k])
+            return S.Laid(lay, tuple(d.shape), blocks)
+
+        return L.tree_map(leaf, defs, specs)
+
+    def input_layouts(self, batch: dict) -> dict:
+        """The inputs' layouts: the batch over the data axes (replicated
+        in long mode), as ``ModelAPI.input_pspecs``."""
+        with L.use_mesh(self.mesh, self.active):
+            return {k: S.Layout(self.mesh, L.resolve_pspec(
+                ((L.DP if self.active else ()),) + (None,) * (v.dim() - 1)))
+                for k, v in batch.items()}
+
+    def lay_out_inputs(self, batch: dict) -> dict:
+        lays = self.input_layouts(batch)
+        return {k: S.lay_out(v, lays[k]) for k, v in batch.items()}
+
+    # ------------------------------------------------------------ the step
+    def prefill(self, params, batch, caches):
+        """(logits, caches): the logits (B, 1, V) a ``sharded.Laid`` at
+        the logits spec; the caches written in place."""
+        return self._step(self.api.prefill, params, batch, caches, False)
+
+    def decode(self, params, batch, caches):
+        """One step: (logits, caches), as :meth:`prefill`."""
+        return self._step(self.api.decode, params, batch, caches, True)
+
+    def _step(self, fn, params, batch, caches, decode: bool):
+        v = self.api.cfg.vocab_size
+        b = next(iter(batch.values())).shape[0]
+        lay = S.Layout(self.mesh, self.logits_spec)
+        blocks = [None] * self.mesh.devices.size
+        for i in self.running:
+            out = self.row_step(i, fn, params, batch, caches, decode)
+            for j, blk in out.items():
+                blocks[j] = blk
+        for j, c in enumerate(self.coords):       # long mode: the replicas
+            if blocks[j] is None:
+                src = self._holder(lay, (b, 1, v), c, blocks)
+                blocks[j] = self.send(blocks[src], src, j)
+        return S.Laid(lay, (b, 1, v), blocks), caches
+
+    def _holder(self, lay, shape, coord, blocks) -> int:
+        want = S._key(lay.block_slices(shape, coord))
+        return next(j for j, c in enumerate(self.coords)
+                    if blocks[j] is not None
+                    and S._key(lay.block_slices(shape, c)) == want)
+
+    def row_caches(self, caches, row: S.ModelRow, offsets):
+        """Data row ``row``'s view of the caches: ``layers.CacheBlocks``
+        of the blocks that hold its sequences (:func:`cache_spans`)."""
+        def leaf(laid):
+            spans, size = cache_spans(laid.layout, laid.shape, self.coords,
+                                      row.slots[0])
+            return L.CacheBlocks(
+                tuple(laid.blocks[j] if sp is not None else None
+                      for j, sp in enumerate(spans)), spans, size, row,
+                offsets)
+        return L.tree_map(leaf, caches)
+
+    def row_offsets(self, i: int, batch) -> tuple:
+        """The write offsets of data row ``i``'s sequences on the host:
+        its block of ``lengths``, read."""
+        return tuple(int(o) for o in batch["lengths"].blocks[i].tolist())
+
+    def row_step(self, i: int, fn, params, batch, caches, decode: bool):
+        """Data row ``i``'s step on its rows of the batch (its first
+        slot's blocks of the inputs): {slot: its block of the logits}."""
+        rows = {k: v.blocks[i] for k, v in batch.items()}
+        row = self.model_row(i)
+        if self.split:
+            offs = self.row_offsets(i, batch) if decode else None
+            logits, _ = fn(S.row_blocks(params, row), rows,
+                           self.row_caches(caches, row, offs))
+            return dict(zip(row.slots, logits.blocks))
+        whole = S.gather_tree(params, i)
+        views = L.tree_map(lambda laid: self._row_cache(laid, i), caches)
+        logits, _ = fn(whole, rows, views)
+        L.tree_map(lambda laid, view: self._write_back(laid, i, view),
+                   caches, views)
+        lay = S.Layout(self.mesh, self.logits_spec)
+        shape = (next(iter(batch.values())).shape[0], 1, logits.shape[-1])
+        return {j: self.send(
+            logits[:, :, lay.block_slices(shape, self.coords[j])[2]], i, j)
+            for j in row.slots}
+
+    def _row_cache(self, laid, i: int) -> torch.Tensor:
+        """Data row ``i``'s part of a cache leaf (its rows of the batch,
+        every position and head) on its first slot: the slot's own block
+        where that is the whole part, else gathered from the blocks, the
+        slot's own first."""
+        spans, size = cache_spans(laid.layout, laid.shape, self.coords, i)
+        own = laid.blocks[i]
+        if spans[i] == ((0, size[0]), (0, size[1])):
+            return own
+        lead = len(laid.shape) - 4
+        whole = torch.empty(tuple(own.shape[:lead + 1])
+                            + tuple(laid.shape[lead + 1:]), dtype=own.dtype,
+                            device=own.device)
+        done = set()
+        for j in [i] + list(range(len(spans))):
+            if spans[j] is None or spans[j] in done:
+                continue
+            done.add(spans[j])
+            (p0, p1), (h0, h1) = spans[j]
+            self.send(laid.blocks[j], j, i, out=whole[..., p0:p1, h0:h1, :])
+        return whole
+
+    def _write_back(self, laid, i: int, whole: torch.Tensor) -> None:
+        """The row's part, written by its step, back into every block
+        that holds some of it."""
+        spans, _ = cache_spans(laid.layout, laid.shape, self.coords, i)
+        for j, sp in enumerate(spans):
+            if sp is not None and laid.blocks[j] is not whole:
+                (p0, p1), (h0, h1) = sp
+                self.send(whole[..., p0:p1, h0:h1, :], i, j,
+                          out=laid.blocks[j])
 
 
 def serve(cfg, *, num_requests=8, prompt_len=12, max_new=16, seed=0,

@@ -80,11 +80,13 @@ class ModelAPI:
         return L.pspec_tree(self.param_defs())
 
     def model_split(self) -> bool:
-        """Whether a meshed train step splits this architecture's compute
-        over the model axis (``train/trainer.py::MeshStep``): where every
-        layer is GQA attention (global, local or NoPE) and the gated MLP,
-        with an embedding and logits, as in llama3.2-3b, gemma3-12b/27b
-        and internvl2-76b.  MLA, MoE, the recurrent mixers and the
+        """Whether a meshed step splits this architecture's compute over
+        the model axis, to train (``train/trainer.py::MeshStep``) and to
+        serve (``launch/serve.py::MeshServe``: prefill and decode, each
+        slot on its own block of every cache): where every layer is GQA
+        attention (global, local or NoPE) and the gated MLP, with an
+        embedding and logits, as in llama3.2-3b, gemma3-12b/27b and
+        internvl2-76b.  MLA, MoE, the recurrent mixers and the
         encoder-decoder keep the gathered step."""
         cfg = self.cfg
         return (cfg.family in ("dense", "vlm") and cfg.mla is None

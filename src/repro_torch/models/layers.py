@@ -16,10 +16,10 @@ head padding and which dims shard over ``"model"``.
 The specs lay out *state*: ``train/sharded.py`` splits the parameters
 and optimizer moments into one block per slot of a ``launch/mesh.py``
 mesh as the reference's ``NamedSharding`` does.  The compute follows
-them where the reference's GSPMD step splits it, in a meshed train step
-of an architecture whose every layer is GQA attention and the gated MLP
-(``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b, internvl2-76b)
-on a mesh whose model axis is wider than one.  There each parameter is
+them where the reference's GSPMD step splits it, in a meshed train or
+serving step of an architecture whose every layer is GQA attention and
+the gated MLP (``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b,
+internvl2-76b) on a mesh whose model axis is wider than one.  There each parameter is
 a :class:`Blocks` leaf, the data row's blocks on its model slots, and
 the split forms run what the reference's constraints (``shard()``)
 split on each slot's own blocks: its query heads and ``wo``'s matching
@@ -30,10 +30,23 @@ slot, summed in slot order, at the reference's constraint points
 (``train/sharded.py``'s ``to_model_slots`` and ``sum_model_slots``).
 What the reference does not split runs once, on the row's first slot:
 the norms, residual adds, and the k/v projections and their rope where
-the model degree does not divide the KV heads.  Every other meshed step
-(the other families, serving, a model axis of one) runs on whole
-tensors, the compute left unsplit: a data shard's rows on whole
-gathered parameters (``train/trainer.py``).  So ``moe_apply`` is the
+the model degree does not divide the KV heads.  Serving
+(``launch/serve.py::MeshServe``) adds the caches: each is a
+:class:`CacheBlocks` leaf, each slot's block as ``cache_pspecs`` lays it
+out (by KV heads, or by positions where the model degree does not divide
+them, and in long mode over the data rows' slots too); a step's new k/v
+rows go to the slots whose blocks hold their positions and heads
+(:func:`write_plan`); a decode over a cache split by positions runs the
+decode_attention kernel's partial entry on each block for the query
+heads its KV heads serve (gathered onto it, :func:`query_plan`), merged
+in slot order on the row's first slot (``merge_partials``); the logits
+stay split, each slot's vocabulary block (:func:`logits_apply`).  In
+long mode the local layers' rings are replicated over the data rows:
+every replica receives each write (the reference's GSPMD keeps them
+equal), and the computing row reads its own.  Every
+other meshed step (the other families, a model axis of one) runs on
+whole tensors, the compute left unsplit: a data shard's rows on whole
+gathered parameters (``train/trainer.py``, ``MeshServe``).  So ``moe_apply`` is the
 reference's no-mesh branch over the tokens it is given: run on one data
 shard's rows, that is the reference's per-shard capacity under
 ``shard_map``.
@@ -290,6 +303,47 @@ class Blocks:
         return self.part(self.blocks[0])
 
 
+@dataclass(frozen=True, eq=False)
+class CacheBlocks:
+    """A KV cache leaf (``k`` or ``v``: (B, S, KVH, hd) at a layer) of a
+    serving step split over the model axis, as one data row sees it:
+    ``blocks[j]`` is mesh slot j's block (flat order) where that slot
+    holds the row's sequences, else None, and ``spans[j]`` its positions
+    and KV heads, ((lo, hi), (lo, hi)) of the row's tensor, whose batch
+    every block covers whole; ``size`` is (S, KVH).  ``row``
+    (``train/sharded.py::ModelRow``) runs any slot's work (``run_at``)
+    and moves tensors between any two slots: in long mode a sequence's
+    blocks lie on other data rows' slots too.  ``offsets``, to decode,
+    holds each of the row's sequences' write offset as the host knows it
+    (None to prefill).  Indexing as :class:`Blocks`."""
+    blocks: tuple
+    spans: tuple
+    size: tuple
+    row: object
+    offsets: tuple | None = None
+    index: tuple = ()
+
+    def __getitem__(self, i) -> "CacheBlocks":
+        return replace(self, index=self.index + (i,))
+
+    def part(self, block: torch.Tensor) -> torch.Tensor:
+        return block[self.index] if self.index else block
+
+    def readers(self) -> list:
+        """(slot, span) for each distinct span, in slot order: the row's
+        own slot where one of them holds it, else the first that does
+        (every slot holding a block is written the rows of its span, a
+        replica too: :func:`write_plan`)."""
+        first = {}
+        for j, sp in enumerate(self.spans):
+            if sp is None:
+                continue
+            if sp not in first or (j in self.row.slots
+                                   and first[sp] not in self.row.slots):
+                first[sp] = j
+        return sorted((j, sp) for sp, j in first.items())
+
+
 def is_split(tree) -> bool:
     """Whether ``tree``'s leaves are :class:`Blocks` (a split step)."""
     return any(isinstance(a, Blocks) for a in tree_leaves(tree))
@@ -432,7 +486,17 @@ def _cache_as_pages(q, kc, vc, lengths, dtype):
     sequence b owns pages b*S/ps .. (b+1)*S/ps - 1 in order; the page
     table is built on the card, so nothing is read back to the host."""
     b, t, kvh, g, hd = q.shape
-    s = kc.shape[1]
+    out = K.decode_attention(q.reshape(b, kvh * g, hd),
+                             *_page_view(kc, vc), lengths.to(torch.int32))
+    return out.reshape(b, 1, kvh, g, hd).to(dtype or q.dtype)
+
+
+def _page_view(kc, vc):
+    """(K pages, V pages, page table) of a dense cache (B,S,KVH,hd): the
+    (B*S/ps, ps, KVH, hd) view with ps = gcd(S, 16), sequence b owning
+    pages b*S/ps .. (b+1)*S/ps - 1 in order, the table built on the
+    cache's device."""
+    b, s, kvh, hd = kc.shape
     for name, c in (("k", kc), ("v", vc)):
         if not c.is_contiguous():
             raise ValueError(f"attention over a dense cache: the {name} "
@@ -441,14 +505,11 @@ def _cache_as_pages(q, kc, vc, lengths, dtype):
                              "page view")
     ps = gcd(s, 16)
     n = s // ps
-    ar = torch.arange(n, dtype=torch.int32, device=q.device)
-    table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None] * n \
-        + ar[None, :]
-    out = K.decode_attention(q.reshape(b, kvh * g, hd),
-                             kc.view(b * n, ps, kvh, hd),
-                             vc.view(b * n, ps, kvh, hd), table,
-                             lengths.to(torch.int32))
-    return out.reshape(b, 1, kvh, g, hd).to(dtype or q.dtype)
+    ar = torch.arange(n, dtype=torch.int32, device=kc.device)
+    table = torch.arange(b, dtype=torch.int32, device=kc.device)[:, None] \
+        * n + ar[None, :]
+    return (kc.view(b * n, ps, kvh, hd), vc.view(b * n, ps, kvh, hd),
+            table)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -601,13 +662,21 @@ def attn_apply(p, x, cfg, *, kind="attn", causal=True, positions=None,
     The cache's tensors are written in place and returned.
     """
     if isinstance(p["wq"], Blocks):
-        if cache is not None or kv_override is not None or \
-                positions is not None:
+        if kv_override is not None:
             raise NotImplementedError(
-                "attention split over the model axis with a cache, "
-                "cross-attention or positions: see ROADMAP's **Serving on "
-                "the model axis**")
-        return _attn_split(p, x, cfg, kind=kind, causal=causal), cache
+                "cross-attention split over the model axis (the "
+                "encoder-decoder): see ROADMAP's **Serving on the model "
+                "axis**")
+        if cache is None:
+            if positions is not None:
+                raise NotImplementedError(
+                    "attention split over the model axis at given positions "
+                    "without a cache: the split step takes positions only "
+                    "to decode")
+            return _attn_split(p, x, cfg, kind=kind, causal=causal), cache
+        return _attn_split_serve(p, x, cfg, kind=kind, causal=causal,
+                                 positions=positions, cache=cache,
+                                 cache_len=cache_len), cache
     b, t, d = x.shape
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     h = p["wq"].shape[1]                  # padded head count (>= cfg heads)
@@ -894,11 +963,11 @@ def embed_apply(p, tokens, cfg):
 
 
 def logits_apply(p, x, cfg):
+    """The logits (B,T,V) in x's dtype; split over the model axis, a
+    :class:`Blocks` of each model slot's vocabulary block (B,T,V/tp),
+    which no slot gathers (:func:`_logits_split`)."""
     if isinstance(p["final_ln"], Blocks):
-        raise NotImplementedError(
-            "whole logits of a step split over the model axis: the loss "
-            "takes each slot's block (xent_terms); see ROADMAP's **Serving "
-            "on the model axis**")
+        return _logits_split(p, x, cfg)
     xn = rms_norm(x, p["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return torch.einsum("btd,vd->btv", xn, p["tokens"].to(xn.dtype))
@@ -931,13 +1000,15 @@ def _slot_kv_heads(m: int, hm: int, gp: int) -> tuple[int, int]:
     return lo, lo + max(hm // gp, 1)
 
 
-def _attn_slot(m, xn, wq, wo, k, v, wk, wv, *, cfg, kind, causal, gp, at):
+def _attn_slot(m, xn, wq, wo, k, v, wk, wv, *, cfg, kind, causal, gp, at,
+               keep_kv=False):
     """Slot m's part of split attention: its query heads against its KV
     heads (``k``/``v`` sent to it, or projected here from its ``wk``/
     ``wv`` blocks), the padded heads zeroed by their global index, and
-    ``wo``'s matching rows: a partial output (B,T,D).  ``at`` takes a
-    stacked block to the layer's (``Blocks.part``)."""
-    wq, wo = at(wq), at(wo)
+    ``wo``'s matching rows: a partial output (B,T,D), and with
+    ``keep_kv`` the k and v it attended.  ``at`` takes a stacked block to
+    the layer's (``Blocks.part``)."""
+    wq = at(wq)
     b, t, _ = xn.shape
     hm, hd = wq.shape[1], wq.shape[2]
     q = torch.einsum("btd,dhk->bthk", xn, wq.to(xn.dtype))
@@ -954,26 +1025,39 @@ def _attn_slot(m, xn, wq, wo, k, v, wk, wv, *, cfg, kind, causal, gp, at):
     window = cfg.window_size if kind == "local" else 0
     out = _sdpa(q.reshape(b, t, kvh, hm // kvh, hd), k, v, causal=causal,
                 window=window).reshape(b, t, hm, hd)
+    y = _slot_out(m, out, wo, cfg=cfg, gp=gp, at=at)
+    return (y, k, v) if keep_kv else y
+
+
+def _slot_out(m, out, wo, *, cfg, gp, at):
+    """Slot m's attention output (B,T,hm,hd), its padded heads zeroed by
+    their global index, through ``wo``'s matching rows: (B,T,D)."""
+    hm = out.shape[2]
     g = cfg.num_heads // cfg.num_kv_heads
     if gp != g:                               # padded heads, by global index
         j = m * hm + torch.arange(hm, device=out.device)
         out = out * ((j % gp) < g).to(out.dtype)[:, None]
-    return torch.einsum("bthk,hkd->btd", out, wo.to(out.dtype))
+    return torch.einsum("bthk,hkd->btd", out, at(wo).to(out.dtype))
 
 
-def _attn_split(p, x, cfg, *, kind, causal):
+def _attn_split(p, x, cfg, *, kind, causal, keep_kv=False):
     """``attn_apply`` without a cache on a row's model slots: the norm
     once on the first slot; where ``wk``/``wv`` are split each slot
     projects its own KV heads, else k and v are projected and roped once
-    and each slot is sent only the KV heads its query heads read."""
+    and each slot is sent only the KV heads its query heads read.  With
+    ``keep_kv`` also the producers of the k and v it made, (slot, KV
+    heads (lo, hi), k, v): each model slot, or the first slot alone
+    where ``wk``/``wv`` are replicated."""
     row = p["wq"].row
     tp = len(p["wq"].blocks)
     hm = p["wq"].blocks[0].shape[-2]
-    gp = hm * tp // cfg.num_kv_heads
+    kvh = cfg.num_kv_heads
+    gp = hm * tp // kvh
     xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
     xs = row.scatter(xn)
     ks = vs = wks = wvs = (None,) * tp
-    if p["wk"].dim is None:
+    split_kv = p["wk"].dim is not None
+    if not split_kv:
         wk, wv = p["wk"].whole, p["wv"].whole
         k = torch.einsum("btd,dhk->bthk", xn, wk.to(xn.dtype))
         v = torch.einsum("btd,dhk->bthk", xn, wv.to(xn.dtype))
@@ -984,13 +1068,276 @@ def _attn_split(p, x, cfg, *, kind, causal):
         ranges = [_slot_kv_heads(m, hm, gp) for m in range(tp)]
         ks = row.scatter(k, dim=2, ranges=ranges)
         vs = row.scatter(v, dim=2, ranges=ranges)
+        producers = [(row.slots[0], (0, kvh), k, v)]
     else:
         wks, wvs = p["wk"].blocks, p["wv"].blocks
     parts = [row.run(m, _attn_slot, m, xs[m], p["wq"].blocks[m],
                      p["wo"].blocks[m], ks[m], vs[m], wks[m], wvs[m],
                      cfg=cfg, kind=kind, causal=causal, gp=gp,
-                     at=p["wq"].part)
+                     at=p["wq"].part, keep_kv=keep_kv and split_kv)
              for m in range(tp)]
+    if keep_kv and split_kv:
+        kvm = kvh // tp
+        producers = [(row.slots[m], (m * kvm, (m + 1) * kvm), *parts[m][1:])
+                     for m in range(tp)]
+        parts = [o[0] for o in parts]
+    y = x + row.reduce(parts)
+    return (y, producers) if keep_kv else y
+
+
+# ------------------------------------------------ serving on the model axis
+def write_plan(spans, heads, *, rows=None, pos=None) -> list:
+    """Where a step's new cache rows go, for a cache whose slots hold the
+    blocks ``spans`` (per slot, ((p0, p1), (h0, h1)) or None) and whose
+    new k/v lie with producers holding the KV heads ``heads`` (a list of
+    (lo, hi)): (slot j, producer, what j receives) for each slot with a
+    block, in slot order, where the producer is the one whose heads are
+    the block's.  To prefill (``rows``: every sequence's rows [0, rows)),
+    what it receives is the positions (lo, hi) of its span; to decode
+    (``pos``: each sequence's write position), the (sequence, position)
+    pairs in its span.  Slots receiving nothing are left out."""
+    out = []
+    for j, sp in enumerate(spans):
+        if sp is None:
+            continue
+        (p0, p1), hs = sp
+        k = heads.index(hs)
+        if rows is not None:
+            lo, hi = p0, min(p1, rows)
+            if lo < hi:
+                out.append((j, k, (lo, hi)))
+            continue
+        got = [(i, q) for i, q in enumerate(pos) if p0 <= q < p1]
+        if got:
+            out.append((j, k, got))
+    return out
+
+
+def query_plan(span_heads, hm: int, gp: int, tp: int) -> list:
+    """The query heads a block of KV heads [h0, h1) serves, [h0 gp,
+    h1 gp), as pieces (model slot m, lo, hi) of the slots' own heads
+    [m hm, (m + 1) hm), in slot order."""
+    lo, hi = span_heads[0] * gp, span_heads[1] * gp
+    return [(m, max(lo, m * hm), min(hi, (m + 1) * hm)) for m in range(tp)
+            if max(lo, m * hm) < min(hi, (m + 1) * hm)]
+
+
+def _put_rows(block, piece, at: int):
+    """Prefill: ``piece`` (B,n,...) into ``block`` from position ``at``."""
+    block[:, at:at + piece.shape[1]].copy_(piece)
+    return block
+
+
+def _put_tokens(block, piece, seqs: list, cols: list):
+    """Decode: ``piece`` (n,1,...) into ``block`` at (seqs[i], cols[i])."""
+    dev = block.device
+    if seqs == list(range(seqs[0], seqs[-1] + 1)) and len(set(cols)) == 1:
+        block[seqs[0]:seqs[-1] + 1, cols[0]].copy_(piece[:, 0])
+    else:
+        block[torch.tensor(seqs, device=dev), torch.tensor(cols, device=dev)] \
+            = piece[:, 0].to(block.dtype)
+    return block
+
+
+def _pick(t, seqs: list):
+    """The rows ``seqs`` of ``t``: a slice where they are consecutive."""
+    if seqs == list(range(seqs[0], seqs[-1] + 1)):
+        return t[seqs[0]:seqs[-1] + 1]
+    return t[torch.tensor(seqs, device=t.device)]
+
+
+def _write_cache(cache, producers, *, rows=None, pos=None):
+    """The new rows into every block of ``cache`` ({"k", "v"} of
+    :class:`CacheBlocks`) that holds them, each sent from its producer
+    (slot, heads, k, v) and written by the slot that holds the block
+    (:func:`write_plan`)."""
+    ck = cache["k"]
+    row = ck.row
+    plan = write_plan(ck.spans, [pr[1] for pr in producers], rows=rows,
+                      pos=pos)
+    for j, k, got in plan:
+        src = producers[k][0]
+        for new, c in zip(producers[k][2:], (cache["k"], cache["v"])):
+            block = c.part(c.blocks[j])
+            p0 = c.spans[j][0][0]
+            if rows is not None:
+                lo, hi = got
+                row.run_at(j, _put_rows, block,
+                           row.send(new[:, lo:hi], src, j), lo - p0)
+            else:
+                seqs = [i for i, _ in got]
+                row.run_at(j, _put_tokens, block,
+                           row.send(_pick(new, seqs), src, j), seqs,
+                           [q - p0 for _, q in got])
+
+
+def _ring_rows(k, w: int):
+    """A prefill's rows of a ring of ``w`` slots: k itself below w, else
+    its last w rows rolled so that position p sits in slot p % w."""
+    t = k.shape[1]
+    if t < w:
+        return k
+    return torch.roll(k[:, -w:], shifts=(t - w) % w, dims=1)
+
+
+def _rope_at(x, positions, cfg, kind):
+    if kind == "nope":
+        return x
+    cos, sin = rope_tables(positions, x.shape[-1], cfg.rope_theta)
+    return apply_rope(x, cos, sin)
+
+
+def _decode_slot_qkv(xn, wq, wk, wv, off, *, cfg, kind, at):
+    """Slot's new token: its query heads, and where it holds ``wk``/
+    ``wv`` blocks its KV heads, roped at positions ``off`` (B,)."""
+    pos = off[:, None]
+    q = _rope_at(torch.einsum("btd,dhk->bthk", xn, at(wq).to(xn.dtype)), pos,
+                 cfg, kind)
+    if wk is None:
+        return q, None, None
+    k = _rope_at(torch.einsum("btd,dhk->bthk", xn, at(wk).to(xn.dtype)), pos,
+                 cfg, kind)
+    return q, k, torch.einsum("btd,dhk->bthk", xn, at(wv).to(xn.dtype))
+
+
+def _decode_slot_heads(m, q, wo, kc, vc, off, *, cfg, kind, gp, at):
+    """Slot m's decode over its own KV heads' whole cache (a cache split by
+    KV heads): its query heads through the decode_attention route of the
+    unsplit step, then ``wo``'s rows."""
+    b, _, hm, hd = q.shape
+    kvh = kc.shape[2]
+    qg = q.reshape(b, 1, kvh, hm // kvh, hd)
+    if kind == "local":
+        out = _ring_attention(qg, kc, vc, off)
+    else:
+        out = _sdpa(qg, kc, vc, causal=True, window=0, q_pos0=off,
+                    kv_len=off + 1)
+    return _slot_out(m, out.reshape(b, 1, hm, hd), wo, cfg=cfg, gp=gp, at=at)
+
+
+def _decode_slot_partial(qs, kc, vc, off, *, p0: int, cap: int):
+    """A slot's decode over its block of a sequence-split cache, the
+    positions [p0, p0 + n) of a cache of ``cap`` (a ring's w): the query
+    heads its KV heads serve (pieces ``qs`` (B,1,*,hd), in head order)
+    against the positions written so far, min(off + 1, cap) of them:
+    (out, lse) of decode_attention_partial."""
+    q = qs[0] if len(qs) == 1 else torch.cat(qs, dim=2)
+    n = kc.shape[1]
+    lengths = torch.clamp(torch.clamp(off + 1, max=cap) - p0, min=0, max=n)
+    return K.decode_attention_partial(q[:, 0], *_page_view(kc, vc),
+                                      lengths.to(torch.int32))
+
+
+def _wo_slot(out, wo, *, at):
+    return torch.einsum("bthk,hkd->btd", out, at(wo).to(out.dtype))
+
+
+def _attn_split_serve(p, x, cfg, *, kind, causal, positions, cache,
+                      cache_len):
+    """``attn_apply`` with a cache (prefill, t > 1, or decode) on a row's
+    model slots, each on its query heads; the norm, and the k/v
+    projections and rope where ``wk``/``wv`` are replicated, once on the
+    row's first slot.  The new k/v rows go to the slots whose blocks
+    hold their positions and heads (:func:`_write_cache`).  Prefill
+    attends the prompt at each slot's heads, as training does.  Decode
+    over a cache split by KV heads: each slot over its own heads' cache;
+    split by positions: each slot holding a block runs
+    decode_attention_partial for the query heads its KV heads serve
+    (gathered onto it), the partials merged in slot order on the first
+    slot (``merge_partials``), each model slot sent its heads for
+    ``wo``; the partial outputs summed in slot order."""
+    from ..kernels.decode_attention import merge_partials
+
+    row = p["wq"].row
+    b, t, _ = x.shape
+    ck = cache["k"]
+    cap = ck.size[0]
+    if t > 1:                                        # ---- prefill
+        if positions is not None:
+            raise NotImplementedError(
+                "a split prefill at given positions: it fills from 0")
+        y, producers = _attn_split(p, x, cfg, kind=kind, causal=causal,
+                                   keep_kv=True)
+        if kind == "local":                          # the ring's layout
+            producers = [(j, hs, *(row.run_at(j, _ring_rows, c, cap)
+                                   for c in kv))
+                         for j, hs, *kv in producers]
+        _write_cache(cache, producers, rows=producers[0][2].shape[1])
+        return y
+
+    # ---- decode (t == 1): positions are the write offsets, off[:, None]
+    tp = len(p["wq"].blocks)
+    hm = p["wq"].blocks[0].shape[-2]
+    kvh = cfg.num_kv_heads
+    gp = hm * tp // kvh
+    at = p["wq"].part
+    first = row.slots[0]
+    split_kv = p["wk"].dim is not None
+    kvm = kvh // tp if split_kv else kvh
+    heads = [(m * kvm, (m + 1) * kvm) for m in range(tp)] if split_kv \
+        else [(0, kvh)]
+    xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    wq, wo = p["wq"].blocks, p["wo"].blocks
+    wks, wvs = (p["wk"].blocks, p["wv"].blocks) if split_kv \
+        else ((None,) * tp, (None,) * tp)
+    off = attn_decode_pos(cache_len, b, device=x.device)
+    offs = {first: off}
+
+    def off_at(j):
+        if j not in offs:
+            offs[j] = row.send(off, first, j)
+        return offs[j]
+
+    qkv = [row.run(m, _decode_slot_qkv, xs[m], wq[m], wks[m], wvs[m],
+                   off_at(row.slots[m]), cfg=cfg, kind=kind, at=at)
+           for m in range(tp)]
+    if split_kv:
+        producers = [(row.slots[m], heads[m], qkv[m][1], qkv[m][2])
+                     for m in range(tp)]
+    else:
+        wk, wv = p["wk"].whole, p["wv"].whole
+        k = _rope_at(torch.einsum("btd,dhk->bthk", xn, wk.to(xn.dtype)),
+                     off[:, None], cfg, kind)
+        v = torch.einsum("btd,dhk->bthk", xn, wv.to(xn.dtype))
+        producers = [(first, heads[0], k, v)]
+    if kind == "local":
+        pos = [o % cap for o in ck.offsets]
+    else:
+        pos = [min(max(o, 0), cap - 1) for o in ck.offsets]
+    _write_cache(cache, producers, pos=pos)
+
+    def blocks_at(j):
+        return tuple(c.part(c.blocks[j]) for c in (cache["k"], cache["v"]))
+
+    readers = ck.readers()
+    if all(sp[0] == (0, cap) for _, sp in readers):  # ---- by KV heads
+        if [j for j, _ in readers] != list(row.slots):
+            raise ValueError("a cache split by KV heads whose blocks are "
+                             "not on the row's model slots")
+        parts = [row.run(m, _decode_slot_heads, m, qkv[m][0], wo[m],
+                         *blocks_at(row.slots[m]), off_at(row.slots[m]),
+                         cfg=cfg, kind=kind, gp=gp, at=at)
+                 for m in range(tp)]
+        return x + row.reduce(parts)
+
+    by_heads = {}                                    # ---- by positions
+    for j, ((p0, _), hs) in readers:
+        qs = [row.send(qkv[m][0][:, :, lo - m * hm:hi - m * hm],
+                       row.slots[m], j)
+              for m, lo, hi in query_plan(hs, hm, gp, tp)]
+        o, lse = row.run_at(j, _decode_slot_partial, qs, *blocks_at(j),
+                            off_at(j), p0=p0, cap=cap)
+        by_heads.setdefault(hs, []).append((row.send(o, j, first),
+                                            row.send(lse, j, first)))
+    out = torch.cat([merge_partials([o for o, _ in by_heads[hs]],
+                                    [s for _, s in by_heads[hs]],
+                                    dtype=x.dtype)
+                     for hs in sorted(by_heads)], dim=1)
+    out = _head_mask(out[:, None], cfg.num_heads, kvh)
+    outs = row.scatter(out, dim=2, ranges=[(m * hm, (m + 1) * hm)
+                                           for m in range(tp)])
+    parts = [row.run(m, _wo_slot, outs[m], wo[m], at=at) for m in range(tp)]
     return x + row.reduce(parts)
 
 
@@ -1049,6 +1396,29 @@ def _logits_slot(xn, w, *, tied: bool, at):
     lg = (torch.einsum("btd,vd->btv", xn, w.to(xn.dtype)) if tied
           else torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))).float()
     return lg, lg.detach().amax(dim=-1)
+
+
+def _logits_block(xn, w, *, tied: bool, at):
+    """Slot's block of the logits (B,T,V/tp) in xn's dtype."""
+    w = at(w)
+    if tied:
+        return torch.einsum("btd,vd->btv", xn, w.to(xn.dtype))
+    return torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))
+
+
+def _logits_split(p, x, cfg) -> Blocks:
+    """``logits_apply`` on a row's model slots: the norm on the first
+    slot, each slot's vocabulary block of the logits kept on that slot, a
+    :class:`Blocks` split along the vocabulary (dim 2), as the
+    reference's logits spec lays them out."""
+    w = p["tokens"] if cfg.tie_embeddings else p["head"]
+    _vocab_block(w, 0 if cfg.tie_embeddings else 1, "logits' weight")
+    row = w.row
+    xn = rms_norm(x, p["final_ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    return Blocks(tuple(row.run(m, _logits_block, xs[m], w.blocks[m],
+                                tied=cfg.tie_embeddings, at=w.part)
+                        for m in range(len(w.blocks))), row, 2)
 
 
 def _xent_slot(lg, top, labels, lo: int):

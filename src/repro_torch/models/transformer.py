@@ -21,7 +21,11 @@ forms, each chunk's logits stay in each model slot's vocabulary block
 (``layers.xent_terms``), and a period's recompute runs its whole body
 again, so the split layers' sends are re-issued in the backward pass
 (checkpoint's early stop, which would end the recompute at the last
-saved tensor, before the period's last sum, is off there).
+saved tensor, before the period's last sum, is off there).  So does a
+split serving step (``launch/serve.py::MeshServe``): split parameters,
+caches as ``layers.CacheBlocks`` (each slot's block, written in place),
+no remat, and the last position's logits a ``layers.Blocks`` of each
+model slot's vocabulary block.
 """
 from __future__ import annotations
 

@@ -206,9 +206,16 @@ class ModelRow:
     coordinate order; ``slots[0]``, the row's first slot, holds its
     replicated activations), with the two things a split layer asks of
     it: ``send(t, src, dst)`` moves a tensor between slots (flat
-    indices), and ``run(slot, fn, *args, **kwargs)`` runs a slot's work,
-    ``fn(*args, **kwargs)``, by default where it is called (the dry run
-    runs only its own slot's)."""
+    indices), and ``run(m, fn, *args, **kwargs)`` runs model slot m's
+    work, ``fn(*args, **kwargs)`` (``run_at`` any slot's, by flat
+    index), by default where it is called (the dry run runs only its own
+    slot's).  A split serving step's moves go through the same ``send``:
+    the query heads gathered onto the slots that hold a block of a
+    sequence-split cache, their ``(out, lse)`` partials to the first
+    slot, each new k/v row to the slots whose blocks hold its position
+    and heads, the merged heads back to the slots that hold ``wo``'s
+    rows (``models/layers.py``); they run under ``no_grad``, so none
+    needs a backward."""
 
     def __init__(self, slots, send, run=None):
         self.slots = tuple(slots)
@@ -227,15 +234,64 @@ class ModelRow:
         return self.send(t, self.slots[m], self.slots[0])
 
     def run(self, m: int, fn, *args, **kwargs):
+        return self.run_at(self.slots[m], fn, *args, **kwargs)
+
+    def run_at(self, slot: int, fn, *args, **kwargs):
+        """Slot ``slot``'s work (a flat index, in this row or not: a
+        serving step's cache blocks may lie on other rows' slots)."""
         if self._run is None:
             return fn(*args, **kwargs)
-        return self._run(self.slots[m], fn, *args, **kwargs)
+        return self._run(slot, fn, *args, **kwargs)
 
     def scatter(self, x, dim: int | None = None, ranges=None) -> tuple:
         return to_model_slots(self, x, dim, ranges)
 
     def reduce(self, parts):
         return sum_model_slots(self, parts)
+
+
+def data_slots(mesh, dp_axes) -> list[int]:
+    """The flat index of each data shard's first slot (every non-data
+    coordinate 0), in slot order."""
+    other = [i for i, a in enumerate(mesh.axis_names) if a not in dp_axes]
+    return [i for i, c in enumerate(np.ndindex(*mesh.devices.shape))
+            if all(c[j] == 0 for j in other)]
+
+
+def model_dim(spec):
+    """The dim a spec splits over ``"model"``, or None."""
+    for i, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i
+    return None
+
+
+def model_rows(mesh, dp_axes) -> dict[int, list[int]]:
+    """{data shard's first slot: its row's slots on the model axis}, flat
+    indices in model coordinate order ([the slot] without a model
+    axis): the slots of a :class:`ModelRow`."""
+    firsts = data_slots(mesh, tuple(dp_axes))
+    if "model" not in mesh.axis_names:
+        return {i: [i] for i in firsts}
+    ax = mesh.axis_names.index("model")
+    shape = mesh.devices.shape
+    coords = list(np.ndindex(*shape))
+    return {i: [int(np.ravel_multi_index(
+        coords[i][:ax] + (m,) + coords[i][ax + 1:], shape))
+        for m in range(shape[ax])] for i in firsts}
+
+
+def row_blocks(params, row: ModelRow):
+    """A data row's view of a tree of :class:`Laid` parameters: each leaf
+    a ``layers.Blocks`` of the row's blocks where its spec splits it over
+    the model axis, else of its first slot's (whole) block."""
+    def leaf(laid):
+        dim = model_dim(laid.layout.spec)
+        if dim is None:
+            return L.Blocks((laid.blocks[row.slots[0]],), row)
+        return L.Blocks(tuple(laid.blocks[j] for j in row.slots), row, dim)
+
+    return L.tree_map(leaf, params)
 
 
 class _ToModelSlots(torch.autograd.Function):

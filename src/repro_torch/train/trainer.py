@@ -156,22 +156,6 @@ def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
     return step
 
 
-def _data_slots(mesh, dp_axes) -> list[int]:
-    """The flat index of each data shard's first slot (every non-data
-    coordinate 0), in slot order."""
-    other = [i for i, a in enumerate(mesh.axis_names) if a not in dp_axes]
-    return [i for i, c in enumerate(np.ndindex(*mesh.devices.shape))
-            if all(c[j] == 0 for j in other)]
-
-
-def _model_dim(spec):
-    """The dim a spec splits over ``"model"``, or None."""
-    for i, e in enumerate(spec):
-        if e == "model" or (isinstance(e, tuple) and "model" in e):
-            return i
-    return None
-
-
 class MeshStep:
     """The parts of the train step on ``mesh`` (see the module docstring
     and :func:`make_mesh_train_step`), each one slot's program: a data
@@ -187,7 +171,7 @@ class MeshStep:
         self.api = api
         self.opt_cfg = opt_cfg
         self.mesh = mesh
-        self.slots = _data_slots(mesh, tuple(dp_axes))
+        self.slots = S.data_slots(mesh, tuple(dp_axes))
         self.coords = list(np.ndindex(*mesh.devices.shape))
         self.p_lay = S.layouts(mesh, param_specs)
         self.m_lay = S.layouts(mesh, opt_specs["m"])
@@ -195,14 +179,7 @@ class MeshStep:
         self.b_lay = S.layouts(mesh, batch_specs)
         tp = int(mesh.shape.get("model", 1))
         self.split = tp > 1 and api.model_split()
-        self.rows = {}
-        if "model" in mesh.axis_names:
-            ax = mesh.axis_names.index("model")
-            for i in self.slots:
-                c = list(self.coords[i])
-                self.rows[i] = [int(np.ravel_multi_index(
-                    tuple(c[:ax] + [m] + c[ax + 1:]), mesh.devices.shape))
-                    for m in range(tp)]
+        self.rows = S.model_rows(mesh, dp_axes)
 
     def send(self, t, src: int, dst: int, out=None):
         return S.send(t, self.mesh, src, dst, out=out)
@@ -215,21 +192,6 @@ class MeshStep:
         """Data shard ``i``'s (its first slot's flat index) row of model
         slots."""
         return S.ModelRow(self.rows[i], self.send)
-
-    def row_blocks(self, params, i: int):
-        """Data row ``i``'s view of the parameters: each leaf a
-        ``layers.Blocks`` of the row's blocks where its spec splits it
-        over the model axis, else of its first slot's (whole) block."""
-        row = self.model_row(i)
-
-        def leaf(laid):
-            dim = _model_dim(laid.layout.spec)
-            if dim is None:
-                return L.Blocks((laid.blocks[i],), row)
-            return L.Blocks(tuple(laid.blocks[j] for j in row.slots), row,
-                            dim)
-
-        return L.tree_map(leaf, params)
 
     def shard_grads(self, params, batch, cnt, i: int):
         """Data shard ``i``'s (its first slot's flat index) part on its
@@ -248,7 +210,7 @@ class MeshStep:
             out = m["xent"] * w
             return out + (0.01 / dp) * m["aux"] if "aux" in m else out
 
-        given = self.row_blocks(params, i) if self.split \
+        given = S.row_blocks(params, self.model_row(i)) if self.split \
             else S.gather_tree(params, i)
         l_d, m_d, g_d = self.loss_and_grads(given, rows, objective)
         return l_d, m_d["xent"] * w, m_d.get("aux"), g_d

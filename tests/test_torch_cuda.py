@@ -775,15 +775,72 @@ def test_decode_attention_bits_do_not_depend_on_table_padding(cuda):
 
 def test_decode_attention_empty_sequence_gives_zeros(cuda):
     """A sequence of length 0 gives zeros (the Pallas kernel's flush of an
-    empty (m, l, acc)), its batch neighbour the plain version's answer."""
+    empty (m, l, acc)), as the plain version does; its batch neighbour
+    the plain version's answer."""
     rng = np.random.default_rng(19)
     q, kp, vp, pt, lengths = _paged(rng, [1, 90], hq=6, hkv=2, d=128,
                                     device=cuda)
     lengths[0] = 0
     got = kernels.decode_attention(q, kp, vp, pt, lengths)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
-    _close(got[1:], ref.decode_attention_ref(q, kp, vp, pt, lengths)[1:],
-           3e-5)
+    _close(got, ref.decode_attention_ref(q, kp, vp, pt, lengths), 3e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 3e-5)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 256), (4, 1, 128),
+                                      (64, 8, 128), (6, 2, 64)])
+def test_decode_attention_partial_matches_plain(cuda, dtype, tol, hq, hkv,
+                                                d):
+    """The partial entry against its plain version, out and lse, at the
+    split serving step's head groups (gemma3-12b's 16/8 at D 256, a
+    slot's 4 heads of one KV head, internvl2-76b's 64/8) and lengths
+    across split boundaries, one of them 0 (zeros and -inf); out in fp32
+    whatever the pools' type, never rounded, so held at the fp32
+    tolerance for bf16 pools too; counted in the partial's launches."""
+    rng = np.random.default_rng(31)
+    args = _paged(rng, [0, 300, 65, 1000], hq=hq, hkv=hkv, d=d, pad=1,
+                  device=cuda, dtype=dtype)
+    counts = kernels.launch_counts()
+    out, lse = kernels.decode_attention_partial(*args)
+    after = kernels.launch_counts()
+    assert after["decode_attention_partial"] == \
+        counts["decode_attention_partial"] + 1
+    assert after["decode_attention"] == counts["decode_attention"]
+    assert out.dtype == lse.dtype == torch.float32
+    want_out, want_lse = ref.decode_attention_partial_ref(*args)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool(torch.isneginf(lse[0]).all())
+    _close(out, want_out, tol)
+    _close(lse[1:], want_lse[1:], tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_attention_partials_merged_equal_the_whole(cuda, dtype, tol):
+    """A dense cache of 2,048 positions split into 16 blocks of 128 (the
+    split serving step's global cache at model degree 16), each block's
+    partial, merged in block order, against decode_attention over the
+    whole cache: lengths ending inside the first block (15 blocks at
+    length 0), mid-way and at the end."""
+    from repro_torch.kernels.decode_attention import merge_partials
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(32)
+    b, s_len, hkv, g, d, n = 3, 2048, 8, 2, 256, 16
+    kc, vc = (_r(rng, b, s_len, hkv, d, device=cuda, dtype=dtype)
+              for _ in range(2))
+    q = _r(rng, b, hkv * g, d, device=cuda, dtype=dtype)
+    lengths = torch.tensor([5, 1000, s_len], dtype=torch.int32, device=cuda)
+    whole = kernels.decode_attention(q, *L._page_view(kc, vc), lengths)
+    blk = s_len // n
+    parts = [kernels.decode_attention_partial(
+        q, *L._page_view(kc[:, i * blk:(i + 1) * blk].contiguous(),
+                         vc[:, i * blk:(i + 1) * blk].contiguous()),
+        torch.clamp(lengths - i * blk, 0, blk).to(torch.int32))
+        for i in range(n)]
+    got = merge_partials([o for o, _ in parts], [s for _, s in parts],
+                         dtype=dtype)
+    _close(got, whole, tol)
 
 
 def test_decode_attention_copy_width_does_not_change_bits(cuda):
@@ -1244,3 +1301,66 @@ def test_trainer_gives_every_leaf_a_gradient_on_the_card(cuda, name):
     assert n["rmsnorm"] > 0 and n["decode_attention"] == 0
     if name != "xlstm-125m":
         assert n["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("name", ["gemma3-12b", "llama3.2-3b"])
+@pytest.mark.parametrize("shape,long_mode", [((1, 2), False),
+                                             ((1, 4), False),
+                                             ((2, 2), True)])
+def test_mesh_serve_on_the_card_matches_the_cpu(cuda, name, shape,
+                                                long_mode):
+    """``MeshServe`` split over the model axis on slots of the card (the
+    smokes in fp32, prefill 2 x 12 into caches of 24 and 3 steps; batch
+    1 in long mode): each step's logits within 1e-4 of the same split
+    step on CPU slots (the plain versions), rmsnorm, flash_attention and
+    decode_attention launched (the partial entry where a cache splits by
+    positions: at (1, 4), whose 2 KV heads do not divide 4, and in long
+    mode)."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import MeshServe
+    from repro_torch.models import build
+    from repro_torch.train import sharded as S
+    cfg = SMOKES[name].replace(dtype="float32")
+    d, m = shape
+    b = 1 if long_mode else 2
+    api = build(cfg, tp=m)
+    params = api.init_params(0, "cpu")
+    rng = np.random.default_rng(33)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, 15)),
+                        dtype=torch.int32)
+
+    def run(dev):
+        mesh = make_host_mesh(devices=[dev] * (d * m), shape=shape)
+        ms = MeshServe(api, mesh, long_mode=long_mode)
+        assert ms.split
+        p = ms.lay_out_params(_on(params, dev))
+        c = ms.init_caches(b, 24)
+        out = []
+        with torch.no_grad():
+            lg, c = ms.prefill(p, ms.lay_out_inputs(
+                {"tokens": toks[:, :12].to(dev)}), c)
+            out.append(S.gather(lg).cpu())
+            lengths = torch.full((b,), 12, dtype=torch.int32, device=dev)
+            for i in range(12, 15):
+                lg, c = ms.decode(p, ms.lay_out_inputs(
+                    {"tokens": toks[:, i:i + 1].to(dev),
+                     "lengths": lengths}), c)
+                out.append(S.gather(lg).cpu())
+                lengths = lengths + 1
+        return out
+
+    kernels.reset_launch_counts()
+    got = run("cuda:0")
+    launches = kernels.launch_counts()
+    assert launches["rmsnorm"] > 0 and launches["flash_attention"] > 0
+    by_positions = long_mode or m == 4
+    assert launches["decode_attention_partial" if by_positions
+                    else "decode_attention"] > 0, launches
+    for a, w in zip(got, run("cpu")):
+        _close(a, w, 1e-4)
+
+
+def _on(tree, dev):
+    from repro_torch.models import layers as L
+    return L.tree_map(lambda t: t.to(dev), tree)

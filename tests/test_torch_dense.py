@@ -487,4 +487,6 @@ def test_dense_path_on_cpu_launches_nothing():
     """On CPU tensors every wrapper on the path is its plain version."""
     tk.reset_launch_counts()
     _port_run.__wrapped__("gemma3-12b", "float32")
-    assert tk.launch_counts() == {k: 0 for k in tk.KERNELS}
+    counts = tk.launch_counts()
+    assert set(tk.KERNELS) < set(counts)
+    assert counts == dict.fromkeys(counts, 0)

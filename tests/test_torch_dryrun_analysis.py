@@ -21,7 +21,8 @@
 (d) ``transfers`` against every byte that ``Trainer(mesh=...)``'s real
     step sends between slots on 8 CPU slots, recorded by wrapping
     ``train/sharded.py::send``, at the byte, on (2, 4) and (4, 2) meshes
-    with and without ZeRO-1;
+    with and without ZeRO-1, and ``serve_transfers`` against
+    ``MeshServe``'s split prefill and decode steps the same way;
 (e) the kernels' cost functions: flash's closed form of the visible
     pairs against the loop it replaced, the bounds ``chip_smoke.py``
     computed before against the package's, decode's count on ``meta``,
@@ -403,11 +404,73 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
 
 
 def test_serving_cells_record_no_collectives():
+    """A gathered serving step moves nothing between slots: the families
+    ``ModelAPI.model_split`` leaves out, and a split family on a model
+    axis of one."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
-    for kind in ("prefill", "decode"):
-        cell, _ = D.lower_cell(SMOKES["llama3.2-3b"],
-                               ShapeConfig("s", kind, 32, 8), mesh)
-        assert D.collectives(cell) is None
+    for arch in ("phi3.5-moe-42b-a6.6b", "minicpm3-4b", "xlstm-125m"):
+        for kind in ("prefill", "decode"):
+            cell, _ = D.lower_cell(SMOKES[arch],
+                                   ShapeConfig("s", kind, 32, 8), mesh)
+            assert not D.model_split(cell)
+            assert D.collectives(cell) is None
+    cell, _ = D.lower_cell(SMOKES["llama3.2-3b"],
+                           ShapeConfig("s", "decode", 32, 8),
+                           D.meta_mesh((8, 1), ("data", "model")))
+    assert D.collectives(cell) is None
+
+
+def _serve_inputs(api, shape, cell):
+    batch = _inputs(api, shape)
+    if "lengths" in batch:              # at the dry run's offsets
+        batch["lengths"] = torch.tensor(
+            D.decode_offsets(shape), dtype=torch.int32)
+    return batch
+
+
+@pytest.mark.parametrize("kind,batch", [("prefill", 8), ("decode", 8),
+                                        ("decode", 1)])
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-12b",
+                                  "internvl2-76b"])
+def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
+        arch, mesh_shape, kind, batch, monkeypatch):
+    """``transfers``'s serving counterpart (``serve_transfers``) against
+    every byte that ``MeshServe``'s split step sends between slots on 8
+    CPU slots, at the byte: a prefill, a decode step in normal mode and
+    in long mode (batch 1), on the cell's own layouts, the decode at the
+    dry run's offsets; ``collectives`` reads them as for a train cell."""
+    from repro_torch.launch.serve import MeshServe
+    cfg = SMOKES[arch]
+    shape = ShapeConfig("s", kind, 32, batch)
+    mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
+    cell, _ = D.lower_cell(cfg, shape, mesh)
+    api = cell.api
+    serve = MeshServe(api, mesh, long_mode=D._is_long_mode(shape))
+    params = serve.lay_out_params(L.tree_map(
+        lambda t: t.to(torch.bfloat16), api.init_params(0, CPU)))
+    caches = serve.init_caches(batch, 32, specs=cell.trees["caches"][1])
+    inputs = {k: S.lay_out(v, S.Layout(mesh, cell.trees["inputs"][1][k]))
+              for k, v in _serve_inputs(api, shape, cell).items()}
+    moved = _recorded_sends(monkeypatch)
+    with torch.no_grad():
+        (serve.decode if kind == "decode" else serve.prefill)(
+            params, inputs, caches)
+    kinds = D.serve_transfers(cell)
+    counted = collections.Counter()
+    for m in kinds.values():
+        counted.update(m)
+    assert dict(counted) == dict(moved)
+    assert D.model_split(cell)
+    assert "embed" in kinds and "activations" in kinds
+    assert ("positions" in kinds) == (kind == "decode")
+    rec = D.collectives(cell)
+    per = np.zeros(8, dtype=np.int64)
+    for (src, dst), n in moved.items():
+        per[src] += n
+        per[dst] += n
+    assert rec["total_bytes"] == per.max()
+    assert rec["mesh_total_bytes"] == sum(moved.values())
 
 
 # ------------------------------------------------- (e) the cost functions
@@ -537,3 +600,48 @@ def test_decode_scratch_is_allocated_on_meta():
                                                lengths)
     assert tr.peak_bytes - tr.held_bytes == out.nbytes + ws.nbytes
     assert tr.kernel_calls == {"decode_attention": 1}
+
+
+def test_split_decode_trace_is_the_unsplit_one_a_slot_at_a_time():
+    """A (1, 2) decode trace against the (1, 1) one in closed form: slot
+    0 holds its share of the arguments (half of every split leaf and
+    cache, the replicated ones whole), does half of every product (its
+    heads, MLP columns, vocabulary block and KV heads), calls the same
+    kernels as often (the norms once a row, decode over its own KV
+    heads; the norms, whole on the row's first slot, are rmsnorm's
+    flops), and holds beyond its arguments at least a partial that
+    arrives from slot 1 and at most the (1, 1) step's temporaries plus
+    every byte that arrives."""
+    cfg = SMOKES["gemma3-27b"]
+    shape = ShapeConfig("s", "decode", 32, 2)
+    runs = {}
+    for m in (1, 2):
+        cell, _ = D.lower_cell(cfg, shape,
+                               D.meta_mesh((1, m), ("data", "model")))
+        tr = StepTrace()
+        D.trace_cell(cell, shape, tr)
+        runs[m] = (cell, tr)
+    (c1, one), (c2, two) = runs[1], runs[2]
+    assert D.model_split(c2) and not D.model_split(c1)
+    assert two.held_bytes == D.memory(c2)["argument_size_in_bytes"]
+    split = replicated = 0
+    for tree, specs in (c2.trees["params"], c2.trees["caches"]):
+        for leaf, spec in zip(L.tree_leaves(tree), L.tree_leaves(specs)):
+            if "model" in spec:
+                split += leaf.nbytes
+            else:
+                replicated += leaf.nbytes
+    inputs = sum(t.nbytes for t in L.tree_leaves(c2.trees["inputs"][0]))
+    assert two.held_bytes == split // 2 + replicated + inputs
+    assert one.held_bytes == split + replicated + inputs
+    assert two.kernel_calls == one.kernel_calls
+    norms = 4.0 * shape.global_batch * cfg.d_model \
+        * one.kernel_calls["rmsnorm"]          # whole on slot 0 either way
+    assert two.dot_flops == one.dot_flops / 2
+    assert two.flops == (one.flops - norms) / 2 + norms
+    arrived = sum(n for moves in D.serve_transfers(c2).values()
+                  for (_, dst), n in moves.items() if dst == 0)
+    partial = shape.global_batch * cfg.d_model * 2      # (B, 1, D) bf16
+    temp1 = one.peak_bytes - one.held_bytes
+    temp2 = two.peak_bytes - two.held_bytes
+    assert partial <= temp2 <= temp1 + arrived

@@ -5,7 +5,8 @@ command writes one record a cell (item (e) of
 ``tests/test_torch_dryrun.py``), each with the analysis half's keys:
 peak and temp bytes (traced at the cell's own shape, so no lower
 bound), ``fits`` and ``arguments_fit``, flops, dot flops,
-bytes accessed, and transfers for a train cell (None to serve).  About
+bytes accessed, and transfers for a train cell or a serving cell split
+over the model axis (None for a gathered serving cell).  About
 five minutes: the recurrent families' train cells loop over 512 time
 steps of meta ops, under the trace's dispatch mode."""
 import json
@@ -42,7 +43,7 @@ def test_command_line_dev_smoke_all_cells(tmp_path):
         assert m["peak_is_lower_bound"] is False, name
         assert 0 < rec["flops"] and 0 < rec["dot_flops"] \
             and 0 < rec["bytes_accessed"], name
-        if rec["kind"] == "train":
+        if rec["kind"] == "train" or rec["model_split"]:
             c = rec["collectives"]
             assert c["total_bytes"] == sum(c["bytes_by_kind"].values()) > 0
         else:

@@ -157,7 +157,9 @@ def test_plain_path_on_cpu_launches_nothing():
     tk.sddmm(h, nbr, mask)
     tk.gemm(h, h.t().contiguous())
     tk.agg_combine(h, nbr, mask, h[:8].t().contiguous(), torch.zeros(8))
-    assert tk.launch_counts() == {k: 0 for k in tk.KERNELS}
+    counts = tk.launch_counts()
+    assert set(tk.KERNELS) < set(counts)
+    assert counts == dict.fromkeys(counts, 0)
     with pytest.raises(ValueError):
         tk.spmm(h, nbr, mask, mode="max")
     with pytest.raises(ValueError):

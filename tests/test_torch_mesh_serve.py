@@ -1,0 +1,325 @@
+"""Serving on the model axis (``launch/serve.py::MeshServe``) on 8 CPU
+slots: the split prefill and decode steps of the four architectures that
+split (llama3.2-3b, gemma3-12b/27b, internvl2-76b: each data row's model
+slots on their own heads, MLP columns, vocabulary block and block of
+every cache) against the gathered step (the whole parameters and the
+row's caches on its first slot) and against the reference's
+``api.prefill`` / ``api.decode`` jitted with the same shardings under
+its host mesh of 8 forced devices, at (1, 8), (2, 4) and (4, 2), and in
+long mode (decode at batch 1: a global cache's sequence over the data
+axes) at (2, 4) and (4, 2); the moves of a recorded step (no slot is
+written a cache row outside its block, no slot is sent a whole split
+parameter); and the decode_attention_partial plain version, merged
+over any split of the positions, against ``decode_attention_ref``.
+
+The smokes run in fp32, a prefill of 8 x 16 tokens (after a VLM's
+patches) into caches of 32, then 3 decode steps.  Tolerance: each
+step's logits and every cache leaf within 1e-5 of their largest
+element."""
+import collections
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as JP
+
+from repro.configs import SMOKES as J_SMOKES
+from repro.launch.mesh import make_host_mesh as j_make_host_mesh
+from repro.models import build as jbuild, layers as JL
+from repro_torch.configs import SMOKES
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import merge_partials
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.serve import MeshServe
+from repro_torch.models import build, layers as L
+from repro_torch.train import sharded as S
+from _torch_threads import one_torch_thread  # noqa: F401
+
+CPU = "cpu"
+SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b")
+CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
+    + [(m, True) for m in ((2, 4), (4, 2))]
+TOL = 1e-5
+BATCH, PROMPT, SEQ, STEPS = 8, 16, 32, 3
+
+
+def _ids(case):
+    (d, m), long_mode = case
+    return f"{d}x{m}" + ("-long" if long_mode else "")
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(name, tp):
+    """The reference's seed-0 parameters at model degree ``tp`` (its
+    tree, in numpy) and the inputs: tokens (B, PROMPT + STEPS) and a
+    VLM's patches, from a numpy seed."""
+    jcfg = J_SMOKES[name].replace(dtype="float32")
+    jp = jax.tree.map(np.asarray, jbuild(jcfg, tp=tp).init_params(0))
+    rng = np.random.default_rng(0)
+    inp = {"tokens": rng.integers(0, jcfg.vocab_size,
+                                  (BATCH, PROMPT + STEPS)).astype(np.int32)}
+    if jcfg.num_patches:
+        inp["patches"] = rng.standard_normal(
+            (BATCH, jcfg.num_patches, jcfg.d_model)).astype(np.float32)
+    return jp, inp
+
+
+def _steps(name, long_mode):
+    """(batch of the prefill, list of decode batches) in numpy: batch 1
+    in long mode."""
+    _, inp = _setup(name, 1)
+    b = 1 if long_mode else BATCH
+    pre = SMOKES[name].num_patches
+    first = {"tokens": inp["tokens"][:b, :PROMPT]}
+    if pre:
+        first["patches"] = inp["patches"][:b]
+    steps = [{"tokens": inp["tokens"][:b, i:i + 1],
+              "lengths": np.full((b,), i + pre, np.int32)}
+             for i in range(PROMPT, PROMPT + STEPS)]
+    return first, steps
+
+
+def _serve(name, mesh_shape, long_mode, split=True, monkeypatch=None,
+           sends=None):
+    """The port's MeshServe on 8 CPU slots: (each step's logits, the
+    caches after the last step), gathered, in numpy; ``sends``, where
+    given, collects (src, dst, storage) of every move between slots."""
+    d, m = mesh_shape
+    jp, _ = _setup(name, m)
+    cfg = SMOKES[name].replace(dtype="float32")
+    api = build(cfg, tp=m)
+    mesh = make_host_mesh(devices=[CPU] * (d * m), shape=mesh_shape)
+    serve = MeshServe(api, mesh, long_mode=long_mode)
+    assert serve.split
+    serve.split = split
+    first, steps = _steps(name, long_mode)
+    b = first["tokens"].shape[0]
+    params = serve.params = serve.lay_out_params(
+        api.params_from_numpy(jp, CPU))
+    caches = serve.init_caches(b, SEQ + cfg.num_patches)
+    if sends is not None:
+        send = S.send
+
+        def recording(t, mesh_, src, dst, out=None):
+            if src is not None and src != dst:
+                sends.append((src, dst, t.untyped_storage().data_ptr()))
+            return send(t, mesh_, src, dst, out=out)
+        monkeypatch.setattr(S, "send", recording)
+    logits = []
+    with torch.no_grad():
+        lg, caches = serve.prefill(params, serve.lay_out_inputs(
+            {k: torch.from_numpy(v) for k, v in first.items()}), caches)
+        logits.append(S.gather(lg).numpy().copy())
+        for batch in steps:
+            lg, caches = serve.decode(params, serve.lay_out_inputs(
+                {k: torch.from_numpy(v) for k, v in batch.items()}), caches)
+            logits.append(S.gather(lg).numpy().copy())
+    if sends is not None:
+        monkeypatch.undo()
+    return logits, [t.numpy().copy() for t in
+                    L.tree_leaves(S.gather_tree(caches))], serve, caches
+
+
+@functools.lru_cache(maxsize=None)
+def _outputs(name, mesh_shape, long_mode, split=True):
+    """:func:`_serve`'s logits and caches, once for each case."""
+    return _serve(name, mesh_shape, long_mode, split=split)[:2]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name, mesh_shape, long_mode):
+    """The reference's prefill and decode steps jitted with the port's
+    layouts as NamedShardings on its (d, m) host mesh, under its
+    ``use_mesh`` (DP resolved to no axes in long mode, as its dry run
+    does): each step's logits and the final caches, in numpy."""
+    d, m = mesh_shape
+    jp, _ = _setup(name, m)
+    jcfg = J_SMOKES[name].replace(dtype="float32")
+    api = jbuild(jcfg, tp=m)
+    port = MeshServe(build(SMOKES[name].replace(dtype="float32"), tp=m),
+                     make_host_mesh(devices=[CPU] * (d * m),
+                                    shape=mesh_shape), long_mode=long_mode)
+    jmesh = j_make_host_mesh(d * m, shape=mesh_shape)
+    first, steps = _steps(name, long_mode)
+    b = first["tokens"].shape[0]
+    seq = SEQ + jcfg.num_patches
+
+    def ns(spec):
+        return NamedSharding(jmesh, JP(*spec))
+
+    c_sh = L.tree_map(lambda p: ns(p), port.cache_specs(b, seq))
+    c_sh = jax.tree.unflatten(jax.tree.structure(
+        api.cache_defs(b, seq, long_mode=long_mode),
+        is_leaf=lambda x: isinstance(x, JL.ParamDef)), L.tree_leaves(c_sh))
+    caches = JL.init_tree(api.cache_defs(b, seq, long_mode=long_mode))
+    lg_sh = ns(port.logits_spec)
+
+    def in_sh(batch):
+        return {k: ns(lay.spec) for k, lay in port.input_layouts(
+            {k: torch.from_numpy(v) for k, v in batch.items()}).items()}
+
+    with JL.use_mesh(jmesh, () if long_mode else ("data",)):
+        p_sh = jax.tree.map(ns, api.param_pspecs(),
+                            is_leaf=lambda x: isinstance(x, JP))
+        prefill = jax.jit(api.prefill, in_shardings=(p_sh, in_sh(first),
+                                                     c_sh),
+                          out_shardings=(lg_sh, c_sh))
+        lg, caches = prefill(jp, first, caches)
+        logits = [np.asarray(lg)]
+        decode = jax.jit(api.decode, in_shardings=(p_sh, in_sh(steps[0]),
+                                                   c_sh),
+                         out_shardings=(lg_sh, c_sh))
+        for batch in steps:
+            lg, caches = decode(jp, batch, caches)
+            logits.append(np.asarray(lg))
+    return logits, [np.asarray(a) for a in jax.tree.leaves(caches)]
+
+
+def _hold(got, want, what):
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape, (what, i, a.shape, w.shape)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(a - w).max())
+        assert err <= TOL * scale, (what, i, err, scale)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("name", SPLIT)
+def test_split_serving_equals_the_gathered_step(name, case):
+    """Each step's logits (gathered from the slots' vocabulary blocks)
+    and the caches (gathered from the slots' blocks) of the split step
+    against the gathered step's on the same layouts."""
+    mesh_shape, long_mode = case
+    lg, caches = _outputs(name, mesh_shape, long_mode)
+    lg_g, caches_g = _outputs(name, mesh_shape, long_mode, split=False)
+    _hold(lg, lg_g, (name, case, "logits"))
+    _hold(caches, caches_g, (name, case, "caches"))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("name", SPLIT)
+def test_split_serving_equals_the_references_sharded_jit(spmd_devices, name,
+                                                         case):
+    mesh_shape, long_mode = case
+    lg, caches = _outputs(name, mesh_shape, long_mode)
+    want_lg, want_caches = _reference(name, mesh_shape, long_mode)
+    _hold(lg, want_lg, (name, case, "logits"))
+    _hold(caches, want_caches, (name, case, "caches"))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("name", ["gemma3-12b", "internvl2-76b"])
+def test_no_slot_is_written_a_row_outside_its_block(monkeypatch, name, case):
+    """Every cache write of the split step is a slot writing its own
+    block (one of the cache's blocks, the slot's) inside its positions;
+    the rows written a step add up to the rows the step's blocks own:
+    a prefill's positions in each block (every replica too), a decode
+    step's one position a sequence in the blocks that hold it."""
+    mesh_shape, long_mode = case
+    writes = []
+    put_rows, put_tokens = L._put_rows, L._put_tokens
+
+    def rows(block, piece, at):
+        assert 0 <= at and at + piece.shape[1] <= block.shape[1]
+        writes.append((block.untyped_storage().data_ptr(),
+                       piece.shape[0] * piece.shape[1]))
+        return put_rows(block, piece, at)
+
+    def tokens(block, piece, seqs, cols):
+        assert all(0 <= c < block.shape[1] for c in cols)
+        assert len(seqs) == piece.shape[0]
+        writes.append((block.untyped_storage().data_ptr(), len(seqs)))
+        return put_tokens(block, piece, seqs, cols)
+
+    run_at = S.ModelRow.run_at
+    owner = {}
+
+    def noted(self, slot, fn, *args, **kwargs):
+        if fn in (rows, tokens):
+            owner.setdefault(args[0].untyped_storage().data_ptr(),
+                             set()).add(slot)
+        return run_at(self, slot, fn, *args, **kwargs)
+
+    monkeypatch.setattr(L, "_put_rows", rows)
+    monkeypatch.setattr(L, "_put_tokens", tokens)
+    monkeypatch.setattr(S.ModelRow, "run_at", noted)
+    _, _, serve, caches = _serve(name, mesh_shape, long_mode)
+    monkeypatch.undo()
+    held = {}
+    for laid in L.tree_leaves(caches):
+        for j, blk in enumerate(laid.blocks):
+            held.setdefault(blk.untyped_storage().data_ptr(), set()).add(j)
+    for ptr, slots in owner.items():
+        assert slots <= held[ptr], (ptr, slots, held.get(ptr))
+    assert writes
+
+
+@pytest.mark.parametrize("name", SPLIT)
+def test_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name):
+    """At (2, 4) no move of the split step reads a parameter's storage:
+    each slot computes on its own blocks and only activations, k/v rows,
+    queries and partials move; the gathered step's moves read them (it
+    gathers the whole parameters onto each data row's first slot)."""
+    for split in (True, False):
+        sends = []
+        _, _, serve, _ = _serve(name, (2, 4), False, split=split,
+                                monkeypatch=monkeypatch, sends=sends)
+        held = {b.untyped_storage().data_ptr()
+                for laid in L.tree_leaves(serve.params) for b in laid.blocks}
+        assert sends
+        assert any(ptr in held for _, _, ptr in sends) != split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cuts", [(32,), (16, 16), (8, 8, 8, 8), (5, 11, 16),
+                                  (1,) * 32, (31, 1)])
+def test_partials_merged_over_any_split_equal_the_whole(cuts, dtype):
+    """decode_attention_partial's plain version over each block of a
+    split of 32 positions, merged in block order (fp32, rounded once),
+    against decode_attention_ref over all of them, at lengths 0 (zeros
+    everywhere, every block's lse -inf), 1, inside a block, on a block's
+    edge and 32; each block at length 0 gives zeros and -inf."""
+    g = torch.Generator().manual_seed(5)
+    b, s, hkv, gq, d = 6, 32, 2, 3, 16
+    kc, vc = (torch.randn(b, s, hkv, d, generator=g).to(dtype)
+              for _ in range(2))
+    q = torch.randn(b, hkv * gq, d, generator=g).to(dtype)
+    lengths = torch.tensor([0, 1, 7, 16, 21, 32], dtype=torch.int32)
+    whole = ref.decode_attention_ref(q, *L._page_view(kc, vc), lengths)
+    assert torch.equal(whole[0], torch.zeros_like(whole[0]))
+    outs, lses, lo = [], [], 0
+    for n in cuts:
+        blk = [c[:, lo:lo + n].contiguous() for c in (kc, vc)]
+        o, lse = ref.decode_attention_partial_ref(
+            q, *L._page_view(*blk), torch.clamp(lengths - lo, 0, n).to(
+                torch.int32))
+        empty = (lengths - lo) <= 0
+        assert bool(torch.isneginf(lse[empty]).all())
+        assert torch.equal(o[empty], torch.zeros_like(o[empty]))
+        outs.append(o)
+        lses.append(lse)
+        lo += n
+    got = merge_partials(outs, lses, dtype=dtype)
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), whole.float(), rtol=tol, atol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+def test_split_forms_still_refuse_what_is_not_ported():
+    """Cross-attention split over the model axis (the encoder-decoder)
+    and a vocabulary the model degree does not divide raise."""
+    mesh = make_host_mesh(devices=[CPU] * 2, shape=(1, 2))
+    row = S.ModelRow((0, 1), lambda t, src, dst: S.send(t, mesh, src, dst))
+    cfg = SMOKES["llama3.2-3b"].replace(dtype="float32")
+    blk = L.Blocks((torch.zeros(2, 2),) * 2, row, 1)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        L.attn_apply({"wq": blk}, torch.zeros(1, 1, 64), cfg,
+                     kv_override=(None, None))
+    head = L.Blocks((torch.zeros(64, 256),) * 2, row, 0)
+    with pytest.raises(NotImplementedError, match="Row-parallel"):
+        L.logits_apply({"final_ln": L.Blocks((torch.ones(64),), row),
+                        "head": head}, torch.zeros(1, 1, 64),
+                       cfg.replace(tie_embeddings=False))

@@ -149,7 +149,7 @@ def _recorded_step(monkeypatch, name, mesh_shape, split):
     block, alive = {}, []
 
     def note(laid, blocks):
-        if T._model_dim(laid.layout.spec) is None:
+        if S.model_dim(laid.layout.spec) is None:
             return
         for j, b in blocks:
             alive.append(b)                 # no other tensor takes its address
@@ -222,6 +222,9 @@ def test_the_gathered_step_fails_that_check(monkeypatch):
 
 
 def test_the_dry_run_records_which_steps_split():
+    """The four families split their train and serving steps (the
+    serving one ``launch/serve.py::MeshServe``) on a model axis wider
+    than one; no other family splits."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
     train = ShapeConfig("s", "train", 2048, 8)
     for name, cfg in ARCHS.items():
@@ -229,7 +232,7 @@ def test_the_dry_run_records_which_steps_split():
         assert D.model_split(cell) == (name in SPLIT), name
         cell, _ = D.lower_cell(cfg, ShapeConfig("s", "decode", 2048, 8),
                                mesh)
-        assert not D.model_split(cell)
+        assert D.model_split(cell) == (name in SPLIT), name
     cell, _ = D.lower_cell(ARCHS["llama3.2-3b"], train,
                            D.meta_mesh((8, 1), ("data", "model")))
     assert not D.model_split(cell)
