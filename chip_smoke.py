@@ -96,7 +96,7 @@ Phases, each uncaught, so any failure exits non-zero:
    logits against the plain versions' (phi3.5-moe's bf16 logits held at
    the positions where both runs routed every token alike, at that
    position and before it in the sequence: each MoE call's top-k experts
-   and capacity drops recorded by wrapping ``layers._moe_local``; at
+   and capacity drops recorded by wrapping ``layers._moe_dispatch``; at
    least half the positions must be so gated);
 9. the recurrent mixers and training: jamba-v0.1-52b at its published
    widths (d_model 4096, Mamba with d_state 16, 32/8 heads x 128, 16
@@ -155,9 +155,10 @@ Phases, each uncaught, so any failure exits non-zero:
    uninterrupted run's within rtol 1e-5;
 11. the dry run (``launch/dryrun.py``): every ``ARCHS x shapes_for``
    cell (34) on both production meshes of ``meta`` slots, (16, 16) and
-   (2, 16, 16), in processes of their own (one a mesh, and one for the
-   witness below; niced, CPU only) started before phase 1 and joined
-   here; bytes a slot counted at the production shapes, slot (0, 0)'s
+   (2, 16, 16), in processes of their own (four that take the cells in
+   turn, and one for the witness below; niced, CPU only) started
+   before phase 1 and joined
+   after phase 13, so that they run beside every card phase; bytes a slot counted at the production shapes, slot (0, 0)'s
    program traced through the card's routes and kernel checks at one
    data shard's batch, at the production shapes apart from jamba's and
    xlstm's train and prefill cells, traced at ``--dev``'s shape (their
@@ -171,13 +172,14 @@ Phases, each uncaught, so any failure exits non-zero:
    splits over the model axis (``model_split``), and ``trace_s``.  Any failed cell fails the
    run; the dry-run processes never initialise CUDA, allocate nothing and
    launch nothing, and this process's allocated card memory is unchanged
-   across the phase's wait.  Every cell of llama3.2-3b, gemma3-12b/27b
-   and internvl2-76b splits (each slot runs its own heads, MLP columns,
-   vocabulary block and, serving, its own block of every cache), and no
-   other cell does; a line each gives its peak beside the one the
-   gathered step traced, which it must be under; llama3.2-3b's train_4k,
-   internvl2-76b's prefill_32k and decode_32k and gemma3-27b's long_500k
-   must fit.  Then the card witness:
+   across the phase's wait.  Every cell of llama3.2-3b, gemma3-12b/27b,
+   internvl2-76b, phi3.5-moe and llama4-scout splits (each slot runs its
+   own heads, MLP columns or experts, vocabulary block and, serving, its
+   own block of every cache), and no other cell does; a line each gives
+   its peak beside the one the gathered step traced, which it must be
+   under; llama3.2-3b's train_4k, internvl2-76b's prefill_32k and
+   decode_32k, gemma3-27b's long_500k and the two MoE families'
+   prefill_32k and decode_32k must fit.  Then the card witness:
    each of WITNESSES
    (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
    8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
@@ -206,11 +208,36 @@ Phases, each uncaught, so any failure exits non-zero:
    (the slots share one card: overhead, not scaling).  The (1, 16)
    run's flash calls (one head a slot, D 256) and partial calls are
    timed cold against their bounds;
-13. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
-   keyed by ``mesh``, and the dense, recurrent, train, mesh_train and
-   mesh serve paths', keyed by ``path``; decode_attention's partial
-   entry a row of its own), then ``{"ok": true, "device": ...}``
-   last.
+13. MoE experts on the model axis: phi3.5-moe at its published widths
+   (16 experts top 2, d_ff 6,400), 2 layers, through ``MeshServe`` on
+   (1, 2) (8 experts and 4 KV heads a slot, caches by KV heads) and
+   (1, 16) (one expert and 2 query heads a slot, caches by positions),
+   and llama4-scout (16 experts top 1 and a shared expert of 8,192, 40
+   heads padded to 48), 1 layer, on (1, 16): bf16, 8 x a 32-token prompt
+   into caches of 48, 8 steps (a longer prompt leaves the route gate
+   too few positions: ``tools/torch_moe_axis_prompts.py``).  For each:
+   every slot's expert blocks E/16 or E/2 experts; launch counts zeroed
+   just before and read just after (rmsnorm, flash_attention and
+   decode_attention or its partial entry > 0); the logits against the
+   unmeshed run (phase 8's path) at the positions where both the
+   kernels' and the plain versions' pairs routed alike, within 2e-2 of
+   the scale plus the plain versions' pair's reading there, in fp32
+   within 1e-3 where the routes agree, and against the same split run
+   on the plain versions; each kernel call against its plain version;
+   prefill and decode ms, ``max_memory_allocated``; the (1, 16) runs'
+   kernel calls timed cold (``"path": "mesh_serve_moe"`` rows).  Then
+   phi3.5-moe 1 layer in fp32, 4 x 512, at a capacity that drops no
+   token: 3 steps of the unmeshed Trainer and of the split step at
+   (1, 2) and (2, 2) with ZeRO-1: the losses within rtol 1e-5 of the
+   unmeshed run's, the grad norms and every parameter and moment within
+   1e-4 of each leaf's max of a run on the same data shards (the
+   unmeshed one, or the gathered (2, 1) one: the aux loss is each
+   shard's); launches, step ms, ``max_memory_allocated``;
+14. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+   keyed by ``mesh``, and the dense, recurrent, train, mesh_train,
+   mesh serve and mesh_serve_moe paths', keyed by ``path``;
+   decode_attention's partial entry a row of its own), then
+   ``{"ok": true, "device": ...}`` last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -348,6 +375,33 @@ MESH_SERVE = (((1, 2), False), ((1, 16), False), ((2, 2), True))
 MESH_SERVE_LONG_STEPS = 8
 MESH_SERVE_ROWS = "1x16"
 
+# MoE experts on the model axis (phase 13): phi3.5-moe at its published
+# widths cut to 2 layers (phase 8's cut) through MeshServe at (1, 2) (8
+# experts and 4 KV heads a slot, caches by KV heads) and (1, 16) (one
+# expert and 2 query heads a slot, the 8 KV heads replicated, caches by
+# positions); llama4-scout one layer at (1, 16) (one expert and the
+# shared expert's columns a slot, 40 heads padded to 48, 3 a slot);
+# phase 8's prompt and steps at batch MOE_SERVE_BATCH.  Then phi3.5-moe
+# one layer in fp32, MOE_TRAIN_STEPS Trainer steps at each of
+# MOE_TRAIN_MESHES (ZeRO-1 where data > 1) at a capacity that drops no
+# token (top_k x capacity = experts), so a data shard's capacity routes
+# as the unmeshed step's, each held to a run on the same data shards
+# (MOE_TRAIN_YARDSTICK: the unmeshed Trainer, or the gathered step on
+# (data, 1)): the aux loss is each shard's, averaged, as the reference's
+# pmean has it, which moves the losses from the unmeshed ones by more
+# than rtol 1e-5 at (2, 2) (8.6e-5 by step 3 on the card) and the router's
+# gradient by more than the leaf tolerance.  The kernels line's
+# "mesh_serve_moe" rows come from the (1, 16) runs
+MOE_SERVE = (("phi3.5-moe-42b-a6.6b", 2, ((1, 2), (1, 16))),
+             ("llama4-scout-17b-a16e", 1, ((1, 16),)))
+MOE_SERVE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_STEPS, MOE_SERVE_SEQ = \
+    8, 32, 8, 48
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 1
+MOE_TRAIN_MESHES = ((1, 2), (2, 2))
+MOE_TRAIN_YARDSTICK = {(1, 2): None, (2, 2): (2, 1)}
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 512, 3
+MOE_ROWS_MESH = "1x16"
+
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
 HBM_BYTES_PER_S = 3.35e12
@@ -365,12 +419,16 @@ DRYRUN_WAIT_S = 900
 DRYRUN_SPLIT_PEAK_BEFORE = {"llama3.2-3b": (219.103e9, 125.218e9),
                             "gemma3-12b": (265.715e9, 188.624e9),
                             "gemma3-27b": (505.477e9, 373.759e9),
-                            "internvl2-76b": (1068.528e9, 849.484e9)}
+                            "internvl2-76b": (1068.528e9, 849.484e9),
+                            "phi3.5-moe-42b-a6.6b": (566.795e9, 486.883e9),
+                            "llama4-scout-17b-a16e": (1252.198e9,
+                                                      1226.283e9)}
 DRYRUN_SPLIT_FITS = ("llama3.2-3b",)
-# the serving cells of those four, which split too since serving on the
-# model axis: each one's peak a slot on (16, 16) and (2, 16, 16) as the
-# gathered step traced them (run 24c); the split peak must be lower, and
-# the three that did not fit gathered must fit
+# the serving cells of those families, which split too since serving on
+# the model axis (the MoE two since their experts split): each one's peak
+# a slot on (16, 16) and (2, 16, 16) as the gathered step traced them
+# (run 24c); the split peak must be lower, and the seven that did not fit
+# gathered must fit
 DRYRUN_SERVE_PEAK_BEFORE = {
     ("llama3.2-3b", "prefill_32k"): (20.803e9, 13.991e9),
     ("llama3.2-3b", "decode_32k"): (39.192e9, 23.186e9),
@@ -381,10 +439,18 @@ DRYRUN_SERVE_PEAK_BEFORE = {
     ("gemma3-27b", "decode_32k"): (83.986e9, 70.689e9),
     ("gemma3-27b", "long_500k"): (103.627e9, 103.627e9),
     ("internvl2-76b", "prefill_32k"): (191.366e9, 170.563e9),
-    ("internvl2-76b", "decode_32k"): (241.164e9, 195.461e9)}
+    ("internvl2-76b", "decode_32k"): (241.164e9, 195.461e9),
+    ("phi3.5-moe-42b-a6.6b", "prefill_32k"): (109.246e9, 99.096e9),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k"): (125.521e9, 107.233e9),
+    ("llama4-scout-17b-a16e", "prefill_32k"): (252.799e9, 241.408e9),
+    ("llama4-scout-17b-a16e", "decode_32k"): (284.881e9, 257.449e9)}
 DRYRUN_SERVE_FITS = (("internvl2-76b", "prefill_32k"),
                      ("internvl2-76b", "decode_32k"),
-                     ("gemma3-27b", "long_500k"))
+                     ("gemma3-27b", "long_500k"),
+                     ("phi3.5-moe-42b-a6.6b", "prefill_32k"),
+                     ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                     ("llama4-scout-17b-a16e", "prefill_32k"),
+                     ("llama4-scout-17b-a16e", "decode_32k"))
 # its card witness: configurations phases 8-10 run on the card, (arch,
 # kind, layers or None for all, dtype or None for the config's, seq,
 # batch), each traced on meta at a (1, 1) mesh and run for one step on
@@ -1033,36 +1099,26 @@ def recording(torch, ops, names):
 @contextlib.contextmanager
 def routes_recorded(torch):
     """Each MoE call's routes in the block, in call order: the port's
-    ``models/layers.py::_moe_local`` wrapped so that, on the arguments it
-    is given, its router's top-k experts (the model's own ``_top_k``) are
-    recorded as (B, T, k), with -1 where the token's rank at that expert
-    passes the call's capacity and the token is dropped; then the model's
-    call runs as it was."""
-    import torch.nn.functional as F
+    ``models/layers.py::_moe_dispatch`` (the router and dispatch of the
+    unsplit and the split MoE alike) wrapped so that its top-k experts
+    are recorded as (B, T, k), with -1 where the token's rank at that
+    expert passes the call's capacity and the token is dropped."""
     from repro_torch.models import layers as L
-    inner = L._moe_local
+    inner = L._moe_dispatch
     calls = []
 
-    def wrapped(xl, router, wg, wi, wo, *, cfg):
-        mc = cfg.moe
-        bl, t, d = xl.shape
-        e, k = mc.num_experts, mc.top_k
-        cap = max(8, int(mc.capacity_factor * bl * t * k / e))
-        probs = torch.softmax(xl.reshape(bl * t, d).float() @ router.float(),
-                              dim=-1)
-        _, idx = L._top_k(probs, k)
-        flat = idx.reshape(-1)
-        oh = F.one_hot(flat, e)
-        rank = (torch.cumsum(oh, dim=0) - oh).gather(1, flat[:, None])
-        kept = torch.where(rank.reshape(bl * t, k) < cap, idx, -1)
-        calls.append(kept.reshape(bl, t, k))
-        return inner(xl, router, wg, wi, wo, cfg=cfg)
+    def wrapped(xl, router, *, cfg):
+        eb, route, aux = inner(xl, router, cfg=cfg)
+        idx, _, keep, _ = route
+        calls.append(torch.where(keep, idx, -1).reshape(
+            *xl.shape[:2], idx.shape[-1]))
+        return eb, route, aux
 
-    L._moe_local = wrapped
+    L._moe_dispatch = wrapped
     try:
         yield calls
     finally:
-        L._moe_local = inner
+        L._moe_dispatch = inner
 
 
 def route_positions(torch, calls):
@@ -1110,14 +1166,16 @@ def agreeing_positions(torch, calls_a, calls_b, reach, first: int,
             clean(here)[:, first:first + count])
 
 
-def compare_routed(torch, what, got, want, masks, *, prefix, witness=None):
+def compare_routed(torch, what, got, want, masks, *, prefix, witness=None,
+                   tol=None):
     """Logits (B, P, V) against a yardstick's at the positions the first
     of ``masks`` (from :func:`agreeing_positions`) marks, within 2e-2
     times the yardstick's largest logit there, plus, given ``witness`` (a
     pair of runs of the same comparison without the kernels), its
-    reading at the same positions; prints how many positions are gated
-    and how many are left out (and how many no differing route precedes
-    in any layer), and fails if fewer than half are gated."""
+    reading at the same positions, or within ``tol`` element by element
+    where one is given (fp32); prints how many positions are gated and
+    how many are left out (and how many no differing route precedes in
+    any layer), and fails if fewer than half are gated."""
     agree, strict = masks
     n, total = int(agree.sum()), agree.numel()
     print(f"{prefix} {what}, gated on routes that agree: {n} of {total} "
@@ -1134,7 +1192,8 @@ def compare_routed(torch, what, got, want, masks, *, prefix, witness=None):
             prefix=prefix)
     return compare_logits(torch, f"{what} at the {n} positions whose routes "
                           f"agree", got[agree][None], want[agree][None],
-                          scale_tol=TOL_BF16, room=room, prefix=prefix)
+                          tol=tol, scale_tol=None if tol else TOL_BF16,
+                          room=room, prefix=prefix)
 
 
 def lm_library(torch, name, args, kwargs):
@@ -2530,6 +2589,266 @@ def mesh_serve_phase(torch, card) -> list[dict]:
     return rows
 
 
+def moe_serve(torch, card, arch, layers, meshes, originals, plain) -> list:
+    """One MoE family's split serving runs of phase 13 (see the module
+    docstring): the unmeshed run (phase 8's path) in bf16, on the plain
+    versions too, and in fp32, each MoE call's routes recorded, then the
+    same through ``MeshServe`` on each mesh.  The bf16 split run is held
+    to the unmeshed one at the positions where the routes agree in both
+    pairs, within 2e-2 of the scale plus the plain versions' pair's
+    reading there (the split's own rounding: each slot's partial output
+    rounded to bf16 before the sum, 16 of them at (1, 16)); the fp32 one
+    within DENSE_FP32_TOL; the bf16 one to its run on the plain versions.
+    Returns the ``kernels`` rows of the MOE_ROWS_MESH run."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import MeshServe
+    from repro_torch.models import build
+    from repro_torch.train import sharded as S
+
+    names = tuple(originals)
+    cfg = ARCHS[arch].replace(num_layers=layers)
+    widest = max(m for _, m in meshes)   # the heads padded as it pads them
+    params = build(cfg, tp=widest).init_params(0, DEVICE)
+    b, prompt, steps, seq = (MOE_SERVE_BATCH, MOE_SERVE_PROMPT,
+                             MOE_SERVE_STEPS, MOE_SERVE_SEQ)
+    inp = dense_inputs(torch, cfg, b, prompt, steps)
+    reach = moe_reach(cfg)
+    mc = cfg.moe
+    unmeshed = {}
+    for dtype, fns in (("bfloat16", {}), ("plain", plain),
+                       ("float32", {})):
+        with wrappers_as(ops, fns), routes_recorded(torch) as routes:
+            lg = dense_generate(torch, build(cfg.replace(
+                dtype="float32" if dtype == "float32" else cfg.dtype),
+                tp=widest), params, inp, prompt, steps, seq)[0]
+        unmeshed[dtype] = (torch.stack(lg, 1), routes)
+    rows = []
+    for d, m in meshes:
+        t0 = time.perf_counter()
+        tag = f"moe axis {arch} {d}x{m}"
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        serve = MeshServe(build(cfg, tp=m), mesh)
+        assert serve.split
+        laid = serve.lay_out_params(params)
+        ffn = laid["stack"][0]["ffn"]
+        experts = {tuple(blk.shape) for blk in ffn["w_in"].blocks}
+        assert experts == {(cfg.n_periods, mc.num_experts // m, cfg.d_model,
+                            mc.d_ff or cfg.d_ff)}, (tag, experts)
+        run = lambda n, srv=serve: mesh_generate(  # noqa: E731
+            torch, srv, laid, inp, prompt, n, seq)
+        run(1)                          # warm: cuBLAS's plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with recording(torch, ops, names) as recorded, \
+                routes_recorded(torch) as routes:
+            kernels.reset_launch_counts()
+            out, pre_s, step_s, _ = run(steps)
+            launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        by_positions = cfg.num_kv_heads % m != 0
+        decode = "decode_attention_partial" if by_positions \
+            else "decode_attention"
+        print(f"{tag} main path launches: {launches}")
+        assert launches["rmsnorm"] > 0 and launches["flash_attention"] > 0 \
+            and launches[decode] > 0, (tag, launches)
+        v = cfg.vocab_size
+        for lg in out:
+            assert lg.shape == (b, 1, v)
+            assert all(tuple(blk.shape) == (b, 1, v // m)
+                       for blk in lg.blocks), tag
+        got = torch.stack([S.gather(lg)[:, 0].float() for lg in out], 1)
+        assert torch.isfinite(got).all()
+        step = np.asarray(step_s)
+        shared = " and 1/" + str(m) + " of the shared expert's columns" \
+            if mc.num_shared else ""
+        print(f"{tag} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads, "
+              f"{mc.num_experts} experts top {mc.top_k}; "
+              f"{mc.num_experts // m} experts{shared} a slot, caches by "
+              f"{'positions' if by_positions else 'KV heads'}): prefill "
+              f"{b} x {prompt} in {pre_s * 1e3:.3f} ms; decode {len(step)} "
+              f"steps, best {step.min() * 1e3:.3f} ms, median "
+              f"{np.median(step) * 1e3:.3f} ms a step; max_memory_allocated "
+              f"{peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
+              f"before it  [{card}]")
+        # the same split run on the plain versions
+        with wrappers_as(ops, plain), routes_recorded(torch) as routes_p:
+            p_out = run(steps)[0]
+        got_p = torch.stack([S.gather(lg)[:, 0].float() for lg in p_out], 1)
+        want, routes_u = unmeshed["bfloat16"]
+        want_p, routes_up = unmeshed["plain"]
+        compare_logits(torch, "split vs unmeshed (phase 8's path), bf16, "
+                       "every position", got, want, prefix=tag)
+        both = [a & b for a, b in zip(
+            agreeing_positions(torch, routes, routes_u, reach, prompt - 1,
+                               got.shape[1]),
+            agreeing_positions(torch, routes_p, routes_up, reach, prompt - 1,
+                               got.shape[1]))]
+        compare_routed(torch, "split vs unmeshed (phase 8's path), bf16",
+                       got, want, both, prefix=tag, witness=(got_p, want_p))
+        # fp32: the same split run against the unmeshed fp32 run
+        serve32 = MeshServe(build(cfg.replace(dtype="float32"), tp=m), mesh)
+        with routes_recorded(torch) as routes32:
+            out32 = run(steps, serve32)[0]
+        got32 = torch.stack([S.gather(lg)[:, 0].float() for lg in out32], 1)
+        want32, routes32_u = unmeshed["float32"]
+        compare_routed(torch, "split vs unmeshed (phase 8's path), fp32",
+                       got32, want32, agreeing_positions(
+                           torch, routes32, routes32_u, reach, prompt - 1,
+                           got32.shape[1]), prefix=tag, tol=DENSE_FP32_TOL)
+        compare_routed(torch, "split kernels vs split plain versions", got,
+                       got_p, agreeing_positions(
+                           torch, routes, routes_p, reach, prompt - 1,
+                           got.shape[1]), prefix=tag)
+        errs = {k: max((hold_to_plain(torch, k, originals[k], plain[k], a,
+                                      kw)
+                        for a, kw, _ in recorded[k].values()), default=0.0)
+                for k in names}
+        print(f"{tag}: each kernel call against its plain version, max abs "
+              f"err {errs} (tol {TOL_BF16} on bf16 outputs, "
+              f"{TOL['decode_attention_partial']} on the partial's fp32 out "
+              "and lse)")
+        if f"{d}x{m}" == MOE_ROWS_MESH:
+            rows += dense_rows(torch, card, recorded, originals, plain,
+                               path="mesh_serve_moe",
+                               extra={"arch": arch, "mesh": MOE_ROWS_MESH})
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        del serve, serve32, laid, out, out32, p_out, recorded
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_axis_phase(torch, card) -> list[dict]:
+    """Phase 13: MoE experts on the model axis (see the module
+    docstring).  Returns the ``kernels`` rows of the (1, 16) serving runs,
+    keyed ``"path": "mesh_serve_moe"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, layers as L
+    from repro_torch.train import Trainer, sharded as S
+
+    t_phase = time.perf_counter()
+    names = LM_KERNELS + ("decode_attention_partial",)
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref,
+             "decode_attention_partial": ref.decode_attention_partial_ref}
+    originals = {name: getattr(ops, name) for name in names}
+    rows = []
+    for arch, layers, meshes in MOE_SERVE:
+        rows += moe_serve(torch, card, arch, layers, meshes, originals, plain)
+
+    # ---- training: the unmeshed Trainer, then each mesh, split
+    base = ARCHS[MOE_TRAIN_ARCH]
+    mc = base.moe
+    cfg = base.replace(num_layers=MOE_TRAIN_LAYERS, dtype="float32",
+                       moe=replace(mc, capacity_factor=mc.num_experts
+                                   / mc.top_k))
+    shape = ShapeConfig("moe", "train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    flat = Trainer(build(cfg), shape, device=DEVICE)
+    kernels.reset_launch_counts()
+    flat_params, flat_opt, _ = flat.run(MOE_TRAIN_STEPS)
+    assert all(kernels.launch_counts()[k] > 0 for k in TRAIN_KERNELS)
+    want = {key: [m[key] for m in flat.metrics_log]
+            for key in ("loss", "grad_norm")}
+
+    def step_ms(tr):
+        dts = np.asarray([m["dt"] for m in tr.metrics_log]) * 1e3
+        return float(dts[1:].min()), float(np.median(dts[1:]))
+
+    best, med = step_ms(flat)
+    print(f"moe axis train {MOE_TRAIN_ARCH} ({cfg.num_layers} of "
+          f"{base.num_layers} layers, fp32, {mc.num_experts} experts top "
+          f"{mc.top_k} at capacity factor {cfg.moe.capacity_factor}: no "
+          f"token drops) unmeshed: losses {want['loss']}; step ms best "
+          f"{best:.3f}, median {med:.3f} (after the first), "
+          f"{tokens / med * 1e3:.1f} tokens/s  [{card}]")
+    del flat
+
+    def meshed(mesh_shape):
+        d, m = mesh_shape
+        mesh = make_host_mesh(shape=mesh_shape, devices=[MESH_SLOT] * (d * m))
+        return Trainer(build(cfg, tp=m), shape, mesh=mesh, zero1=d > 1)
+
+    def yardstick(ys):
+        """(metrics, params, moments) of the gathered run on ``ys``, whole."""
+        tr = meshed(ys)
+        params, opt, _ = tr.run(MOE_TRAIN_STEPS)
+        got = {key: [x[key] for x in tr.metrics_log]
+               for key in ("loss", "grad_norm")}
+        print(f"moe axis train {ys[0]}x{ys[1]} (gathered, zero1 "
+              f"{ys[0] > 1}): losses {got['loss']}, grad_norm "
+              f"{got['grad_norm']}; the yardstick of the split runs on "
+              f"{ys[0]} data shards")
+        return got, L.tree_map(S.gather, params), {
+            k: L.tree_map(S.gather, opt[k]) for k in ("m", "v")}
+
+    current = (None, (want, flat_params, flat_opt))
+    del flat_params, flat_opt
+    for d, m in MOE_TRAIN_MESHES:
+        tag = f"moe axis train {d}x{m}"
+        ys = MOE_TRAIN_YARDSTICK[d, m]
+        if current[0] != ys:            # one yardstick's state at a time
+            current = None
+            torch.cuda.empty_cache()
+            current = (ys, yardstick(ys))
+        y_met, y_params, y_opt = current[1]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = meshed((d, m))
+        assert m > 1 and tr.api.model_split()     # the split step
+        kernels.reset_launch_counts()
+        params, opt, _ = tr.run(MOE_TRAIN_STEPS)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        assert all(launches[k] > 0 for k in TRAIN_KERNELS), (tag, launches)
+        got = {key: [x[key] for x in tr.metrics_log]
+               for key in ("loss", "grad_norm")}
+        for key in got:
+            np.testing.assert_allclose(got[key], y_met[key],
+                                       rtol=RESUME_RTOL, err_msg=f"{tag} {key}")
+        off = max(abs(a - b) / abs(b) for a, b in zip(got["loss"],
+                                                      want["loss"]))
+        errs = {part: hold_state(torch, f"{tag} {part}", a, w, False)
+                for part, a, w in (("params", params, y_params),
+                                   ("m", opt["m"], y_opt["m"]),
+                                   ("v", opt["v"], y_opt["v"]))}
+        hold_blocks(tr, params, opt)
+        w_in = L.tree_leaves(params["stack"][0]["ffn"]["w_in"])[0]
+        best, med = step_ms(tr)
+        yard = "the unmeshed Trainer" if ys is None else \
+            f"the gathered {ys[0]}x{ys[1]} run"
+        print(f"{tag} main path launches: {launches}")
+        print(f"{tag} (zero1 {d > 1}; {mc.num_experts // m} experts a slot, "
+              f"w_in blocks {tuple(w_in.blocks[0].shape)}): losses "
+              f"{got['loss']} and grad_norm {got['grad_norm']} within rtol "
+              f"{RESUME_RTOL} of {yard}'s, every leaf: max error / leaf "
+              f"max {errs} (tol {MESH_TRAIN_TOL}); the losses' largest "
+              f"relative distance from the unmeshed Trainer's {off:.3g}; "
+              f"step ms best {best:.3f}, median "
+              f"{med:.3f}, {tokens / med * 1e3:.1f} tokens/s; "
+              f"max_memory_allocated {peak / 1e9:.3f} GB above the "
+              f"{held / 1e9:.3f} GB held before it  [{card}]")
+        del tr, params, opt, y_params, y_opt
+        torch.cuda.empty_cache()
+    del current
+    torch.cuda.empty_cache()
+    print(f"moe axis phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def step_ranges(torch, fn) -> tuple[dict, float]:
     """Host ms of each of the train step's profiler ranges (the trainer's
     ``train_step.forward``, ``.backward`` and ``.optimizer``) in one call
@@ -2594,20 +2913,30 @@ def witness_config(arch: str, kind: str, layers, dtype, seq: int,
     return cfg, ShapeConfig("witness", kind, seq, batch)
 
 
-def dryrun_worker(name: str, out: str) -> None:
-    """One of phase 11's processes: "pod1" or "pod2", the cells on one
-    production mesh; "witness", the WITNESSES' records on a (1, 1) mesh
-    of meta slots.  Each record, or its exception, and last whether this
-    process initialised CUDA, its allocated card memory before and after,
-    and its launch counts, as JSON in ``dryrun_files``' first file; the
-    module's own lines go to its second."""
+def dryrun_cells() -> list[tuple]:
+    """Phase 11's cells in their order: (arch, shape, multi_pod) for every
+    ``ARCHS x shapes_for`` cell on (16, 16), then on (2, 16, 16)."""
+    from repro_torch.configs import ARCHS, shapes_for
+    return [(a, s, mp) for mp in (False, True) for a in ARCHS
+            for s in shapes_for(a)]
+
+
+def dryrun_worker(name: str, out: str, taken=None) -> None:
+    """One of phase 11's processes: a "cells" one takes the next of
+    ``dryrun_cells`` (``taken``, a counter the cell processes share)
+    until none is left, so that the long cells spread over them;
+    "witness", the WITNESSES' records on a (1, 1) mesh of meta slots.
+    Each record (with its index among the cells), or its exception, and
+    last whether this process initialised CUDA, its allocated card
+    memory before and after, and its launch counts, as JSON in
+    ``dryrun_files``' first file; the module's own lines go to its
+    second."""
     os.nice(10)
     import traceback
 
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs import ARCHS, shapes_for
     from repro_torch.launch import dryrun
 
     path, log_path = dryrun_files(out, name)
@@ -2629,18 +2958,24 @@ def dryrun_worker(name: str, out: str) -> None:
                 run({"witness": list(w)},
                     lambda: dryrun.analyze_cell(cfg, shape, mesh)[1])
         else:
-            multi_pod = name == "pod2"
-            mesh = dryrun.make_mesh(multi_pod=multi_pod, dev=False)
-            for arch in ARCHS:
-                for shape in shapes_for(arch):
-                    trace = None
-                    if arch in DRYRUN_DEV_TRACE and shape.kind != "decode":
-                        trace = dryrun.dev_shape(shape, mesh)
-                    run({"arch": arch, "shape": shape.name,
-                         "multi_pod": multi_pod},
-                        lambda: dryrun.run_cell(
-                            arch, shape.name, multi_pod=multi_pod, dev=False,
-                            trace_shape=trace))
+            todo = dryrun_cells()
+            while True:
+                with taken.get_lock():
+                    i = taken.value
+                    taken.value += 1
+                if i >= len(todo):
+                    break
+                arch, shape, multi_pod = todo[i]
+                trace = None
+                if arch in DRYRUN_DEV_TRACE and shape.kind != "decode":
+                    trace = dryrun.dev_shape(
+                        shape, dryrun.make_mesh(multi_pod=multi_pod,
+                                                dev=False))
+                run({"index": i, "arch": arch, "shape": shape.name,
+                     "multi_pod": multi_pod},
+                    lambda: dryrun.run_cell(
+                        arch, shape.name, multi_pod=multi_pod, dev=False,
+                        trace_shape=trace))
     with open(path, "w") as f:
         json.dump({"cells": cells,
                    "cuda_initialized": torch.cuda.is_initialized(),
@@ -2648,23 +2983,26 @@ def dryrun_worker(name: str, out: str) -> None:
                    "launches": kernels.launch_counts()}, f)
 
 
-DRYRUN_PROCS = ("pod1", "pod2", "witness")
+DRYRUN_PROCS = ("cells1", "cells2", "cells3", "cells4", "witness")
 
 
-def start_dryrun() -> tuple[list, str]:
+def start_dryrun() -> tuple[list, str, object]:
     """Phase 11's processes (DRYRUN_PROCS), started now so that their
     CPU-only traces run beside the card's phases: (processes, the
-    directory of their results).  Daemonic, so an exit ends them."""
+    directory of their results, the counter the cell processes share,
+    which the caller holds until they are joined: its semaphore goes
+    when it does).  Daemonic, so an exit ends them."""
     import multiprocessing
     import tempfile
     out = tempfile.mkdtemp(prefix="dryrun_")
     ctx = multiprocessing.get_context("spawn")
+    taken = ctx.Value("i", 0)
     procs = [ctx.Process(target=dryrun_worker, daemon=True,
-                         args=(name, out))
+                         args=(name, out, taken))
              for name in DRYRUN_PROCS]
     for p in procs:
         p.start()
-    return procs, out
+    return procs, out, taken
 
 
 def gb(n) -> str:
@@ -2764,7 +3102,7 @@ def dryrun_phase(torch, card, procs, out) -> None:
     """Phase 11 (see the module docstring)."""
     import shutil
 
-    from repro_torch.configs import ARCHS, shapes_for
+    from repro_torch.configs import ARCHS
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
@@ -2800,9 +3138,9 @@ def dryrun_phase(torch, card, procs, out) -> None:
     for r in results.values():
         assert not r["cuda_initialized"] and r["allocated"] == [0, 0], r
         assert not any(r["launches"].values()), r["launches"]
-    cells = results["pod1"]["cells"] + results["pod2"]["cells"]
-    want = [(a, s.name, mp) for mp in (False, True) for a in ARCHS
-            for s in shapes_for(a)]
+    cells = sorted((c for name, r in results.items() if name != "witness"
+                    for c in r["cells"]), key=lambda c: c["index"])
+    want = [(a, s.name, mp) for a, s, mp in dryrun_cells()]
     assert [(c["arch"], c["shape"], c["multi_pod"]) for c in cells] == want
     failed = [c for c in cells + results["witness"]["cells"] if "error" in c]
     for c in cells:
@@ -2902,8 +3240,8 @@ def main() -> int:
     from repro_torch.kernels.ops import program_config
     from repro_torch.rpc import RPCClient, RPCServer
 
-    # the dry run's processes (phase 11) run beside phases 1-10
-    dry_procs, dry_out = start_dryrun()
+    # the dry run's processes (phase 11) run beside phases 1-13
+    dry_procs, dry_out, dry_taken = start_dryrun()
 
     # ------------------------------------------------ 1. card, build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3118,13 +3456,18 @@ def main() -> int:
     # ------------------------------------------------ 10. training on a mesh
     rows += mesh_train_phase(torch, card)
 
-    # ------------------------------------------------ 11. the dry run
-    dryrun_phase(torch, card, dry_procs, dry_out)
-
     # ------------------------------------------------ 12. serving on a mesh
     rows += mesh_serve_phase(torch, card)
 
-    # ------------------------------------------------ 13. result lines
+    # ------------------------------------------------ 13. MoE on a mesh
+    rows += moe_axis_phase(torch, card)
+
+    # ------------------------------------------------ 11. the dry run, joined
+    # last: its processes run beside phases 1-13
+    dryrun_phase(torch, card, dry_procs, dry_out)
+    del dry_taken
+
+    # ------------------------------------------------ 14. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,11 +46,13 @@ touches a device but ``meta``.
     (which the port's step takes whole on slot 0: its shard's rows are
     arguments, the other shards' rows bytes beyond them) and runs
     ``loss_and_grads`` on its shard's rows.  Where the step splits over
-    the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b and
-    internvl2-76b on a model axis wider than one), slot (0, 0) runs its
-    own blocks' share of each split layer and, as its row's first slot,
-    the norms, residuals and replicated projections, and receives the
-    other model slots' partials, each a stand-in made under
+    the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b,
+    internvl2-76b, phi3.5-moe and llama4-scout on a model axis wider
+    than one), slot (0, 0) runs its own blocks' share of each split
+    layer (its experts among them) and, as its row's first slot, the
+    norms, residuals, replicated projections and an MoE's routing,
+    dispatch and combine, and receives the other model slots' partials
+    and expert outputs, each a stand-in made under
     ``trace.paused()`` that takes bytes on slot 0 only when sent there
     (:class:`_Elsewhere`); the gradient sum, the norm and the layouts
     count only slot 0's blocks.  Otherwise it gathers the whole
@@ -106,13 +108,15 @@ touches a device but ``meta``.
   blocks, and the parameters relaid where the moments' spec differs;
   a gathered step also gathers the parameters onto each data shard's
   first slot, a split one sends each split layer's activations and
-  partials within each data row, forward, backward and again in remat's
-  recompute, and the embedding's and loss's combines.  A split serving
-  cell counts its step's moves the same way (:func:`serve_transfers`):
-  activations, k/v slices, partial sums and the cache rows by position
-  to prefill; the same at T = 1 to decode, plus the write offsets, the
-  query heads gathered onto each slot holding a block of a cache split
-  by positions and their ``(out, lse)`` partials.  ``bytes_by_kind`` and
+  partials within each data row (an MoE's, its experts' rows of the
+  dispatch buffer and their outputs: :func:`ffn_moves`), forward,
+  backward and again in remat's recompute, and the embedding's and
+  loss's combines.  A split serving cell counts its step's moves the
+  same way (:func:`serve_transfers`): activations, k/v slices, partial
+  sums, an MoE's dispatch rows and expert outputs, and the cache rows
+  by position to prefill; the same at T = 1 to decode, plus the write
+  offsets, the query heads gathered onto each slot holding a block of
+  a cache split by positions and their ``(out, lse)`` partials.  ``bytes_by_kind`` and
   ``total_bytes`` are what the busiest slot sends and receives.  A
   gathered serving cell records ``None``: nothing moves between slots.
 * **Split** (``model_split``): whether the cell's step splits its
@@ -604,6 +608,30 @@ def _numel(sl) -> int:
     return int(np.prod([s.stop - s.start for s in sl], dtype=np.int64))
 
 
+def ffn_moves(cfg, specs, tokens: int, e: int, tp: int) -> dict:
+    """The bytes a split FFN layer (its parameters' ``specs``) on a row
+    running ``tokens`` tokens in ``e``-byte activations sends each model
+    slot m > 0, and receives back from it: an MLP whose spec splits
+    ``d_ff``, and an MoE's shared expert, the normed activation out and
+    a partial back ("activations"); an MoE whose spec splits the
+    experts, the slot's experts' rows of the dispatch buffer out and
+    their outputs back, E/tp x capacity x D each way ("dispatch")."""
+    x = tokens * cfg.d_model * e
+    out = {"activations": 0, "dispatch": 0}
+    if "router" not in specs:
+        if S.model_dim(specs["w_in"]) is not None:
+            out["activations"] = x
+        return out
+    mc = cfg.moe
+    if "shared" in specs and S.model_dim(specs["shared"]["w_in"]) is not None:
+        out["activations"] = x
+    if S.model_dim(specs["w_in"]) is not None:
+        cap = max(8, int(mc.capacity_factor * tokens * mc.top_k
+                         / mc.num_experts))
+        out["dispatch"] = mc.num_experts // tp * cap * cfg.d_model * e
+    return out
+
+
 def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     """A split step's layers, in order, each (under remat, bytes its
     forward sends from the row's first slot to model slot m, and from
@@ -620,15 +648,15 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
         hm = blk["mixer"]["wq"].shape[-2] // tp
         gp = hm * tp // kvh
         to, back = [0] * tp, [0] * tp
+        ffn = ffn_moves(cfg, blk_specs["ffn"], b * t, e, tp)
         for m in range(1, tp):
             to[m] += x
             back[m] += x
             if S.model_dim(blk_specs["mixer"]["wk"]) is None:
                 lo, hi = L._slot_kv_heads(m, hm, gp)
                 to[m] += 2 * b * t * (hi - lo) * hd * e
-            if S.model_dim(blk_specs["ffn"]["w_in"]) is not None:
-                to[m] += x
-                back[m] += x
+            to[m] += ffn["dispatch"] + ffn["activations"]
+            back[m] += ffn["dispatch"] + ffn["activations"]
         return to, back
 
     out = []
@@ -695,7 +723,8 @@ def transfers(cell: Cell) -> dict:
     slot 0.  A split step gathers nothing: within each data row, the
     split layers' forward sends (the normed activation to each model
     slot, the KV heads each slot reads where ``wk``/``wv`` are
-    replicated, the partials back to the first slot: "forward"), their
+    replicated, an MoE's experts' rows of the dispatch buffer, the
+    partials and expert outputs back to the first slot: "forward"), their
     backward's ("backward"), the forward's again where remat recomputes a
     period ("recompute"), the embedding's tokens, partials and their
     gradient ("embed"), and the loss's normed chunks, maxima, labels and
@@ -804,9 +833,11 @@ def serve_transfers(cell: Cell) -> dict:
     within each running data row (every row; in long mode the first,
     whose sequence's blocks lie on every row's slots): the tokens to
     each model slot and their embedding rows back ("embed"); the normed
-    activation to each model slot before each split attention, MLP and
-    the logits ("activations") and each slot's partial output back
-    ("partials"); to prefill where ``wk``/``wv`` are replicated, the KV
+    activation to each model slot before each split attention, MLP (an
+    MoE's shared expert) and the logits ("activations") and each slot's
+    partial output back ("partials"); an MoE's experts' rows of the
+    dispatch buffer to each slot ("dispatch") and their outputs back
+    ("combine"); to prefill where ``wk``/``wv`` are replicated, the KV
     heads each slot reads ("kv"); the new k/v rows from the slot that
     made them to each slot whose block holds their position and heads
     (``layers.write_plan``, "cache"); to decode, the write offsets to
@@ -847,11 +878,13 @@ def serve_transfers(cell: Cell) -> dict:
             heads = [(m * kvm, (m + 1) * kvm) for m in range(tp)] \
                 if split_kv else [(0, kvh)]
             makers = row if split_kv else [h]
-            layer_x = 2 if S.model_dim(specs["ffn"]["w_in"]) is not None \
-                else 1
+            ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp)
             for m in range(1, tp):
-                out["activations"][h, row[m]] += layer_x * x
-                out["partials"][row[m], h] += layer_x * x
+                out["activations"][h, row[m]] += x + ffn["activations"]
+                out["partials"][row[m], h] += x + ffn["activations"]
+                if ffn["dispatch"]:
+                    out["dispatch"][h, row[m]] += ffn["dispatch"]
+                    out["combine"][row[m], h] += ffn["dispatch"]
             spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
                                       coords, i)
             cap = size[0]

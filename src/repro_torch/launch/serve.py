@@ -160,10 +160,11 @@ class MeshServe:
     data axes, vocabulary over ``"model"``.
 
     * Split (``split``), where ``api.model_split()`` and the model axis is
-      wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b): each
-      data row's model slots run the step as the reference's GSPMD step
-      does, each on its own heads, MLP columns and vocabulary block and
-      its own block of every cache (``models/layers.py``'s split forms);
+      wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b,
+      phi3.5-moe, llama4-scout): each data row's model slots run the
+      step as the reference's GSPMD step does, each on its own heads, MLP
+      columns or experts and vocabulary block and its own block of every
+      cache (``models/layers.py``'s split forms);
       the logits stay on the slots, a vocabulary block each, never
       gathered.  No slot holds the whole parameters or a whole cache.
     * Gathered, for every other family or a model axis of one: the whole

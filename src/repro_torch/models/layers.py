@@ -18,19 +18,25 @@ and optimizer moments into one block per slot of a ``launch/mesh.py``
 mesh as the reference's ``NamedSharding`` does.  The compute follows
 them where the reference's GSPMD step splits it, in a meshed train or
 serving step of an architecture whose every layer is GQA attention and
-the gated MLP (``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b,
-internvl2-76b) on a mesh whose model axis is wider than one.  There each parameter is
-a :class:`Blocks` leaf, the data row's blocks on its model slots, and
+the gated MLP or an MoE FFN (``ModelAPI.model_split``: llama3.2-3b,
+gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout) on a mesh
+whose model axis is wider than one.  There each parameter is a
+:class:`Blocks` leaf, the data row's blocks on its model slots, and
 the split forms run what the reference's constraints (``shard()``)
 split on each slot's own blocks: its query heads and ``wo``'s matching
 rows (``attn_apply``), its MLP columns and ``w_out``'s rows
-(``mlp_apply``), its vocabulary rows (``embed_apply``) and its block of
-the logits (:func:`xent_terms`); the partials meet on the row's first
-slot, summed in slot order, at the reference's constraint points
-(``train/sharded.py``'s ``to_model_slots`` and ``sum_model_slots``).
+(``mlp_apply``), its experts (``moe_apply``: the row's first slot
+routes and dispatches, each slot runs its experts' MLPs on their rows
+of the buffer, and the combine runs on the first slot), its vocabulary
+rows (``embed_apply``) and its block of the logits
+(:func:`xent_terms`); the partials meet on the row's first slot,
+summed in slot order, at the reference's constraint points, and the
+expert outputs concatenated in slot order (``train/sharded.py``'s
+``to_model_slots``, ``sum_model_slots`` and ``from_model_slots``).
 What the reference does not split runs once, on the row's first slot:
-the norms, residual adds, and the k/v projections and their rope where
-the model degree does not divide the KV heads.  Serving
+the norms, residual adds, the MoE's router, dispatch and combine, the
+experts where the model degree does not divide them, and the k/v
+projections and their rope where it does not divide the KV heads.  Serving
 (``launch/serve.py::MeshServe``) adds the caches: each is a
 :class:`CacheBlocks` leaf, each slot's block as ``cache_pspecs`` lays it
 out (by KV heads, or by positions where the model degree does not divide
@@ -46,10 +52,10 @@ every replica receives each write (the reference's GSPMD keeps them
 equal), and the computing row reads its own.  Every
 other meshed step (the other families, a model axis of one) runs on
 whole tensors, the compute left unsplit: a data shard's rows on whole
-gathered parameters (``train/trainer.py``, ``MeshServe``).  So ``moe_apply`` is the
-reference's no-mesh branch over the tokens it is given: run on one data
-shard's rows, that is the reference's per-shard capacity under
-``shard_map``.
+gathered parameters (``train/trainer.py``, ``MeshServe``).  Either way
+``moe_apply`` routes as the reference's no-mesh branch over the tokens
+it is given: run on one data shard's rows, that is the reference's
+per-shard capacity under ``shard_map``.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``
@@ -877,11 +883,16 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_local(xl, router, wg, wi, wo, *, cfg):
-    """Capacity-based top-k dispatch, expert MLPs and combine over the
-    tokens of ``xl`` (B,T,D); returns (y, aux).  A token past an expert's
-    capacity is dropped: its row goes to a spare last row of the buffer,
-    which is cut off, where the reference's scatter drops the write."""
+def _moe_dispatch(xl, router, *, cfg):
+    """The router over the tokens of ``xl`` (B,T,D): the top-k experts,
+    their gates, the aux loss, each route's rank at its expert and
+    whether it is kept (within the expert's capacity), and the (E, cap,
+    D) buffer of each expert's tokens.  Returns (eb, route, aux),
+    ``route`` = (idx, gates, keep, slot), each (N, k), ``slot`` a kept
+    route's row of the buffer flattened to (E * cap, D).  A token past
+    an expert's capacity is dropped: its row goes to a spare last row of
+    the buffer, which is cut off, where the reference's scatter drops
+    the write."""
     mc = cfg.moe
     bl, t, d = xl.shape
     nl = bl * t
@@ -905,32 +916,55 @@ def _moe_local(xl, router, wg, wi, wo, *, cfg):
     for j in range(k):
         dest = torch.where(keep[:, j], slot[:, j], e * cap)
         buf[dest] = xn * keep[:, j, None].to(xn.dtype)
-    eb = buf[:e * cap].reshape(e, cap, d)
-    hg = _act(cfg.act)(torch.einsum("ecd,edf->ecf", eb, wg.to(eb.dtype)))
+    return buf[:e * cap].reshape(e, cap, d), (idx, gates, keep, slot), aux
+
+
+def _moe_experts(eb, wg, wi, wo, *, act, at=lambda w: w):
+    """The expert MLPs on their buffers: eb (E', cap, D) through the
+    stacks ``wg``/``wi`` (E', D, F) and ``wo`` (E', F, D), each taken
+    to the layer's by ``at`` (``Blocks.part``): (E', cap, D)."""
+    wg, wi, wo = at(wg), at(wi), at(wo)
+    hg = _act(act)(torch.einsum("ecd,edf->ecf", eb, wg.to(eb.dtype)))
     hu = torch.einsum("ecd,edf->ecf", eb, wi.to(eb.dtype))
-    ob = torch.einsum("ecf,efd->ecd", hg * hu,
-                      wo.to(eb.dtype)).reshape(e * cap, d)
-    y = torch.zeros_like(xn)
-    for j in range(k):
+    return torch.einsum("ecf,efd->ecd", hg * hu, wo.to(eb.dtype))
+
+
+def _moe_combine(ob, route, xl):
+    """Each token of ``xl`` (B,T,D): its kept routes' expert outputs
+    (``ob`` (E, cap, D)) weighted by their gates, summed over j in
+    order."""
+    _, gates, keep, slot = route
+    ob = ob.reshape(-1, ob.shape[-1])
+    y = torch.zeros_like(xl.reshape(-1, xl.shape[-1]))
+    for j in range(slot.shape[1]):
         src = torch.where(keep[:, j], slot[:, j], 0)
-        y = y + ob[src] * (gates[:, j] * keep[:, j])[:, None].to(xn.dtype)
-    return y.reshape(bl, t, d), aux
+        y = y + ob[src] * (gates[:, j] * keep[:, j])[:, None].to(y.dtype)
+    return y.reshape(xl.shape)
+
+
+def _moe_local(xl, router, wg, wi, wo, *, cfg):
+    """Capacity-based top-k dispatch, expert MLPs and combine over the
+    tokens of ``xl`` (B,T,D); returns (y, aux)."""
+    eb, route, aux = _moe_dispatch(xl, router, cfg=cfg)
+    ob = _moe_experts(eb, wg, wi, wo, act=cfg.act)
+    return _moe_combine(ob, route, xl), aux
 
 
 def moe_apply(p, x, cfg):
     """Capacity-based top-k MoE (GShard-style) over the tokens of ``x``,
-    the reference's no-mesh branch; returns (y, aux).  A meshed training
-    step calls it on one data shard's rows, which is the reference's
-    per-shard capacity on a mesh."""
+    the reference's no-mesh branch; returns (y, aux).  A meshed step
+    calls it on one data shard's rows, which is the reference's
+    per-shard capacity on a mesh; on a row's model slots (``Blocks``
+    leaves) it takes the split form (:func:`_moe_split`)."""
+    if isinstance(p["w_in"], Blocks):
+        return _moe_split(p, x, cfg)
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     y, aux = _moe_local(xn, p["router"], p["w_gate"], p["w_in"],
                         p["w_out"], cfg=cfg)
     if cfg.moe.num_shared:
         sp = p["shared"]
-        a = _act(cfg.act)(torch.einsum("btd,df->btf", xn,
-                                       sp["w_gate"].to(x.dtype)))
-        u = torch.einsum("btd,df->btf", xn, sp["w_in"].to(x.dtype))
-        y = y + torch.einsum("btf,fd->btd", a * u, sp["w_out"].to(x.dtype))
+        y = y + _mlp_slot(xn, sp["w_gate"], sp["w_in"], sp["w_out"],
+                          act=cfg.act, at=lambda w: w)
     return x + y, aux
 
 
@@ -978,8 +1012,9 @@ def logits_apply(p, x, cfg):
 # The split forms of a meshed train step (see the module docstring):
 # each takes Blocks leaves, whose row runs slot m's work with
 # ``row.run(m, fn, *args)`` and moves activations with ``row.send``,
-# ``row.scatter`` (sharded.to_model_slots) and ``row.reduce``
-# (sharded.sum_model_slots).
+# ``row.scatter`` (sharded.to_model_slots), ``row.reduce``
+# (sharded.sum_model_slots) and ``row.concat``
+# (sharded.from_model_slots).
 def _vocab_block(w: Blocks, dim: int, what: str) -> None:
     if w.dim != dim:
         raise NotImplementedError(
@@ -1363,6 +1398,50 @@ def _mlp_split(p, x, cfg):
                      at=p["w_in"].part)
              for m in range(len(xs))]
     return x + row.reduce(parts)
+
+
+def _moe_split(p, x, cfg):
+    """``moe_apply`` on a row's model slots.  The row's first slot runs
+    the norm, the router and the dispatch over the row's tokens (the
+    capacity a data shard's, as under the reference's ``shard_map``);
+    where the spec splits the experts (``w_in`` along its dim 0), each
+    slot is sent its experts' rows of the buffer, runs their MLPs on its
+    blocks, and the outputs come back to the first slot concatenated in
+    slot order (``sharded.from_model_slots``), where the combine runs as
+    unsplit; where it does not, the whole of it runs on the first slot.
+    A shared expert runs as :func:`_mlp_split`: each slot on its
+    columns, the partials summed in slot order."""
+    row = p["router"].row
+    xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
+    if p["w_in"].dim is None:
+        y, aux = _moe_local(xn, p["router"].whole, p["w_gate"].whole,
+                            p["w_in"].whole, p["w_out"].whole, cfg=cfg)
+    else:
+        eb, route, aux = _moe_dispatch(xn, p["router"].whole, cfg=cfg)
+        tp = len(p["w_in"].blocks)
+        em = eb.shape[0] // tp
+        ebs = row.scatter(eb, dim=0, ranges=[(m * em, (m + 1) * em)
+                                             for m in range(tp)])
+        obs = [row.run(m, _moe_experts, ebs[m], p["w_gate"].blocks[m],
+                       p["w_in"].blocks[m], p["w_out"].blocks[m],
+                       act=cfg.act, at=p["w_in"].part)
+               for m in range(tp)]
+        y = _moe_combine(row.concat(obs, dim=0), route, xn)
+    if cfg.moe.num_shared:
+        sp = p["shared"]
+        if sp["w_in"].dim is None:
+            y = y + _mlp_slot(xn, sp["w_gate"].whole, sp["w_in"].whole,
+                              sp["w_out"].whole, act=cfg.act,
+                              at=lambda w: w)
+        else:
+            xs = row.scatter(xn)
+            y = y + row.reduce([row.run(m, _mlp_slot, xs[m],
+                                        sp["w_gate"].blocks[m],
+                                        sp["w_in"].blocks[m],
+                                        sp["w_out"].blocks[m], act=cfg.act,
+                                        at=sp["w_in"].part)
+                                for m in range(len(xs))])
+    return x + y, aux
 
 
 def _embed_slot(tokens, table, lo: int, *, dtype, at):

@@ -17,10 +17,11 @@ Every move of a tensor from one slot to another goes through
 slot that holds the whole tensor, a slice read into a gathering slot's
 tensor, and the meshed train step's own moves
 (``train/trainer.py::MeshStep``), the split layers' among them: a
-:class:`ModelRow` is a data row's slots on the model axis, and its two
-collectives, :func:`to_model_slots` (Megatron's *f*) and
-:func:`sum_model_slots` (*g*), are autograd Functions whose forward and
-backward move through the row's ``send``.  :func:`redistribute` lays
+:class:`ModelRow` is a data row's slots on the model axis, and its
+collectives, :func:`to_model_slots` (Megatron's *f*),
+:func:`sum_model_slots` (*g*) and :func:`from_model_slots` (an MoE's
+expert outputs back to the first slot), are autograd Functions whose
+forward and backward move through the row's ``send``.  :func:`redistribute` lays
 out a tensor held in blocks by some slots under another spec, each slot
 reading its slice from the slots that hold it (:func:`plan`).  The dry
 run counts the same moves from the layouts
@@ -215,7 +216,9 @@ class ModelRow:
     slot, each new k/v row to the slots whose blocks hold its position
     and heads, the merged heads back to the slots that hold ``wo``'s
     rows (``models/layers.py``); they run under ``no_grad``, so none
-    needs a backward."""
+    needs a backward.  ``scatter``, ``reduce`` and ``concat`` are the
+    collectives (:func:`to_model_slots`, :func:`sum_model_slots`,
+    :func:`from_model_slots`)."""
 
     def __init__(self, slots, send, run=None):
         self.slots = tuple(slots)
@@ -248,6 +251,9 @@ class ModelRow:
 
     def reduce(self, parts):
         return sum_model_slots(self, parts)
+
+    def concat(self, parts, dim: int):
+        return from_model_slots(self, parts, dim)
 
 
 def data_slots(mesh, dp_axes) -> list[int]:
@@ -333,6 +339,21 @@ class _SumModelSlots(torch.autograd.Function):
                                for m in range(len(ctx.row.slots)))
 
 
+class _FromModelSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, dim, *parts):
+        ctx.row, ctx.dim = row, dim
+        ctx.sizes = [p.shape[dim] for p in parts]
+        return torch.cat([row.send_from(p, m) for m, p in enumerate(parts)],
+                         dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None) + tuple(
+            ctx.row.send_to(s, m)
+            for m, s in enumerate(torch.split(g, ctx.sizes, dim=ctx.dim)))
+
+
 def to_model_slots(row: ModelRow, x, dim: int | None = None, ranges=None):
     """``x``, on the row's first slot, on each of its model slots: whole,
     or where ``ranges`` gives each slot m an interval [lo, hi) of dim
@@ -345,6 +366,13 @@ def sum_model_slots(row: ModelRow, parts):
     """The sum, in slot order, of ``parts[m]`` on model slot m, on the
     row's first slot; backward sends the gradient back to each slot."""
     return _SumModelSlots.apply(row, *parts)
+
+
+def from_model_slots(row: ModelRow, parts, dim: int):
+    """``parts[m]``, on model slot m, concatenated along ``dim`` in slot
+    order on the row's first slot (an MoE's expert outputs, each slot's
+    experts); backward sends each slot its slice of the gradient."""
+    return _FromModelSlots.apply(row, dim, *parts)
 
 
 def _intersect(a: tuple, b: tuple):

@@ -21,8 +21,10 @@
 (d) ``transfers`` against every byte that ``Trainer(mesh=...)``'s real
     step sends between slots on 8 CPU slots, recorded by wrapping
     ``train/sharded.py::send``, at the byte, on (2, 4) and (4, 2) meshes
-    with and without ZeRO-1, and ``serve_transfers`` against
-    ``MeshServe``'s split prefill and decode steps the same way;
+    with and without ZeRO-1 (the split steps of llama3.2-3b and the two
+    MoE families, an MoE's dispatch and combine among them, and jamba's
+    gathered one), and ``serve_transfers`` against ``MeshServe``'s split
+    prefill and decode steps the same way;
 (e) the kernels' cost functions: flash's closed form of the visible
     pairs against the loop it replaced, the bounds ``chip_smoke.py``
     computed before against the package's, decode's count on ``meta``,
@@ -354,15 +356,23 @@ def _recorded_sends(monkeypatch):
     return moved
 
 
+# the steps that split over the model axis, and a gathered witness with
+# MoE layers (jamba's Mamba layers keep it gathered)
+SPLIT_TRAIN = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+GATHERED_MOE = "jamba-v0.1-52b"
+
+
 @pytest.mark.parametrize("zero1", [False, True])
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", SPLIT_TRAIN + (GATHERED_MOE,))
 def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
                                                        zero1, monkeypatch):
-    """llama3.2-3b's step splits over the model axis (its layers' forward,
-    backward and remat-recompute sends, the embedding's and the loss's
-    combines, the gradient summed block by block); phi3.5-moe's gathers
-    the parameters onto each data row's first slot."""
+    """llama3.2-3b's, phi3.5-moe's and llama4-scout's steps split over the
+    model axis (their layers' forward, backward and remat-recompute
+    sends, an MoE's dispatch rows and expert outputs among them, the
+    embedding's and the loss's combines, the gradient summed block by
+    block); jamba's gathers the parameters onto each data row's first
+    slot."""
     cfg = SMOKES[arch]
     shape = ShapeConfig("s", "train", 16, 8)
     mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
@@ -387,7 +397,7 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
         counted.update(m)
     assert dict(counted) == dict(moved)
     split = D.model_split(cell)
-    assert split == (arch == "llama3.2-3b")
+    assert split == (arch in SPLIT_TRAIN)
     assert ("layback" in kinds) == zero1
     # a split step's slots read their moments' slices from their own blocks
     assert ("relayout" in kinds) == (zero1 and not split)
@@ -408,7 +418,7 @@ def test_serving_cells_record_no_collectives():
     ``ModelAPI.model_split`` leaves out, and a split family on a model
     axis of one."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
-    for arch in ("phi3.5-moe-42b-a6.6b", "minicpm3-4b", "xlstm-125m"):
+    for arch in (GATHERED_MOE, "minicpm3-4b", "xlstm-125m"):
         for kind in ("prefill", "decode"):
             cell, _ = D.lower_cell(SMOKES[arch],
                                    ShapeConfig("s", kind, 32, 8), mesh)
@@ -432,7 +442,8 @@ def _serve_inputs(api, shape, cell):
                                         ("decode", 1)])
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-12b",
-                                  "internvl2-76b"])
+                                  "internvl2-76b", "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
 def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
         arch, mesh_shape, kind, batch, monkeypatch):
     """``transfers``'s serving counterpart (``serve_transfers``) against
@@ -464,6 +475,8 @@ def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
     assert D.model_split(cell)
     assert "embed" in kinds and "activations" in kinds
     assert ("positions" in kinds) == (kind == "decode")
+    moe = cfg.moe is not None
+    assert ("dispatch" in kinds) == ("combine" in kinds) == moe
     rec = D.collectives(cell)
     per = np.zeros(8, dtype=np.int64)
     for (src, dst), n in moved.items():

@@ -1,8 +1,8 @@
 """Serving on the model axis (``launch/serve.py::MeshServe``) on 8 CPU
-slots: the split prefill and decode steps of the four architectures that
-split (llama3.2-3b, gemma3-12b/27b, internvl2-76b: each data row's model
-slots on their own heads, MLP columns, vocabulary block and block of
-every cache) against the gathered step (the whole parameters and the
+slots: the split prefill and decode steps of the six architectures that
+split (llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe and
+llama4-scout: each data row's model slots on their own heads, MLP
+columns or experts, vocabulary block and block of every cache) against the gathered step (the whole parameters and the
 row's caches on its first slot) and against the reference's
 ``api.prefill`` / ``api.decode`` jitted with the same shardings under
 its host mesh of 8 forced devices, at (1, 8), (2, 4) and (4, 2), and in
@@ -38,7 +38,8 @@ from repro_torch.train import sharded as S
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
-SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b")
+SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b",
+         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
     + [(m, True) for m in ((2, 4), (4, 2))]
 TOL = 1e-5
@@ -259,8 +260,9 @@ def test_no_slot_is_written_a_row_outside_its_block(monkeypatch, name, case):
 @pytest.mark.parametrize("name", SPLIT)
 def test_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name):
     """At (2, 4) no move of the split step reads a parameter's storage:
-    each slot computes on its own blocks and only activations, k/v rows,
-    queries and partials move; the gathered step's moves read them (it
+    each slot computes on its own blocks (an MoE's on its own experts)
+    and only activations, k/v rows, queries, partials, dispatch rows and
+    expert outputs move, no expert stack; the gathered step's moves read them (it
     gathers the whole parameters onto each data row's first slot)."""
     for split in (True, False):
         sends = []

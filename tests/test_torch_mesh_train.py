@@ -48,8 +48,10 @@ from _torch_threads import one_torch_thread  # noqa: F401
 CPU = "cpu"
 SLOTS = 8
 DENSE, MOE = "llama3.2-3b", "phi3.5-moe-42b-a6.6b"
-# split over the model axis too (llama3.2-3b, DENSE, does as well)
-SPLIT = ("gemma3-12b", "internvl2-76b", "gemma3-27b")
+# split over the model axis too (DENSE and MOE do as well): llama4-scout
+# is the other MoE (top 1 and a shared expert)
+SPLIT = ("gemma3-12b", "internvl2-76b", "gemma3-27b",
+         "llama4-scout-17b-a16e")
 MESHES = [(8, 1), (2, 4), (4, 2)]
 # phi3.5-moe's smoke at a capacity that drops tokens: the reference's
 # meshed run (capacity per data shard) leaves its unmeshed one by more
@@ -292,13 +294,16 @@ def moe_unmeshed_losses(tmp_path_factory):
 
 def _runs():
     """(name, mesh, zero1) of the 3-step runs: the dense arch and the MoE
-    on MESHES; the other architectures whose step splits over the model
-    axis (``ModelAPI.model_split``) on its meshes wider than one; each
-    that splits also on (1, 8), which pads the smokes' 4 heads to 8 and
-    replicates their 2 KV heads; gemma3-27b (8 layers) without ZeRO-1."""
+    on MESHES, gathered at (8, 1) and split over the model axis on the
+    others (``ModelAPI.model_split``; the MoE with 2 and 1 of its 4
+    experts a slot); the other architectures whose step splits on
+    MESHES' meshes wider than one; the dense ones that split also on
+    (1, 8), which pads the smokes' 4 heads to 8 and replicates their 2
+    KV heads; gemma3-27b (8 layers) without ZeRO-1.  The MoEs' tokens
+    drop per data shard (``MOE_CAPACITY``)."""
     runs = [(n, m) for n in (DENSE, MOE) for m in MESHES]
     runs += [(n, m) for n in SPLIT for m in MESHES[1:]]
-    runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT]
+    runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT[:3]]
     return [(n, m, z) for n, m in runs for z in (False, True)
             if not (z and n == "gemma3-27b")]
 

@@ -1,8 +1,9 @@
 """The model axis of a meshed train step, on 8 CPU slots: the split step
-(each data row's model slots on their own heads, MLP columns and
-vocabulary block, ``models/layers.py``'s split forms) against the
+(each data row's model slots on their own heads, MLP columns or experts
+and vocabulary block, ``models/layers.py``'s split forms) against the
 gathered one (the whole parameters on each row's first slot) for the
-four architectures that split, at (1, 8), (2, 4) and (4, 2); the two
+six architectures that split, at (1, 8), (2, 4) and (4, 2) (the MoE
+smokes' 4 experts 2 and 1 a slot, and whole at degree 8); the three
 collectives of ``train/sharded.py`` under ``gradcheck`` in float64;
 the moves of a recorded step, none of which takes a block of a split
 leaf to a slot that does not hold it; and the dry run's record of a
@@ -29,7 +30,8 @@ from repro_torch.train import trainer as T
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
-SPLIT = ("llama3.2-3b", "gemma3-12b", "internvl2-76b", "gemma3-27b")
+SPLIT = ("llama3.2-3b", "gemma3-12b", "internvl2-76b", "gemma3-27b",
+         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 MESHES = [(1, 8), (2, 4), (4, 2)]
 TOL = 1e-5
 SEQ, BATCH = 16, 8
@@ -113,6 +115,9 @@ def _row(n):
 
 
 def test_the_collectives_pass_gradcheck_in_float64():
+    """to_model_slots (whole and by ranges), sum_model_slots and
+    from_model_slots (an MoE's expert outputs, concatenated in slot
+    order), and the moves each makes forward and backward."""
     row, moved = _row(3)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 5, 4, dtype=torch.float64, generator=g,
@@ -125,6 +130,19 @@ def test_the_collectives_pass_gradcheck_in_float64():
                               requires_grad=True) for _ in range(3))
     assert torch.autograd.gradcheck(
         lambda *p: S.sum_model_slots(row, p), parts)
+    blocks = tuple(torch.randn(n, 3, dtype=torch.float64, generator=g,
+                               requires_grad=True) for n in (2, 1, 3))
+    assert torch.autograd.gradcheck(
+        lambda *p: S.from_model_slots(row, p, 0), blocks)
+    assert torch.autograd.gradcheck(
+        lambda *p: S.from_model_slots(row, [b.T for b in p], 1), blocks)
+    moved.clear()
+    out = S.from_model_slots(row, [b * 1 for b in blocks], 0)
+    assert torch.equal(out, torch.cat(blocks))
+    assert moved == [(1, 0), (2, 0)]
+    out.sum().backward()
+    assert moved == [(1, 0), (2, 0), (0, 1), (0, 2)]
+    assert all(torch.equal(b.grad, torch.ones_like(b)) for b in blocks)
     moved.clear()
     out = S.to_model_slots(row, x)
     assert moved == [(0, 1), (0, 2)]
@@ -222,9 +240,10 @@ def test_the_gathered_step_fails_that_check(monkeypatch):
 
 
 def test_the_dry_run_records_which_steps_split():
-    """The four families split their train and serving steps (the
+    """The six families split their train and serving steps (the
     serving one ``launch/serve.py::MeshServe``) on a model axis wider
-    than one; no other family splits."""
+    than one; no other family splits (jamba's MoE layers ride with its
+    Mamba ones, gathered)."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
     train = ShapeConfig("s", "train", 2048, 8)
     for name, cfg in ARCHS.items():

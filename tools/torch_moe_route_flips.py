@@ -57,19 +57,19 @@ def routed(torch):
     from repro_torch.models import layers as L
     probs, calls = [], []
 
-    def wrapped(xl, router, wg, wi, wo, *, cfg):
+    def wrapped(xl, router, *, cfg):
         bl, t, d = xl.shape
         probs.append(torch.softmax(xl.reshape(bl * t, d).float()
                                    @ router.float(), dim=-1))
-        return inner(xl, router, wg, wi, wo, cfg=cfg)
+        return inner(xl, router, cfg=cfg)
 
     with cs.routes_recorded(torch) as recorded:
-        inner = L._moe_local            # the recorder of the routes
-        L._moe_local = wrapped
+        inner = L._moe_dispatch         # the recorder of the routes
+        L._moe_dispatch = wrapped
         try:
             yield probs, calls
         finally:
-            L._moe_local = inner
+            L._moe_dispatch = inner
             calls.extend(recorded)
 
 
