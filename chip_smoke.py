@@ -158,7 +158,7 @@ Phases, each uncaught, so any failure exits non-zero:
    (2, 16, 16), in processes of their own (four that take the cells in
    turn, and one for the witness below; niced, CPU only) started
    before phase 1 and joined
-   after phase 13, so that they run beside every card phase; bytes a slot counted at the production shapes, slot (0, 0)'s
+   after phase 14, so that they run beside every card phase; bytes a slot counted at the production shapes, slot (0, 0)'s
    program traced through the card's routes and kernel checks at one
    data shard's batch, at the production shapes apart from jamba's and
    xlstm's train and prefill cells, traced at ``--dev``'s shape (their
@@ -173,13 +173,15 @@ Phases, each uncaught, so any failure exits non-zero:
    run; the dry-run processes never initialise CUDA, allocate nothing and
    launch nothing, and this process's allocated card memory is unchanged
    across the phase's wait.  Every cell of llama3.2-3b, gemma3-12b/27b,
-   internvl2-76b, phi3.5-moe and llama4-scout splits (each slot runs its
-   own heads, MLP columns or experts, vocabulary block and, serving, its
-   own block of every cache), and no other cell does; a line each gives
-   its peak beside the one the gathered step traced, which it must be
-   under; llama3.2-3b's train_4k, internvl2-76b's prefill_32k and
-   decode_32k, gemma3-27b's long_500k and the two MoE families'
-   prefill_32k and decode_32k must fit.  Then the card witness:
+   internvl2-76b, phi3.5-moe, llama4-scout and minicpm3-4b splits (each
+   slot runs its own heads, MLP columns or experts, vocabulary block or
+   d_model columns and, serving, its own block of every cache), and no
+   other cell does; a line each gives its peak beside the one the
+   gathered step traced, which it must be under; llama3.2-3b's and
+   minicpm3-4b's train_4k, internvl2-76b's prefill_32k and decode_32k,
+   gemma3-27b's long_500k, the two MoE families' prefill_32k and
+   decode_32k, and minicpm3-4b's decode_32k and (on (2, 16, 16)) its
+   prefill_32k must fit.  Then the card witness:
    each of WITNESSES
    (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
    8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
@@ -233,9 +235,34 @@ Phases, each uncaught, so any failure exits non-zero:
    1e-4 of each leaf's max of a run on the same data shards (the
    unmeshed one, or the gathered (2, 1) one: the aux loss is each
    shard's); launches, step ms, ``max_memory_allocated``;
-14. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+14. MLA on the model axis: phase 8's minicpm3-4b cut (published widths,
+   2 layers, bf16, 2 x a 256-token prompt into caches of 512, 8 steps)
+   through ``MeshServe`` on (1, 2) (20 of its 40 heads a slot, the
+   compressed caches' 512 positions 256 a slot, the logits by
+   vocabulary rows) and (1, 16) (40 heads padded to 48, 3 a slot, 32
+   positions a slot; 73,448 does not divide 16, so the embedding and
+   the logits split along d_model and every slot holds the whole
+   logits), the parameters and the unmeshed run at each mesh's padding.
+   For each: every slot's ``wuq``/``wukv``/``wo`` blocks its heads;
+   launch counts zeroed just before and read just after (rmsnorm > 0;
+   MLA's attention is plain torch, as the reference's); every slot's
+   logits block and cache block the shapes their specs give; the logits
+   against the unmeshed run (phase 8's path) within 2e-2 of the scale
+   plus the same comparison's reading on the plain versions, in fp32
+   within 1e-3, and against the same split run on the plain versions;
+   each rmsnorm call against its plain version; prefill and decode ms,
+   ``max_memory_allocated``; (1, 16)'s rmsnorm calls timed cold
+   (``"path": "mesh_serve_mla"`` rows), in the phase beside the dry
+   run's processes (``ms_beside_dryrun``) and again after phase 11's
+   join (``ms``).  Then the cut in fp32, 4 x 512:
+   3 steps of the unmeshed Trainer at each padding and of the split step
+   at (1, 2), (2, 2) with ZeRO-1 and (1, 16) (the row-parallel loss),
+   the losses and grad norms within rtol 1e-5 and every parameter and
+   moment within 1e-4 of each leaf's max; launches, step ms,
+   ``max_memory_allocated``;
+15. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
    keyed by ``mesh``, and the dense, recurrent, train, mesh_train,
-   mesh serve and mesh_serve_moe paths', keyed by ``path``;
+   mesh serve, mesh_serve_moe and mesh_serve_mla paths', keyed by ``path``;
    decode_attention's partial entry a row of its own), then
    ``{"ok": true, "device": ...}`` last.
 
@@ -402,6 +429,21 @@ MOE_TRAIN_YARDSTICK = {(1, 2): None, (2, 2): (2, 1)}
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 512, 3
 MOE_ROWS_MESH = "1x16"
 
+# MLA on the model axis (phase 14): phase 8's minicpm3-4b cut (published
+# widths, 2 layers, 2 x a 256-token prompt into caches of 512, 8 steps)
+# through MeshServe at (1, 2) (20 of its 40 heads a slot, vocabulary
+# rows) and (1, 16) (40 heads padded to 48, 3 a slot, 32 cache positions
+# a slot, the 73,448-row vocabulary over d_model: row-parallel embedding
+# and logits); then the same cut in fp32, MLA_TRAIN_STEPS Trainer steps
+# at 4 x 512 on each of MLA_TRAIN_MESHES (ZeRO-1 where data > 1; (1, 16)
+# is the row-parallel loss), each against the unmeshed Trainer of the
+# same padding.  The kernels line's "mesh_serve_mla" rows come from (1, 16)
+MLA_ARCH = "minicpm3-4b"
+MLA_SERVE_MESHES = ((1, 2), (1, 16))
+MLA_TRAIN_MESHES = ((1, 2), (2, 2), (1, 16))
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ, MLA_TRAIN_STEPS = 4, 512, 3
+MLA_ROWS_MESH = "1x16"
+
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
 HBM_BYTES_PER_S = 3.35e12
@@ -422,8 +464,9 @@ DRYRUN_SPLIT_PEAK_BEFORE = {"llama3.2-3b": (219.103e9, 125.218e9),
                             "internvl2-76b": (1068.528e9, 849.484e9),
                             "phi3.5-moe-42b-a6.6b": (566.795e9, 486.883e9),
                             "llama4-scout-17b-a16e": (1252.198e9,
-                                                      1226.283e9)}
-DRYRUN_SPLIT_FITS = ("llama3.2-3b",)
+                                                      1226.283e9),
+                            "minicpm3-4b": (243.802e9, 140.932e9)}
+DRYRUN_SPLIT_FITS = ("llama3.2-3b", "minicpm3-4b")
 # the serving cells of those families, which split too since serving on
 # the model axis (the MoE two since their experts split): each one's peak
 # a slot on (16, 16) and (2, 16, 16) as the gathered step traced them
@@ -443,14 +486,19 @@ DRYRUN_SERVE_PEAK_BEFORE = {
     ("phi3.5-moe-42b-a6.6b", "prefill_32k"): (109.246e9, 99.096e9),
     ("phi3.5-moe-42b-a6.6b", "decode_32k"): (125.521e9, 107.233e9),
     ("llama4-scout-17b-a16e", "prefill_32k"): (252.799e9, 241.408e9),
-    ("llama4-scout-17b-a16e", "decode_32k"): (284.881e9, 257.449e9)}
+    ("llama4-scout-17b-a16e", "decode_32k"): (284.881e9, 257.449e9),
+    ("minicpm3-4b", "prefill_32k"): (1459.424e9, 734.175e9),
+    ("minicpm3-4b", "decode_32k"): (28.683e9, 18.802e9)}
+# (a cell that must fit on one mesh only names it: True for (2, 16, 16))
 DRYRUN_SERVE_FITS = (("internvl2-76b", "prefill_32k"),
                      ("internvl2-76b", "decode_32k"),
                      ("gemma3-27b", "long_500k"),
                      ("phi3.5-moe-42b-a6.6b", "prefill_32k"),
                      ("phi3.5-moe-42b-a6.6b", "decode_32k"),
                      ("llama4-scout-17b-a16e", "prefill_32k"),
-                     ("llama4-scout-17b-a16e", "decode_32k"))
+                     ("llama4-scout-17b-a16e", "decode_32k"),
+                     ("minicpm3-4b", "prefill_32k", True),
+                     ("minicpm3-4b", "decode_32k"))
 # its card witness: configurations phases 8-10 run on the card, (arch,
 # kind, layers or None for all, dtype or None for the config's, seq,
 # batch), each traced on meta at a (1, 1) mesh and run for one step on
@@ -1531,9 +1579,12 @@ def cold_ms(torch, make, args, launches: int = COLD_LAUNCHES) -> float:
     events behind a spin kernel (``torch.cuda._sleep``) that outlasts the
     host's issue of the call, so the pair holds the call's device time
     without host gaps; the mean of as many empty pairs (the events' own
-    time) is taken off.  Not torch.profiler: late in a long run it was
-    seen to lose most of a window's kernel events, and a row then read
-    faster than its bound."""
+    time) is taken off.  The timed pass follows an untimed one that grows
+    the caching allocator's pool to hold every kept output, so no
+    ``cudaMalloc`` falls between a pair (on a pool just emptied, the
+    first function timed read up to 10x its time).  Not torch.profiler:
+    late in a long run it was seen to lose most of a window's kernel
+    events, and a row then read faster than its bound."""
     size = sum(a.numel() * a.element_size() for a in args
                if isinstance(a, torch.Tensor))
     n = min(COLD_MAX_COPIES, max(2, -(-COLD_BYTES // max(size, 1))))
@@ -1560,6 +1611,7 @@ def cold_ms(torch, make, args, launches: int = COLD_LAUNCHES) -> float:
         return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
 
     fns = calls * -(-launches // n)
+    timed(fns)                          # the pool grows to hold the outputs
     return timed(fns) - timed([lambda: None] * len(fns))
 
 
@@ -2849,6 +2901,200 @@ def moe_axis_phase(torch, card) -> list[dict]:
     return rows
 
 
+def mla_axis_phase(torch, card):
+    """Phase 14: MLA on the model axis (see the module docstring).
+    Returns a function that gives the ``kernels`` rows of the (1, 16)
+    serving run, keyed ``"path": "mesh_serve_mla"``, timed when it is
+    called: after the dry run's join, with no dry-run process beside it
+    on the host; each row's ``ms_beside_dryrun`` is the same timing
+    taken in the phase, beside them."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import MeshServe
+    from repro_torch.models import build, layers as L
+    from repro_torch.train import Trainer, sharded as S
+
+    t_phase = time.perf_counter()
+    plain = {"rmsnorm": ref.rmsnorm_ref}
+    originals = {"rmsnorm": ops.rmsnorm}
+    base = ARCHS[MLA_ARCH]
+    cfg = base.replace(num_layers=FAMILY_LAYERS)
+    v, b = cfg.vocab_size, FAMILY_BATCH
+    prompt, steps, seq = FAMILY_PROMPT, FAMILY_STEPS, FAMILY_SEQ
+    inp = dense_inputs(torch, cfg, b, prompt, steps)
+    extra = {"arch": MLA_ARCH, "mesh": MLA_ROWS_MESH}
+    beside = kept = None
+    for d, m in MLA_SERVE_MESHES:
+        t0 = time.perf_counter()
+        tag = f"mla axis {d}x{m}"
+        api = build(cfg, tp=m)            # 40 heads, or padded to 48 at 16
+        params = api.init_params(0, DEVICE)
+        unmeshed = {}
+        for what, dtype, fns in (("bf16", cfg.dtype, {}),
+                                 ("plain", cfg.dtype, plain),
+                                 ("fp32", "float32", {})):
+            with wrappers_as(ops, fns):
+                unmeshed[what] = torch.stack(dense_generate(
+                    torch, build(cfg.replace(dtype=dtype), tp=m), params,
+                    inp, prompt, steps, seq)[0], 1)
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        serve = MeshServe(api, mesh)
+        assert serve.split
+        laid = serve.lay_out_params(params)
+        hp = api.param_defs()["stack"][0]["mixer"]["wuq"].shape[2]
+        mix = laid["stack"][0]["mixer"]
+        for key, dim in (("wuq", 2), ("wukv", 2), ("wo", 1)):
+            assert {blk.shape[dim] for blk in mix[key].blocks} == {hp // m}, \
+                (tag, key)
+        rows_split = v % m == 0
+        run = lambda n, srv=serve: mesh_generate(  # noqa: E731
+            torch, srv, laid, inp, prompt, n, seq)
+        run(1)                          # warm: cuBLAS's plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        with recording(torch, ops, ("rmsnorm",)) as recorded:
+            kernels.reset_launch_counts()
+            out, pre_s, step_s, caches = run(steps)
+            launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        print(f"{tag} main path launches: {launches}")
+        assert launches["rmsnorm"] > 0, (tag, launches)
+        for lg in out:
+            assert lg.shape == (b, 1, v)
+            assert all(tuple(blk.shape) == (b, 1, v // m if rows_split
+                                            else v)
+                       for blk in lg.blocks), tag
+        for laid_c in L.tree_leaves(caches):     # positions over the slots
+            assert all(blk.shape[-2] == seq // m for blk in laid_c.blocks), \
+                (tag, laid_c.shape)
+        got = torch.stack([S.gather(lg)[:, 0].float() for lg in out], 1)
+        assert torch.isfinite(got).all()
+        step = np.asarray(step_s)
+        padded = f" padded to {hp}" if hp > cfg.num_heads else ""
+        vocab = "vocabulary rows" if rows_split \
+            else "row-parallel embedding and logits"
+        print(f"{tag} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads{padded}, {hp // m} a slot, "
+              f"{seq // m} cache positions a slot, {vocab}): prefill {b} x {prompt} in {pre_s * 1e3:.3f} ms; decode "
+              f"{len(step)} steps, best {step.min() * 1e3:.3f} ms, median "
+              f"{np.median(step) * 1e3:.3f} ms a step; max_memory_allocated "
+              f"{peak / 1e9:.3f} GB above the {base_mem / 1e9:.3f} GB held "
+              f"before it  [{card}]")
+        with wrappers_as(ops, plain):
+            p_out = run(steps)[0]
+        got_p = torch.stack([S.gather(lg)[:, 0].float() for lg in p_out], 1)
+        room = compare_logits(torch, "split plain versions vs unmeshed plain "
+                              "versions (the witness), bf16", got_p,
+                              unmeshed["plain"], prefix=tag)
+        compare_logits(torch, "split vs unmeshed (phase 8's path), bf16",
+                       got, unmeshed["bf16"], scale_tol=TOL_BF16, room=room,
+                       prefix=tag)
+        compare_logits(torch, "split kernels vs split plain versions, bf16",
+                       got, got_p, scale_tol=TOL_BF16, prefix=tag)
+        serve32 = MeshServe(build(cfg.replace(dtype="float32"), tp=m), mesh)
+        got32 = torch.stack([S.gather(lg)[:, 0].float()
+                             for lg in run(steps, serve32)[0]], 1)
+        compare_logits(torch, "split vs unmeshed (phase 8's path), fp32",
+                       got32, unmeshed["fp32"], tol=DENSE_FP32_TOL,
+                       prefix=tag)
+        err = max(hold_to_plain(torch, "rmsnorm", originals["rmsnorm"],
+                                plain["rmsnorm"], a, kw)
+                  for a, kw, _ in recorded["rmsnorm"].values())
+        print(f"{tag}: each rmsnorm call against its plain version, max abs "
+              f"err {err:.3g} (tol {TOL_BF16} on bf16 outputs)")
+        if f"{d}x{m}" == MLA_ROWS_MESH:
+            print(f"{tag}: its rmsnorm calls timed beside the dry run's "
+                  "processes:")
+            beside = dense_rows(torch, card, recorded, originals, plain,
+                                path="mesh_serve_mla", extra=extra)
+            kept = recorded
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        del serve, serve32, laid, params, out, p_out, caches, recorded
+        torch.cuda.empty_cache()
+
+    # ---- training: the unmeshed Trainer of each padding, then each mesh
+    cfg32 = cfg.replace(dtype="float32")
+    shape = ShapeConfig("mla", "train", MLA_TRAIN_SEQ, MLA_TRAIN_BATCH)
+    tokens = MLA_TRAIN_BATCH * MLA_TRAIN_SEQ
+
+    def step_ms(tr):
+        dts = np.asarray([x["dt"] for x in tr.metrics_log]) * 1e3
+        return float(dts[1:].min()), float(np.median(dts[1:]))
+
+    yard = {}
+    for d, m in MLA_TRAIN_MESHES:
+        tag = f"mla axis train {d}x{m}"
+        if m not in yard:               # one yardstick's state at a time
+            yard.clear()
+            torch.cuda.empty_cache()
+            flat = Trainer(build(cfg32, tp=m), shape, device=DEVICE)
+            kernels.reset_launch_counts()
+            f_params, f_opt, _ = flat.run(MLA_TRAIN_STEPS)
+            assert kernels.launch_counts()["rmsnorm"] > 0
+            want = {key: [x[key] for x in flat.metrics_log]
+                    for key in ("loss", "grad_norm")}
+            best, med = step_ms(flat)
+            print(f"mla axis train unmeshed ({cfg.num_layers} of "
+                  f"{base.num_layers} layers, fp32, heads padded as at model "
+                  f"degree {m}): losses {want['loss']}; step ms best "
+                  f"{best:.3f}, median {med:.3f} (after the first), "
+                  f"{tokens / med * 1e3:.1f} tokens/s  [{card}]")
+            yard[m] = (want, f_params, f_opt)
+            del flat, f_params, f_opt
+        want, f_params, f_opt = yard[m]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        tr = Trainer(build(cfg32, tp=m), shape, mesh=mesh, zero1=d > 1)
+        assert tr.api.model_split()
+        kernels.reset_launch_counts()
+        params, opt, _ = tr.run(MLA_TRAIN_STEPS)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        assert launches["rmsnorm"] > 0, (tag, launches)
+        got = {key: [x[key] for x in tr.metrics_log]
+               for key in ("loss", "grad_norm")}
+        for key in got:
+            np.testing.assert_allclose(got[key], want[key], rtol=RESUME_RTOL,
+                                       err_msg=f"{tag} {key}")
+        errs = {part: hold_state(torch, f"{tag} {part}", a, w, False)
+                for part, a, w in (("params", params, f_params),
+                                   ("m", opt["m"], f_opt["m"]),
+                                   ("v", opt["v"], f_opt["v"]))}
+        hold_blocks(tr, params, opt)
+        best, med = step_ms(tr)
+        loss = "row-parallel" if v % m else "by vocabulary rows"
+        print(f"{tag} main path launches: {launches}")
+        print(f"{tag} (zero1 {d > 1}; the loss {loss}): losses "
+              f"{got['loss']} and grad_norm {got['grad_norm']} within rtol "
+              f"{RESUME_RTOL} of the unmeshed Trainer's, every leaf: max "
+              f"error / leaf max {errs} (tol {MESH_TRAIN_TOL}); step ms best "
+              f"{best:.3f}, median {med:.3f}, {tokens / med * 1e3:.1f} "
+              f"tokens/s; max_memory_allocated {peak / 1e9:.3f} GB above the "
+              f"{held / 1e9:.3f} GB held before it  [{card}]")
+        del tr, params, opt, f_params, f_opt
+        torch.cuda.empty_cache()
+    yard.clear()
+    torch.cuda.empty_cache()
+    print(f"mla axis phase: {time.perf_counter() - t_phase:.1f} s")
+
+    def rows():
+        print("mla axis 1x16: its rmsnorm calls timed again after the dry "
+              "run's join:")
+        out = dense_rows(torch, card, kept, originals, plain,
+                         path="mesh_serve_mla", extra=extra)
+        for row, was in zip(out, beside):
+            row["ms_beside_dryrun"] = was["ms"]
+        return out
+    return rows
+
+
 def step_ranges(torch, fn) -> tuple[dict, float]:
     """Host ms of each of the train step's profiler ranges (the trainer's
     ``train_step.forward``, ``.backward`` and ``.optimizer``) in one call
@@ -3171,8 +3417,10 @@ def dryrun_phase(torch, card, procs, out) -> None:
               f"card's {gb(total)}: {fits_card(c['memory'], total)}  "
               f"[{card}]")
         assert peak < before, (c["arch"], c["multi_pod"], peak, before)
-        if (c["arch"] in DRYRUN_SPLIT_FITS) if train else \
-                ((c["arch"], c["shape"]) in DRYRUN_SERVE_FITS):
+        if (c["arch"] in DRYRUN_SPLIT_FITS) if train else (
+                (c["arch"], c["shape"]) in DRYRUN_SERVE_FITS
+                or (c["arch"], c["shape"], c["multi_pod"])
+                in DRYRUN_SERVE_FITS):
             assert c["fits"], (c["arch"], c["shape"], c["multi_pod"], peak)
     judged = [fits_card(c["memory"], total) for c in cells]
     args_fit = sum(c["memory"]["argument_size_in_bytes"] <= total
@@ -3240,7 +3488,7 @@ def main() -> int:
     from repro_torch.kernels.ops import program_config
     from repro_torch.rpc import RPCClient, RPCServer
 
-    # the dry run's processes (phase 11) run beside phases 1-13
+    # the dry run's processes (phase 11) run beside phases 1-14
     dry_procs, dry_out, dry_taken = start_dryrun()
 
     # ------------------------------------------------ 1. card, build
@@ -3462,12 +3710,16 @@ def main() -> int:
     # ------------------------------------------------ 13. MoE on a mesh
     rows += moe_axis_phase(torch, card)
 
+    # ------------------------------------------------ 14. MLA on a mesh
+    mla_rows = mla_axis_phase(torch, card)
+
     # ------------------------------------------------ 11. the dry run, joined
-    # last: its processes run beside phases 1-13
+    # last: its processes run beside phases 1-14
     dryrun_phase(torch, card, dry_procs, dry_out)
     del dry_taken
+    rows += mla_rows()          # phase 14's rows, timed with the host quiet
 
-    # ------------------------------------------------ 14. result lines
+    # ------------------------------------------------ 15. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

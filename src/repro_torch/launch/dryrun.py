@@ -47,12 +47,13 @@ touches a device but ``meta``.
     arguments, the other shards' rows bytes beyond them) and runs
     ``loss_and_grads`` on its shard's rows.  Where the step splits over
     the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b,
-    internvl2-76b, phi3.5-moe and llama4-scout on a model axis wider
-    than one), slot (0, 0) runs its own blocks' share of each split
-    layer (its experts among them) and, as its row's first slot, the
-    norms, residuals, replicated projections and an MoE's routing,
-    dispatch and combine, and receives the other model slots' partials
-    and expert outputs, each a stand-in made under
+    internvl2-76b, phi3.5-moe, llama4-scout and minicpm3-4b on a model
+    axis wider than one), slot (0, 0) runs its own blocks' share of each
+    split layer (its experts or MLA heads among them) and, as its row's
+    first slot, the norms, residuals, replicated projections (MLA's
+    down-projections), an MoE's routing, dispatch and combine and the
+    row-parallel loss's sum, and receives the other model slots'
+    partials and expert outputs, each a stand-in made under
     ``trace.paused()`` that takes bytes on slot 0 only when sent there
     (:class:`_Elsewhere`); the gradient sum, the norm and the layouts
     count only slot 0's blocks.  Otherwise it gathers the whole
@@ -68,8 +69,10 @@ touches a device but ``meta``.
     ``launch/serve.py::MeshServe`` (:class:`SlotServe`), its data row's
     step on its blocks of the bf16 parameters, caches and inputs laid out
     by the cell's specs: its own query heads, MLP columns, vocabulary
-    block and cache blocks, and, as its row's first slot, the norms, the
-    replicated k/v projections and the merge of the partials, while the
+    block and cache blocks (an MLA decode: every block of a layer's
+    compressed caches, gathered onto it for the layer), and, as its row's
+    first slot, the norms, the replicated k/v projections (MLA's
+    latents) and the merge of the partials, while the
     other slots' parts run under ``trace.paused()``; what they send slot
     0 takes bytes as it arrives.  A decode step writes at
     :func:`decode_offsets` (the cache's last position).  Otherwise slot
@@ -109,14 +112,17 @@ touches a device but ``meta``.
   a gathered step also gathers the parameters onto each data shard's
   first slot, a split one sends each split layer's activations and
   partials within each data row (an MoE's, its experts' rows of the
-  dispatch buffer and their outputs: :func:`ffn_moves`), forward,
+  dispatch buffer and their outputs: :func:`ffn_moves`; an MLA layer's,
+  its latents), forward,
   backward and again in remat's recompute, and the embedding's and
   loss's combines.  A split serving cell counts its step's moves the
   same way (:func:`serve_transfers`): activations, k/v slices, partial
   sums, an MoE's dispatch rows and expert outputs, and the cache rows
   by position to prefill; the same at T = 1 to decode, plus the write
   offsets, the query heads gathered onto each slot holding a block of
-  a cache split by positions and their ``(out, lse)`` partials.  ``bytes_by_kind`` and
+  a cache split by positions and their ``(out, lse)`` partials, and an
+  MLA layer's compressed blocks gathered onto each model slot; the
+  row-parallel logits' partials and copies.  ``bytes_by_kind`` and
   ``total_bytes`` are what the busiest slot sends and receives.  A
   gathered serving cell records ``None``: nothing moves between slots.
 * **Split** (``model_split``): whether the cell's step splits its
@@ -509,10 +515,11 @@ def _split_serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
     rows = shard_batch(cell, shape)
     shard = dataclasses.replace(shape, global_batch=rows)
     v = api.cfg.vocab_size
+    want = (rows, 1, v if v % serve.tp else v // serve.tp)
     for j, blk in out.items():
-        if tuple(blk.shape) != (rows, 1, v // serve.tp):
+        if tuple(blk.shape) != want:
             raise ValueError(f"slot {j}'s logits block {tuple(blk.shape)}, "
-                             f"expected {(rows, 1, v // serve.tp)}")
+                             f"expected {want}")
     logits = torch.empty((rows, 1, v), dtype=out[0].dtype, device=META)
     own = api.abstract_cache(rows, s, **kw)      # the shard's, as gathered
     return (logits, own), (cell.trees["params"][0], own), \
@@ -636,7 +643,10 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     """A split step's layers, in order, each (under remat, bytes its
     forward sends from the row's first slot to model slot m, and from
     slot m back, for m in 1 .. tp-1): its backward sends the same bytes
-    the other way, and a recompute its forward's again."""
+    the other way, and a recompute its forward's again.  A GQA layer
+    sends the normed activation (and the KV heads a slot reads where
+    ``wk``/``wv`` are replicated), an MLA layer its latents ``cq``,
+    ``ckv`` and ``k_rope``; each gets its partial output back."""
     cfg = cell.api.cfg
     params, specs = cell.trees["params"]
     t, d = cell.shape.seq_len, cfg.d_model
@@ -645,16 +655,20 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
     def layer(blk, blk_specs):
-        hm = blk["mixer"]["wq"].shape[-2] // tp
-        gp = hm * tp // kvh
         to, back = [0] * tp, [0] * tp
         ffn = ffn_moves(cfg, blk_specs["ffn"], b * t, e, tp)
         for m in range(1, tp):
-            to[m] += x
             back[m] += x
-            if S.model_dim(blk_specs["mixer"]["wk"]) is None:
-                lo, hi = L._slot_kv_heads(m, hm, gp)
-                to[m] += 2 * b * t * (hi - lo) * hd * e
+            if cfg.mla is not None:
+                ml = cfg.mla
+                to[m] += b * t * (ml.q_lora_rank + ml.kv_lora_rank
+                                  + ml.qk_rope_head_dim) * e
+            else:
+                to[m] += x
+                if S.model_dim(blk_specs["mixer"]["wk"]) is None:
+                    hm = blk["mixer"]["wq"].shape[-2] // tp
+                    lo, hi = L._slot_kv_heads(m, hm, hm * tp // kvh)
+                    to[m] += 2 * b * t * (hi - lo) * hd * e
             to[m] += ffn["dispatch"] + ffn["activations"]
             back[m] += ffn["dispatch"] + ffn["activations"]
         return to, back
@@ -667,6 +681,13 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     for blk, blk_specs in zip(params["rem"], specs["rem"]):
         out.append((False, *layer(blk, blk_specs)))
     return out
+
+
+def _vocab_rows(cfg, specs) -> bool:
+    """Whether a split step's logits' weight is split by vocabulary rows
+    (else along ``d_model``: the row-parallel fallback)."""
+    w = specs["embed"]["tokens" if cfg.tie_embeddings else "head"]
+    return L.vocab_rows(S.model_dim(w), cfg.tie_embeddings)
 
 
 def _split_moves(cell: Cell, parts: MeshStep, out) -> None:
@@ -682,18 +703,29 @@ def _split_moves(cell: Cell, parts: MeshStep, out) -> None:
     e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     xt = b * tt * cfg.d_model * e
     f32 = 4
+    rows = _vocab_rows(cfg, cell.trees["params"][1])
     for i in parts.slots:
         row = parts.rows[i]
         tp = len(row)
         layers = _layer_moves(cell, tp, b)
+        xs = xt if rows else xt // tp         # x, or its d_model columns
+        if not rows:          # each slot's block of every slot's partial
+            for c, (lo, hi) in enumerate(L.vocab_blocks(cfg.vocab_size,
+                                                        tp)):
+                for a in range(tp):
+                    if a != c:
+                        out["loss"][row[a], row[c]] += b * tt * (hi - lo) \
+                            * f32
+                        out["loss"][row[c], row[a]] += b * tt * (hi - lo) \
+                            * f32
         for m in range(1, tp):
             h, s = row[0], row[m]
             out["embed"][h, s] += b * tt * batch["tokens"].element_size() \
-                + xt
-            out["embed"][s, h] += xt
-            out["loss"][h, s] += xt + b * tt * (
+                + xs
+            out["embed"][s, h] += xs
+            out["loss"][h, s] += xs + b * tt * (
                 3 * f32 + batch["labels"].element_size())
-            out["loss"][s, h] += xt + b * tt * 3 * f32
+            out["loss"][s, h] += xs + b * tt * 3 * f32
             for remat, to, back in layers:
                 out["forward"][h, s] += to[m]
                 out["forward"][s, h] += back[m]
@@ -723,12 +755,14 @@ def transfers(cell: Cell) -> dict:
     slot 0.  A split step gathers nothing: within each data row, the
     split layers' forward sends (the normed activation to each model
     slot, the KV heads each slot reads where ``wk``/``wv`` are
-    replicated, an MoE's experts' rows of the dispatch buffer, the
-    partials and expert outputs back to the first slot: "forward"), their
-    backward's ("backward"), the forward's again where remat recomputes a
-    period ("recompute"), the embedding's tokens, partials and their
-    gradient ("embed"), and the loss's normed chunks, maxima, labels and
-    sums ("loss"); each split leaf's gradient is sent block by block to
+    replicated, an MLA layer's latents, an MoE's experts' rows of the
+    dispatch buffer, the partials and expert outputs back to the first
+    slot: "forward"), their backward's ("backward"), the forward's again
+    where remat recomputes a period ("recompute"), the embedding's
+    tokens, partials (row-parallel: columns) and their gradient
+    ("embed"), and the loss's normed chunks, maxima, labels and sums
+    (row-parallel: the chunks' columns and fp32 partial logits, each
+    way: "loss"); each split leaf's gradient is sent block by block to
     the first row's slot of that block, the replicated leaves' whole to
     slot 0, each of the first row's other slots sends slot 0 its part of
     the norm, and every layout reads each slot's block from the slots
@@ -813,17 +847,48 @@ def transfers(cell: Cell) -> dict:
 
 def _layers(cell: Cell):
     """Each layer of the cell in order: (its parameters' specs, its kind,
-    its ``k`` cache leaf and spec)."""
+    its first cache leaf (``k``, or MLA's ``ckv``) and that leaf's
+    spec)."""
     cfg = cell.api.cfg
+    key = "k" if cfg.mla is None else "ckv"
     _, p_specs = cell.trees["params"]
     c_tree, c_specs = cell.trees["caches"]
     for per in range(cfg.n_periods):
         for pos, kind in enumerate(cfg.period_pattern):
-            yield (p_specs["stack"][pos], kind, c_tree["stack"][pos]["k"],
-                   c_specs["stack"][pos]["k"])
+            yield (p_specs["stack"][pos], kind, c_tree["stack"][pos][key],
+                   c_specs["stack"][pos][key])
     for pos, kind in enumerate(cfg.remainder_kinds):
-        yield (p_specs["rem"][pos], kind, c_tree["rem"][pos]["k"],
-               c_specs["rem"][pos]["k"])
+        yield (p_specs["rem"][pos], kind, c_tree["rem"][pos][key],
+               c_specs["rem"][pos][key])
+
+
+def _mla_cache_moves(out, row, spans, size, *, b, t, wide, decode, offs,
+                     off_bytes) -> None:
+    """An MLA layer's cache moves in a split serving step (see
+    :func:`serve_transfers`), added to ``out``: the compressed rows from
+    the row's first slot ``h`` to the slots whose blocks hold their
+    positions ("cache", ``wide`` bytes a row of ``ckv`` and ``krope``
+    together); to decode also the write offsets to each model slot
+    ("positions") and every block of the layer to each model slot that
+    does not hold it ("latent")."""
+    h = row[0]
+    if not decode:
+        for j, _, (lo, hi) in L.write_plan(spans, [(0, 1)], rows=t):
+            if j != h:
+                out["cache"][h, j] += b * (hi - lo) * wide
+        return
+    pos = [min(max(o, 0), size[0] - 1) for o in offs]
+    for j, _, got in L.write_plan(spans, [(0, 1)], pos=pos):
+        if j != h:
+            out["cache"][h, j] += len(got) * wide
+    readers = L.CacheBlocks((None,) * len(spans), spans, size,
+                            S.ModelRow(row, None)).readers()
+    for j in row:
+        if j != h:
+            out["positions"][h, j] += off_bytes
+        for i, ((p0, p1), _) in readers:
+            if i != j:
+                out["latent"][i, j] += b * (p1 - p0) * wide
 
 
 def serve_transfers(cell: Cell) -> dict:
@@ -832,20 +897,27 @@ def serve_transfers(cell: Cell) -> dict:
     :func:`decode_offsets`) sends between slots, from the layouts alone,
     within each running data row (every row; in long mode the first,
     whose sequence's blocks lie on every row's slots): the tokens to
-    each model slot and their embedding rows back ("embed"); the normed
-    activation to each model slot before each split attention, MLP (an
-    MoE's shared expert) and the logits ("activations") and each slot's
+    each model slot and their embedding rows (or, where the vocabulary
+    does not divide the model degree, their ``d_model`` columns) back
+    ("embed"); the normed activation to each model slot before each split
+    GQA attention, MLP (an MoE's shared expert) and the logits (its
+    columns to the row-parallel logits), an MLA layer's latents (``cq``,
+    and to prefill ``ckv`` and ``k_rope``: "activations") and each slot's
     partial output back ("partials"); an MoE's experts' rows of the
     dispatch buffer to each slot ("dispatch") and their outputs back
     ("combine"); to prefill where ``wk``/``wv`` are replicated, the KV
-    heads each slot reads ("kv"); the new k/v rows from the slot that
-    made them to each slot whose block holds their position and heads
-    (``layers.write_plan``, "cache"); to decode, the write offsets to
-    each slot that ropes or reads ("positions"), and over a cache split
-    by positions, the query heads gathered onto each reading slot
-    (``layers.query_plan``, "query"), its (out, lse) partials to the
-    first slot and the merged heads out to each model slot ("merge");
-    in long mode, the other rows' logits blocks ("logits")."""
+    heads each slot reads ("kv"); the new k/v (or compressed) rows from
+    the slot that made them to each slot whose block holds their
+    position and heads (``layers.write_plan``, "cache"); to decode, the
+    write offsets to each slot that ropes or reads ("positions"), over a
+    GQA cache split by positions, the query heads gathered onto each
+    reading slot (``layers.query_plan``, "query"), its (out, lse)
+    partials to the first slot and the merged heads out to each model
+    slot ("merge"), and an MLA layer's compressed blocks to each model
+    slot that does not hold them ("latent"); the row-parallel logits'
+    partials to the first slot and the whole logits back out to each
+    model slot, and in long mode the other rows' logits blocks
+    ("logits")."""
     api, mesh, shape = cell.api, cell.mesh, cell.shape
     cfg = api.cfg
     long_mode = _is_long_mode(shape)
@@ -861,16 +933,46 @@ def serve_transfers(cell: Cell) -> dict:
     tt = tok.shape[1]
     t = 1 if decode else shape.seq_len
     d, hd, kvh = cfg.d_model, cfg.resolved_head_dim, cfg.num_kv_heads
+    v = cfg.vocab_size
     x = b * t * d * e
+    rows = _vocab_rows(cfg, cell.trees["params"][1])
+    mla = cfg.mla is not None
+    off_bytes = b * inputs["lengths"].element_size() if decode else 0
     out = collections.defaultdict(collections.Counter)
     for i in serve.running:
         row = serve.rows[i]
         tp, h = len(row), row[0]
+        dm = d if rows else d // tp       # the embedding's and logits' width
         for m in range(1, tp):
             out["embed"][h, row[m]] += b * tt * tok.element_size()
-            out["embed"][row[m], h] += b * tt * d * e
-            out["activations"][h, row[m]] += b * d * e     # the logits
+            out["embed"][row[m], h] += b * tt * dm * e
+            out["activations"][h, row[m]] += b * dm * e     # the logits
+            if not rows:
+                out["logits"][row[m], h] += b * v * e
+                out["logits"][h, row[m]] += b * v * e
         for specs, kind, leaf, c_spec in _layers(cell):
+            ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp)
+            act = x
+            if mla:
+                ml = cfg.mla
+                act = b * t * (ml.q_lora_rank + (0 if decode else (
+                    ml.kv_lora_rank + ml.qk_rope_head_dim))) * e
+            for m in range(1, tp):
+                out["activations"][h, row[m]] += act + ffn["activations"]
+                out["partials"][row[m], h] += x + ffn["activations"]
+                if ffn["dispatch"]:
+                    out["dispatch"][h, row[m]] += ffn["dispatch"]
+                    out["combine"][row[m], h] += ffn["dispatch"]
+            spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
+                                      coords, i, heads=not mla)
+            if mla:
+                _mla_cache_moves(out, row, spans, size, b=b, t=t,
+                                 wide=(ml.kv_lora_rank
+                                       + ml.qk_rope_head_dim) * e,
+                                 decode=decode,
+                                 offs=decode_offsets(shape)[:b],
+                                 off_bytes=off_bytes)
+                continue
             split_kv = S.model_dim(specs["mixer"]["wk"]) is not None
             hm = L.padded_heads(cfg.num_heads, kvh, tp) // tp
             gp = hm * tp // kvh
@@ -878,15 +980,6 @@ def serve_transfers(cell: Cell) -> dict:
             heads = [(m * kvm, (m + 1) * kvm) for m in range(tp)] \
                 if split_kv else [(0, kvh)]
             makers = row if split_kv else [h]
-            ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp)
-            for m in range(1, tp):
-                out["activations"][h, row[m]] += x + ffn["activations"]
-                out["partials"][row[m], h] += x + ffn["activations"]
-                if ffn["dispatch"]:
-                    out["dispatch"][h, row[m]] += ffn["dispatch"]
-                    out["combine"][row[m], h] += ffn["dispatch"]
-            spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
-                                      coords, i)
             cap = size[0]
             if not decode:
                 if not split_kv:
@@ -909,8 +1002,7 @@ def serve_transfers(cell: Cell) -> dict:
                                     S.ModelRow(row, None)).readers()
             for j in sorted(set(row) | {j for j, _ in readers}):
                 if j != h:
-                    out["positions"][h, j] += b * inputs["lengths"] \
-                        .element_size()
+                    out["positions"][h, j] += off_bytes
             if all(sp[0] == (0, cap) for _, sp in readers):
                 continue
             for j, (_, hs) in readers:
@@ -924,14 +1016,14 @@ def serve_transfers(cell: Cell) -> dict:
                 out["merge"][h, row[m]] += b * hm * hd * e
     if long_mode:
         lay = S.Layout(mesh, serve.logits_spec)
-        lshape = (b, 1, cfg.vocab_size)
+        lshape = (b, 1, v)
         first = serve.rows[serve.running[0]]
         for j, c in enumerate(coords):
             if j not in first:
-                want = S._key(lay.block_slices(lshape, c))
+                sl = lay.block_slices(lshape, c)
                 src = next(r for r in first if S._key(lay.block_slices(
-                    lshape, coords[r])) == want)
-                out["logits"][src, j] += b * cfg.vocab_size // len(first) * e
+                    lshape, coords[r])) == S._key(sl))
+                out["logits"][src, j] += _numel(sl) * e
     return {k: dict(v) for k, v in out.items()}
 
 

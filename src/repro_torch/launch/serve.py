@@ -135,20 +135,31 @@ class PagedLM:
         return torch.argmax(self.decode_logits(seqs), dim=-1).tolist()
 
 
-def cache_spans(layout: S.Layout, shape, coords, i: int):
+def cache_spans(layout: S.Layout, shape, coords, i: int, *,
+                heads: bool = True):
     """(blocks' spans, (S, KVH)) of a cache leaf of ``shape`` ((..., B, S,
-    KVH, hd)) laid out by ``layout``, as data row ``i`` (its first
-    slot's flat index) sees it: each slot's ((p0, p1), (h0, h1)) where
-    its block holds the rows of slot ``i``'s block, else None."""
-    lead = len(shape) - 4
+    KVH, hd), or with ``heads`` false MLA's compressed (..., B, S, r))
+    laid out by ``layout``, as data row ``i`` (its first slot's flat
+    index) sees it: each slot's ((p0, p1), (h0, h1)) where its block
+    holds the rows of slot ``i``'s block, else None; a compressed cache
+    has one "head", (0, 1) of 1."""
+    lead = len(shape) - (4 if heads else 3)
     mine = layout.block_slices(shape, coords[i])[lead]
     spans = []
     for c in coords:
         sl = layout.block_slices(shape, c)
-        spans.append(((sl[lead + 1].start, sl[lead + 1].stop),
-                      (sl[lead + 2].start, sl[lead + 2].stop))
+        hs = (sl[lead + 2].start, sl[lead + 2].stop) if heads else (0, 1)
+        spans.append(((sl[lead + 1].start, sl[lead + 1].stop), hs)
                      if sl[lead] == mine else None)
-    return tuple(spans), (shape[lead + 1], shape[lead + 2])
+    return tuple(spans), (shape[lead + 1], shape[lead + 2] if heads else 1)
+
+
+def _span_index(span, heads: bool) -> tuple:
+    """The index of a cache leaf's ``span`` ((p0, p1), (h0, h1)) from its
+    position dim on."""
+    (p0, p1), (h0, h1) = span
+    return (Ellipsis, slice(p0, p1)) + ((slice(h0, h1),) if heads else ()) \
+        + (slice(None),)
 
 
 class MeshServe:
@@ -157,16 +168,20 @@ class MeshServe:
     ``cache_pspecs(..., long_mode=)``, the inputs by the input specs
     (batch over the data axes; replicated in long mode) and the logits
     returned at the reference's ``logits_spec`` (B, 1, V): batch over the
-    data axes, vocabulary over ``"model"``.
+    data axes, vocabulary over ``"model"`` where the model degree divides
+    it, else replicated over ``"model"``.
 
     * Split (``split``), where ``api.model_split()`` and the model axis is
       wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b,
-      phi3.5-moe, llama4-scout): each data row's model slots run the
-      step as the reference's GSPMD step does, each on its own heads, MLP
-      columns or experts and vocabulary block and its own block of every
-      cache (``models/layers.py``'s split forms);
-      the logits stay on the slots, a vocabulary block each, never
-      gathered.  No slot holds the whole parameters or a whole cache.
+      phi3.5-moe, llama4-scout, minicpm3-4b): each data row's model
+      slots run the step as the reference's GSPMD step does, each on its
+      own heads, MLP columns or experts and vocabulary block (or
+      ``d_model`` columns of the embedding and logits) and its own block
+      of every cache (``models/layers.py``'s split forms); the logits
+      stay on the slots, a vocabulary block each, never gathered, or,
+      row-parallel, summed on the row's first slot and sent whole to its
+      other model slots.  No slot holds the whole parameters or a whole
+      cache.  An MLA decode in long mode raises ``NotImplementedError``.
     * Gathered, for every other family or a model axis of one: the whole
       parameters and the row's caches gathered onto the row's first
       slot, the step run there, the caches written back into the blocks.
@@ -196,6 +211,8 @@ class MeshServe:
         self.coords = list(np.ndindex(*mesh.devices.shape))
         self.tp = tp = int(mesh.shape.get("model", 1))
         self.split = tp > 1 and api.model_split()
+        # MLA's caches are compressed, (B, S, r): no heads dim
+        self.heads = api.cfg.mla is None
         vocab_ok = api.cfg.vocab_size % tp == 0
         with L.use_mesh(mesh, self.active):
             self.p_specs = api.param_pspecs()
@@ -309,7 +326,7 @@ class MeshServe:
         of the blocks that hold its sequences (:func:`cache_spans`)."""
         def leaf(laid):
             spans, size = cache_spans(laid.layout, laid.shape, self.coords,
-                                      row.slots[0])
+                                      row.slots[0], heads=self.heads)
             return L.CacheBlocks(
                 tuple(laid.blocks[j] if sp is not None else None
                       for j, sp in enumerate(spans)), spans, size, row,
@@ -330,6 +347,9 @@ class MeshServe:
             offs = self.row_offsets(i, batch) if decode else None
             logits, _ = fn(S.row_blocks(params, row), rows,
                            self.row_caches(caches, row, offs))
+            if logits.dim is None:         # row-parallel: replicated
+                return {j: self.send(logits.blocks[0], row.slots[0], j)
+                        for j in row.slots}
             return dict(zip(row.slots, logits.blocks))
         whole = S.gather_tree(params, i)
         views = L.tree_map(lambda laid: self._row_cache(laid, i), caches)
@@ -347,11 +367,12 @@ class MeshServe:
         every position and head) on its first slot: the slot's own block
         where that is the whole part, else gathered from the blocks, the
         slot's own first."""
-        spans, size = cache_spans(laid.layout, laid.shape, self.coords, i)
+        spans, size = cache_spans(laid.layout, laid.shape, self.coords, i,
+                                  heads=self.heads)
         own = laid.blocks[i]
         if spans[i] == ((0, size[0]), (0, size[1])):
             return own
-        lead = len(laid.shape) - 4
+        lead = len(laid.shape) - (4 if self.heads else 3)
         whole = torch.empty(tuple(own.shape[:lead + 1])
                             + tuple(laid.shape[lead + 1:]), dtype=own.dtype,
                             device=own.device)
@@ -360,18 +381,18 @@ class MeshServe:
             if spans[j] is None or spans[j] in done:
                 continue
             done.add(spans[j])
-            (p0, p1), (h0, h1) = spans[j]
-            self.send(laid.blocks[j], j, i, out=whole[..., p0:p1, h0:h1, :])
+            self.send(laid.blocks[j], j, i,
+                      out=whole[_span_index(spans[j], self.heads)])
         return whole
 
     def _write_back(self, laid, i: int, whole: torch.Tensor) -> None:
         """The row's part, written by its step, back into every block
         that holds some of it."""
-        spans, _ = cache_spans(laid.layout, laid.shape, self.coords, i)
+        spans, _ = cache_spans(laid.layout, laid.shape, self.coords, i,
+                               heads=self.heads)
         for j, sp in enumerate(spans):
             if sp is not None and laid.blocks[j] is not whole:
-                (p0, p1), (h0, h1) = sp
-                self.send(whole[..., p0:p1, h0:h1, :], i, j,
+                self.send(whole[_span_index(sp, self.heads)], i, j,
                           out=laid.blocks[j])
 
 

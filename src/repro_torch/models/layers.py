@@ -17,45 +17,54 @@ The specs lay out *state*: ``train/sharded.py`` splits the parameters
 and optimizer moments into one block per slot of a ``launch/mesh.py``
 mesh as the reference's ``NamedSharding`` does.  The compute follows
 them where the reference's GSPMD step splits it, in a meshed train or
-serving step of an architecture whose every layer is GQA attention and
-the gated MLP or an MoE FFN (``ModelAPI.model_split``: llama3.2-3b,
-gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout) on a mesh
-whose model axis is wider than one.  There each parameter is a
-:class:`Blocks` leaf, the data row's blocks on its model slots, and
-the split forms run what the reference's constraints (``shard()``)
-split on each slot's own blocks: its query heads and ``wo``'s matching
-rows (``attn_apply``), its MLP columns and ``w_out``'s rows
-(``mlp_apply``), its experts (``moe_apply``: the row's first slot
-routes and dispatches, each slot runs its experts' MLPs on their rows
-of the buffer, and the combine runs on the first slot), its vocabulary
-rows (``embed_apply``) and its block of the logits
-(:func:`xent_terms`); the partials meet on the row's first slot,
-summed in slot order, at the reference's constraint points, and the
-expert outputs concatenated in slot order (``train/sharded.py``'s
+serving step of an architecture whose every layer is GQA attention or
+MLA and the gated MLP or an MoE FFN (``ModelAPI.model_split``:
+llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout,
+minicpm3-4b) on a mesh whose model axis is wider than one.  There each
+parameter is a :class:`Blocks` leaf, the data row's blocks on its model
+slots, and the split forms run what the reference's constraints
+(``shard()``) split on each slot's own blocks: its query heads and
+``wo``'s matching rows (``attn_apply``; ``mla_apply``: its heads'
+``wuq``/``wukv``/``wo`` blocks on the latents the first slot sends),
+its MLP columns and ``w_out``'s rows (``mlp_apply``), its experts
+(``moe_apply``: the row's first slot routes and dispatches, each slot
+runs its experts' MLPs on their rows of the buffer, and the combine
+runs on the first slot), its vocabulary rows (``embed_apply``) and its
+block of the logits (:func:`xent_terms`), or, where the vocabulary does
+not divide the model degree (the reference's row-parallel fallback, the
+table and an untied head split along ``d_model``), its columns of the
+embedding and its partial product of the logits over its columns; the
+partials meet on the row's first slot, summed in slot order, at the
+reference's constraint points, and the expert outputs and embedding
+columns concatenated in slot order (``train/sharded.py``'s
 ``to_model_slots``, ``sum_model_slots`` and ``from_model_slots``).
 What the reference does not split runs once, on the row's first slot:
-the norms, residual adds, the MoE's router, dispatch and combine, the
-experts where the model degree does not divide them, and the k/v
-projections and their rope where it does not divide the KV heads.  Serving
+the norms, residual adds, MLA's down-projections, their norms and its
+shared rope key, the MoE's router, dispatch and combine, the experts
+where the model degree does not divide them, and the k/v projections
+and their rope where it does not divide the KV heads.  Serving
 (``launch/serve.py::MeshServe``) adds the caches: each is a
 :class:`CacheBlocks` leaf, each slot's block as ``cache_pspecs`` lays it
 out (by KV heads, or by positions where the model degree does not divide
-them, and in long mode over the data rows' slots too); a step's new k/v
-rows go to the slots whose blocks hold their positions and heads
+them, MLA's compressed caches always by positions, and in long mode
+over the data rows' slots too); a step's new k/v (or compressed) rows
+go to the slots whose blocks hold their positions and heads
 (:func:`write_plan`); a decode over a cache split by positions runs the
 decode_attention kernel's partial entry on each block for the query
 heads its KV heads serve (gathered onto it, :func:`query_plan`), merged
-in slot order on the row's first slot (``merge_partials``); the logits
-stay split, each slot's vocabulary block (:func:`logits_apply`).  In
-long mode the local layers' rings are replicated over the data rows:
-every replica receives each write (the reference's GSPMD keeps them
-equal), and the computing row reads its own.  Every
-other meshed step (the other families, a model axis of one) runs on
-whole tensors, the compute left unsplit: a data shard's rows on whole
-gathered parameters (``train/trainer.py``, ``MeshServe``).  Either way
-``moe_apply`` routes as the reference's no-mesh branch over the tokens
-it is given: run on one data shard's rows, that is the reference's
-per-shard capacity under ``shard_map``.
+in slot order on the row's first slot (``merge_partials``), and an MLA
+decode gathers the layer's compressed blocks onto each model slot for
+its heads; the logits stay split, each slot's vocabulary block
+(:func:`logits_apply`), or row-parallel, whole on every slot.  In long
+mode the local layers' rings are replicated over the data rows: every
+replica receives each write (the reference's GSPMD keeps them equal),
+and the computing row reads its own.  Every other meshed step (the
+other families, a model axis of one) runs on whole tensors, the compute
+left unsplit: a data shard's rows on whole gathered parameters
+(``train/trainer.py``, ``MeshServe``).  Either way ``moe_apply`` routes
+as the reference's no-mesh branch over the tokens it is given: run on
+one data shard's rows, that is the reference's per-shard capacity
+under ``shard_map``.
 
 Where the reference reaches a Pallas kernel or computes one's function,
 the port calls the kernel's wrapper through ``kernels.ops``: ``rms_norm``
@@ -770,27 +779,75 @@ def _write_rows(cache, new, off):
     return _batched_update(cache, new, off)
 
 
+def _mla_latent(x, ln, wdq, q_ln, wdkv, kv_ln, cfg, rope):
+    """The part of MLA the reference does not split over the model axis:
+    the norm, the two down-projections and their norms, and the rope key
+    shared by the heads, roped by ``rope`` (cos, sin): (cq (B,T,r_q),
+    ckv (B,T,r_kv), k_rope (B,T,rope_d))."""
+    m = cfg.mla
+    xn = rms_norm(x, ln, cfg.norm_eps)
+    cq = rms_norm(torch.einsum("btd,dr->btr", xn, wdq.to(xn.dtype)),
+                  q_ln, cfg.norm_eps)
+    dkv = torch.einsum("btd,dr->btr", xn, wdkv.to(xn.dtype))
+    ckv = rms_norm(dkv[..., :m.kv_lora_rank], kv_ln, cfg.norm_eps)
+    k_rope = dkv[..., m.kv_lora_rank:]                 # (B,T,rope_d) shared
+    k_rope = apply_rope(k_rope[:, :, None, :], *rope)[:, :, 0]
+    return cq, ckv, k_rope
+
+
+def _mla_heads(cq, ckv, k_rope, wuq, wukv, wo, *, cfg, rope, q_pos0, kv_len,
+               lo: int, dtype):
+    """MLA's attention on the heads of ``wuq``/``wukv``/``wo`` (global
+    indices [lo, lo + h)): the queries from ``cq`` with their rope part
+    roped by ``rope``, the keys and values from ``ckv`` over its S
+    positions, both score products and P·V in fp32, the padded heads
+    (index >= ``cfg.num_heads``) zeroed and ``wo``'s rows: (B,T,D)."""
+    m = cfg.mla
+    b, t, _ = cq.shape
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = torch.einsum("btr,rhk->bthk", cq, wuq.to(cq.dtype))
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], *rope)
+    kv = torch.einsum("bsr,rhk->bshk", ckv.to(dtype), wukv.to(dtype))
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    scale = 1.0 / np.sqrt(nope + rope_d)
+    scores = (torch.einsum("bthk,bshk->bhts", q_nope.float(), k_nope.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
+                             k_rope.float())) * scale
+    mask = _attn_mask(b, t, k_nope.shape[1], causal=True, window=0,
+                      q_pos0=q_pos0, kv_len=kv_len, device=cq.device)
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshk->bthk", pr.to(v.dtype).float(),
+                       v.float()).to(dtype)
+    h = out.shape[2]
+    if lo + h > cfg.num_heads:                # padded heads, by global index
+        j = lo + torch.arange(h, device=out.device)
+        out = out * (j < cfg.num_heads).to(dtype)[:, None]
+    return torch.einsum("bthk,hkd->btd", out, wo.to(dtype))
+
+
 def mla_apply(p, x, cfg, *, positions=None, cache=None, cache_len=None):
     """Multi-head latent attention; the cache stores the *compressed* KV
     (c_kv + shared k_rope), written in place.  Plain torch on the card
-    apart from its three norms (see the module docstring)."""
-    m = cfg.mla
+    apart from its three norms (see the module docstring).  On a row's
+    model slots (``Blocks`` leaves) it takes the split forms
+    (:func:`_mla_split`, :func:`_mla_split_serve`)."""
+    if isinstance(p["wuq"], Blocks):
+        if cache is None:
+            if positions is not None:
+                raise NotImplementedError(
+                    "MLA split over the model axis at given positions "
+                    "without a cache: the split step takes positions only "
+                    "to decode")
+            return _mla_split(p, x, cfg), cache
+        return _mla_split_serve(p, x, cfg, positions=positions, cache=cache,
+                                cache_len=cache_len), cache
     b, t, d = x.shape
-    h = p["wuq"].shape[1]                 # padded head count
-    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
-    xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    cq = rms_norm(torch.einsum("btd,dr->btr", xn, p["wdq"].to(xn.dtype)),
-                  p["q_ln"], cfg.norm_eps)
-    q = torch.einsum("btr,rhk->bthk", cq, p["wuq"].to(cq.dtype))
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
-    dkv = torch.einsum("btd,dr->btr", xn, p["wdkv"].to(xn.dtype))
-    ckv = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_ln"], cfg.norm_eps)
-    k_rope = dkv[..., m.kv_lora_rank:]                 # (B,T,rope_d) shared
     if positions is None:
         positions = torch.arange(t, device=x.device)
-    cos, sin = rope_tables(positions, rope_d, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0]
+    rope = rope_tables(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    cq, ckv, k_rope = _mla_latent(x, p["ln"], p["wdq"], p["q_ln"], p["wdkv"],
+                                  p["kv_ln"], cfg, rope)
     q_pos0, kv_len = 0, None
     if cache is not None:
         off = cache_len if cache_len is not None else 0
@@ -801,19 +858,9 @@ def mla_apply(p, x, cfg, *, positions=None, cache=None, cache_len=None):
         if _is_scalar(kv_len):
             kv_len = torch.full((b,), int(kv_len), dtype=torch.int32,
                                 device=x.device)
-    kv = torch.einsum("bsr,rhk->bshk", ckv.to(x.dtype), p["wukv"].to(x.dtype))
-    k_nope, v = kv[..., :nope], kv[..., nope:]
-    scale = 1.0 / np.sqrt(nope + rope_d)
-    scores = (torch.einsum("bthk,bshk->bhts", q_nope.float(), k_nope.float())
-              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
-                             k_rope.float())) * scale
-    mask = _attn_mask(b, t, k_nope.shape[1], causal=True, window=0,
-                      q_pos0=q_pos0, kv_len=kv_len, device=x.device)
-    scores = torch.where(mask[:, None], scores, NEG_INF)
-    pr = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bshk->bthk", pr.to(v.dtype).float(), v.float())
-    out = _head_mask(out.to(x.dtype), cfg.num_heads)
-    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+    y = _mla_heads(cq, ckv, k_rope, p["wuq"], p["wukv"], p["wo"], cfg=cfg,
+                   rope=rope, q_pos0=q_pos0, kv_len=kv_len, lo=0,
+                   dtype=x.dtype)
     return x + y, cache
 
 
@@ -997,9 +1044,11 @@ def embed_apply(p, tokens, cfg):
 
 
 def logits_apply(p, x, cfg):
-    """The logits (B,T,V) in x's dtype; split over the model axis, a
-    :class:`Blocks` of each model slot's vocabulary block (B,T,V/tp),
-    which no slot gathers (:func:`_logits_split`)."""
+    """The logits (B,T,V) in x's dtype, a tensor; split over the model
+    axis, a :class:`Blocks`: of each model slot's vocabulary block
+    (B,T,V/tp), which no slot gathers, or, row-parallel, of the whole
+    (B,T,V) on the row's first slot (``dim`` None;
+    :func:`_logits_split`)."""
     if isinstance(p["final_ln"], Blocks):
         return _logits_split(p, x, cfg)
     xn = rms_norm(x, p["final_ln"], cfg.norm_eps)
@@ -1015,15 +1064,6 @@ def logits_apply(p, x, cfg):
 # ``row.scatter`` (sharded.to_model_slots), ``row.reduce``
 # (sharded.sum_model_slots) and ``row.concat``
 # (sharded.from_model_slots).
-def _vocab_block(w: Blocks, dim: int, what: str) -> None:
-    if w.dim != dim:
-        raise NotImplementedError(
-            f"the {what} split over the model axis along dim {w.dim}: the "
-            "vocabulary does not divide the model degree, and the "
-            "row-parallel fallback is not ported; see ROADMAP's "
-            "**Row-parallel logits on the model axis**")
-
-
 def _slot_kv_heads(m: int, hm: int, gp: int) -> tuple[int, int]:
     """The KV heads [lo, hi) that slot m's query heads [m hm, (m+1) hm)
     read, where KV head j serves padded heads [j gp, (j+1) gp)."""
@@ -1181,18 +1221,20 @@ def _pick(t, seqs: list):
     return t[torch.tensor(seqs, device=t.device)]
 
 
-def _write_cache(cache, producers, *, rows=None, pos=None):
-    """The new rows into every block of ``cache`` ({"k", "v"} of
-    :class:`CacheBlocks`) that holds them, each sent from its producer
-    (slot, heads, k, v) and written by the slot that holds the block
+def _write_cache(cache, producers, *, keys=("k", "v"), rows=None,
+                 pos=None):
+    """The new rows into every block of ``cache`` (its leaves ``keys`` of
+    :class:`CacheBlocks`: {"k", "v"}, or MLA's {"ckv", "krope"}) that
+    holds them, each sent from its producer (slot, heads, one new tensor
+    for each key) and written by the slot that holds the block
     (:func:`write_plan`)."""
-    ck = cache["k"]
+    ck = cache[keys[0]]
     row = ck.row
     plan = write_plan(ck.spans, [pr[1] for pr in producers], rows=rows,
                       pos=pos)
     for j, k, got in plan:
         src = producers[k][0]
-        for new, c in zip(producers[k][2:], (cache["k"], cache["v"])):
+        for new, c in zip(producers[k][2:], (cache[key] for key in keys)):
             block = c.part(c.blocks[j])
             p0 = c.spans[j][0][0]
             if rows is not None:
@@ -1376,6 +1418,113 @@ def _attn_split_serve(p, x, cfg, *, kind, causal, positions, cache,
     return x + row.reduce(parts)
 
 
+def _mla_slot(cq, ckv, k_rope, wuq, wukv, wo, off, *, cfg, lo: int, dtype,
+              at):
+    """Slot's MLA heads, its blocks of ``wuq``/``wukv``/``wo`` (global
+    heads [lo, lo + hm)) taken to the layer's by ``at``
+    (:func:`_mla_heads`): causal over the t positions of ``ckv``/
+    ``k_rope`` (``off`` None: training and prefill), or to decode, the
+    query at each sequence's position ``off`` (B,) over the compressed
+    cache's blocks (lists, in position order), concatenated here on the
+    slot and dropped when it returns."""
+    if isinstance(ckv, list):
+        ckv, k_rope = (c[0] if len(c) == 1 else torch.cat(c, dim=1)
+                       for c in (ckv, k_rope))
+    if off is None:
+        positions = torch.arange(cq.shape[1], device=cq.device)
+        q_pos0, kv_len = 0, None
+    else:
+        positions, q_pos0, kv_len = off[:, None], off, off + 1
+    rope = rope_tables(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    return _mla_heads(cq, ckv, k_rope, at(wuq), at(wukv), at(wo), cfg=cfg,
+                      rope=rope, q_pos0=q_pos0, kv_len=kv_len, lo=lo,
+                      dtype=dtype)
+
+
+def _mla_latent_split(p, x, cfg, positions):
+    """:func:`_mla_latent` on the row's first slot, roped at
+    ``positions``."""
+    rope = rope_tables(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    return _mla_latent(x, *(p[k].whole for k in ("ln", "wdq", "q_ln",
+                                                 "wdkv", "kv_ln")), cfg, rope)
+
+
+def _mla_split(p, x, cfg, *, keep=False):
+    """``mla_apply`` without a cache on a row's model slots: what the
+    reference does not split (the norm, ``wdq`` with ``q_ln``, ``wdkv``
+    with ``kv_ln``, the shared rope key) once on the first slot, which
+    sends ``cq``, ``ckv`` and ``k_rope`` to each model slot; each slot
+    runs its own heads' ``wuq``/``wukv``/``wo`` blocks
+    (:func:`_mla_slot`), and the partial outputs are summed in slot
+    order on the first slot, the reference's ``shard(y, DP, None,
+    None)``.  With ``keep`` also (ckv, k_rope), for the cache."""
+    row = p["wuq"].row
+    hm = p["wuq"].blocks[0].shape[-2]
+    lat = _mla_latent_split(p, x, cfg,
+                            torch.arange(x.shape[1], device=x.device))
+    cqs, ckvs, krs = (row.scatter(a) for a in lat)
+    parts = [row.run(m, _mla_slot, cqs[m], ckvs[m], krs[m],
+                     p["wuq"].blocks[m], p["wukv"].blocks[m],
+                     p["wo"].blocks[m], None, cfg=cfg, lo=m * hm,
+                     dtype=x.dtype, at=p["wuq"].part)
+             for m in range(len(cqs))]
+    y = x + row.reduce(parts)
+    return (y, lat[1:]) if keep else y
+
+
+def _mla_split_serve(p, x, cfg, *, positions, cache, cache_len):
+    """``mla_apply`` with a cache (prefill, t > 1, or decode) on a row's
+    model slots; the compressed caches ``ckv``/``krope`` split by
+    positions over the model axis (:class:`CacheBlocks` with one "head",
+    span (0, 1)).  Prefill runs :func:`_mla_split` and writes each new
+    row to the slot whose block holds its position (:func:`_write_cache`
+    from the first slot).  Decode computes the token's latents on the
+    first slot and writes them the same way; then each model slot is
+    sent every block of the layer's compressed caches, in position order,
+    and runs its heads over the whole of them exactly as the unsplit
+    step does (:func:`_mla_slot`), the partial outputs summed in slot
+    order.  The gathered copy lives for that slot's work only: the
+    caches stay split."""
+    row = p["wuq"].row
+    b, t, _ = x.shape
+    first = row.slots[0]
+    keys = ("ckv", "krope")
+    cc = cache["ckv"]
+    if t > 1:                                        # ---- prefill
+        if positions is not None:
+            raise NotImplementedError(
+                "a split prefill at given positions: it fills from 0")
+        y, (ckv, k_rope) = _mla_split(p, x, cfg, keep=True)
+        _write_cache(cache, [(first, (0, 1), ckv, k_rope)], keys=keys,
+                     rows=t)
+        return y
+    # ---- decode (t == 1)
+    hm = p["wuq"].blocks[0].shape[-2]
+    off = attn_decode_pos(cache_len, b, device=x.device)
+    cq, ckv, k_rope = _mla_latent_split(p, x, cfg, off[:, None])
+    cap = cc.size[0]
+    _write_cache(cache, [(first, (0, 1), ckv, k_rope)], keys=keys,
+                 pos=[min(max(o, 0), cap - 1) for o in cc.offsets])
+    held = sorted(cc.readers(), key=lambda r: r[1][0][0])
+    if any(j not in row.slots for j, _ in held):
+        raise NotImplementedError(
+            "MLA split over the model axis with its compressed caches' "
+            "positions on other data rows' slots (long mode, decode at "
+            "batch 1): no configuration serves MLA so")
+    cqs = row.scatter(cq)
+
+    def slot(m):
+        j = row.slots[m]
+        blocks = [[row.send(c.part(c.blocks[i]), i, j) for i, _ in held]
+                  for c in (cache["ckv"], cache["krope"])]
+        return row.run(m, _mla_slot, cqs[m], *blocks, p["wuq"].blocks[m],
+                       p["wukv"].blocks[m], p["wo"].blocks[m],
+                       off if j == first else row.send(off, first, j),
+                       cfg=cfg, lo=m * hm, dtype=x.dtype, at=p["wuq"].part)
+
+    return x + row.reduce([slot(m) for m in range(len(cqs))])
+
+
 def _mlp_slot(xn, wg, wi, wo, *, act, at):
     wg, wi, wo = at(wg), at(wi), at(wo)
     a = _act(act)(torch.einsum("btd,df->btf", xn, wg.to(xn.dtype)))
@@ -1454,14 +1603,27 @@ def _embed_slot(tokens, table, lo: int, *, dtype, at):
     return x * inside[..., None].to(dtype)
 
 
+def _embed_cols(tokens, table, *, dtype, at):
+    """Slot's ``d_model`` columns of every token's row, in ``dtype``."""
+    return at(table)[tokens.long()].to(dtype)
+
+
 def _embed_split(tab: Blocks, tokens, cfg):
-    """The lookup on a row's model slots, each in its vocabulary rows,
-    summed: one slot's row is non-zero for each token, so the sum is the
-    row itself, exactly."""
-    _vocab_block(tab, 0, "embedding")
+    """The lookup on a row's model slots.  Where the spec splits the
+    table by vocabulary rows, each slot looks up the tokens in its rows
+    and the rows are summed: one slot's row is non-zero for each token,
+    so the sum is the row itself, exactly.  Where the vocabulary does not
+    divide the model degree (the reference's row-parallel fallback, the
+    table split along ``d_model``), each slot looks up its columns of
+    every token's row, concatenated in slot order on the first slot:
+    exact too."""
     row = tab.row
-    vb = tab.blocks[0].shape[len(tab.index)]
     dt = getattr(torch, cfg.dtype)
+    if tab.dim == 1:
+        return row.concat([row.run(m, _embed_cols, row.send_to(tokens, m),
+                                   blk, dtype=dt, at=tab.part)
+                           for m, blk in enumerate(tab.blocks)], dim=2)
+    vb = tab.blocks[0].shape[len(tab.index)]
     parts = [row.run(m, _embed_slot, row.send_to(tokens, m), blk, m * vb,
                      dtype=dt, at=tab.part)
              for m, blk in enumerate(tab.blocks)]
@@ -1471,29 +1633,68 @@ def _embed_split(tab: Blocks, tokens, cfg):
 def _logits_slot(xn, w, *, tied: bool, at):
     """Slot's block of the logits (B,T,V/tp) in fp32 and its maximum
     (B,T), which takes no gradient."""
-    w = at(w)
-    lg = (torch.einsum("btd,vd->btv", xn, w.to(xn.dtype)) if tied
-          else torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))).float()
-    return lg, lg.detach().amax(dim=-1)
+    lg = _logits_block(xn, w, tied=tied, at=at, f32=True)
+    return lg, _top(lg)
 
 
-def _logits_block(xn, w, *, tied: bool, at):
-    """Slot's block of the logits (B,T,V/tp) in xn's dtype."""
+def _logits_block(xn, w, *, tied: bool, at, f32: bool = False):
+    """Slot's product of ``xn`` with its block of the logits' weight, in
+    xn's dtype (``f32``: then widened to fp32): its vocabulary block of
+    the logits (B,T,V/tp), or, from its ``d_model`` columns of ``xn``, its
+    partial sum of all of them (B,T,V)."""
     w = at(w)
     if tied:
-        return torch.einsum("btd,vd->btv", xn, w.to(xn.dtype))
-    return torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))
+        lg = torch.einsum("btd,vd->btv", xn, w.to(xn.dtype))
+    else:
+        lg = torch.einsum("btd,dv->btv", xn, w.to(xn.dtype))
+    return lg.float() if f32 else lg
+
+
+def vocab_rows(dim, tied: bool) -> bool:
+    """Whether the logits' weight (the table where ``tied``, else the
+    head), split over the model axis along ``dim``, is split by
+    vocabulary rows (else along ``d_model``: the row-parallel
+    fallback)."""
+    return dim == (0 if tied else 1)
+
+
+def _row_parallel(w: Blocks, xn, cfg, *, f32: bool = False) -> list:
+    """Each model slot's partial product (B,T,V), on that slot, of ``xn``
+    (B,T,D) on the row's first slot, the logits' weight split along
+    ``d_model``: each slot sent its columns of ``xn``."""
+    row = w.row
+    tp = len(w.blocks)
+    dm = xn.shape[-1] // tp
+    xs = row.scatter(xn, dim=2, ranges=[(m * dm, (m + 1) * dm)
+                                        for m in range(tp)])
+    return [row.run(m, _logits_block, xs[m], w.blocks[m],
+                    tied=cfg.tie_embeddings, at=w.part, f32=f32)
+            for m in range(tp)]
+
+
+def vocab_blocks(v: int, tp: int) -> list:
+    """The row-parallel loss's vocabulary blocks, [lo, hi) for each model
+    slot: ceil(v / tp) each and the last the rest, as GSPMD pads an
+    uneven split."""
+    vb = -(-v // tp)
+    return [(min(m * vb, v), min((m + 1) * vb, v)) for m in range(tp)]
 
 
 def _logits_split(p, x, cfg) -> Blocks:
-    """``logits_apply`` on a row's model slots: the norm on the first
-    slot, each slot's vocabulary block of the logits kept on that slot, a
-    :class:`Blocks` split along the vocabulary (dim 2), as the
-    reference's logits spec lays them out."""
+    """``logits_apply`` on a row's model slots, the norm on the first
+    slot.  Split by vocabulary rows: each slot's vocabulary block of the
+    logits kept on that slot, a :class:`Blocks` split along the
+    vocabulary (dim 2), as the reference's logits spec lays them out.
+    Split along ``d_model`` (the row-parallel fallback, the vocabulary
+    not divisible by the model degree): the slots' partials
+    (:func:`_row_parallel`) summed in slot order on the first slot, a
+    :class:`Blocks` of that one whole tensor (``dim`` None), which the
+    reference's logits spec replicates over the model axis."""
     w = p["tokens"] if cfg.tie_embeddings else p["head"]
-    _vocab_block(w, 0 if cfg.tie_embeddings else 1, "logits' weight")
     row = w.row
     xn = rms_norm(x, p["final_ln"].whole, cfg.norm_eps)
+    if not vocab_rows(w.dim, cfg.tie_embeddings):
+        return Blocks((row.reduce(_row_parallel(w, xn, cfg)),), row)
     xs = row.scatter(xn)
     return Blocks(tuple(row.run(m, _logits_block, xs[m], w.blocks[m],
                                 tied=cfg.tie_embeddings, at=w.part)
@@ -1510,27 +1711,45 @@ def _xent_slot(lg, top, labels, lo: int):
                         gold[..., 0] * inside])
 
 
+def _top(lg):
+    """A block of the logits' maximum (B,T), which takes no gradient."""
+    return lg.detach().amax(dim=-1)
+
+
 def xent_terms(p, x, labels, cfg):
     """(lse, gold), each (B,T) fp32 on the row's first slot: the
     log-sum-exp of the logits of ``x`` (B,T,D) and the logit of each
     label, from each model slot's block of the vocabulary, where no slot
-    holds the whole (B,T,V).  The maximum is each slot's, taken over the
+    holds the whole (B,T,V): the maximum is each slot's, taken over the
     slots; the sums of exp and the gold logits (one slot's is non-zero)
-    are summed in slot order."""
+    are summed in slot order.  Split by vocabulary rows, a slot's block
+    is its product with its rows of the weight.  Split along ``d_model``
+    (the row-parallel fallback), it is the slot-order sum of every
+    slot's fp32 partial (:func:`_row_parallel`) over the slot's block of
+    :func:`vocab_blocks`, summed on that slot (``ModelRow.
+    reduce_scatter``), as the reference's logits constraint (DP, None,
+    "model") has GSPMD split the partial sum."""
     w = p["tokens"] if cfg.tie_embeddings else p["head"]
-    _vocab_block(w, 0 if cfg.tie_embeddings else 1, "logits' weight")
     row = w.row
     tp = len(w.blocks)
     xn = rms_norm(x, p["final_ln"].whole, cfg.norm_eps)
-    xs = row.scatter(xn)
-    out = [row.run(m, _logits_slot, xs[m], w.blocks[m],
-                   tied=cfg.tie_embeddings, at=w.part) for m in range(tp)]
+    if vocab_rows(w.dim, cfg.tie_embeddings):
+        xs = row.scatter(xn)
+        out = [row.run(m, _logits_slot, xs[m], w.blocks[m],
+                       tied=cfg.tie_embeddings, at=w.part)
+               for m in range(tp)]
+        vb = out[0][0].shape[-1]
+        los = [m * vb for m in range(tp)]
+    else:
+        ranges = vocab_blocks(cfg.vocab_size, tp)
+        lgs = row.reduce_scatter(_row_parallel(w, xn, cfg, f32=True), ranges)
+        out = [(lg, row.run(m, _top, lg)) for m, lg in enumerate(lgs)]
+        los = [lo for lo, _ in ranges]
     top = out[0][1]
     for m in range(1, tp):
         top = torch.maximum(top, row.send_from(out[m][1], m))
-    vb = out[0][0].shape[-1]
     terms = row.reduce([row.run(m, _xent_slot, out[m][0],
                                 row.send_to(top, m),
-                                row.send_to(labels, m), m * vb)
+                                row.send_to(labels, m), los[m])
                         for m in range(tp)])
     return top + torch.log(terms[0]), terms[1]

@@ -17,15 +17,17 @@ cross-entropy, a Python loop over sequence chunks.
 
 A meshed train step that splits over the model axis (parameters as
 ``layers.Blocks``) runs the same code: the layers take their split
-forms, each chunk's logits stay in each model slot's vocabulary block
-(``layers.xent_terms``), and a period's recompute runs its whole body
+forms, each chunk's logits stay in each model slot's vocabulary block,
+or, row-parallel, the slots' partials are summed on the row's first
+slot (``layers.xent_terms``), and a period's recompute runs its whole body
 again, so the split layers' sends are re-issued in the backward pass
 (checkpoint's early stop, which would end the recompute at the last
 saved tensor, before the period's last sum, is off there).  So does a
 split serving step (``launch/serve.py::MeshServe``): split parameters,
 caches as ``layers.CacheBlocks`` (each slot's block, written in place),
 no remat, and the last position's logits a ``layers.Blocks`` of each
-model slot's vocabulary block.
+model slot's vocabulary block (row-parallel: of the whole logits on the
+row's first slot).
 """
 from __future__ import annotations
 
@@ -212,7 +214,8 @@ def chunked_xent(params, cfg, hidden, labels, mask):
     """Cross-entropy without materialising (B,T,V): a loop over sequence
     chunks of ``cfg.loss_chunk`` (or T if shorter, lowered until it divides
     T, as the reference), each chunk's logits (B,chunk,V) in fp32, or,
-    split over the model axis, (B,chunk,V/tp) on each model slot."""
+    split over the model axis, (B,chunk,V/tp) on each model slot (the
+    row-parallel form: a (B,chunk,V) partial on each)."""
     t = hidden.shape[1]
     ck = min(cfg.loss_chunk, t)
     while t % ck:

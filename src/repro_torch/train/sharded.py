@@ -19,13 +19,15 @@ tensor, and the meshed train step's own moves
 (``train/trainer.py::MeshStep``), the split layers' among them: a
 :class:`ModelRow` is a data row's slots on the model axis, and its
 collectives, :func:`to_model_slots` (Megatron's *f*),
-:func:`sum_model_slots` (*g*) and :func:`from_model_slots` (an MoE's
-expert outputs back to the first slot), are autograd Functions whose
-forward and backward move through the row's ``send``.  :func:`redistribute` lays
-out a tensor held in blocks by some slots under another spec, each slot
-reading its slice from the slots that hold it (:func:`plan`).  The dry
-run counts the same moves from the layouts
-(``launch/dryrun.py::collectives``).
+:func:`sum_model_slots` (*g*), :func:`from_model_slots` (an MoE's
+expert outputs back to the first slot) and :func:`sum_to_model_slots`
+(a reduce-scatter: the row-parallel loss's partial logits, each slot
+summing its block of the vocabulary), are autograd Functions whose
+forward and backward move through the row's ``send``.
+:func:`redistribute` lays out a tensor held in blocks by some slots
+under another spec, each slot reading its slice from the slots that
+hold it (:func:`plan`).  The dry run counts the same moves from the
+layouts (``launch/dryrun.py::collectives``).
 
 A spec entry names the mesh axes a dim is split over, major first, as
 JAX reads ``P(("pod", "data"))``; dims past the spec's end are
@@ -216,9 +218,10 @@ class ModelRow:
     slot, each new k/v row to the slots whose blocks hold its position
     and heads, the merged heads back to the slots that hold ``wo``'s
     rows (``models/layers.py``); they run under ``no_grad``, so none
-    needs a backward.  ``scatter``, ``reduce`` and ``concat`` are the
-    collectives (:func:`to_model_slots`, :func:`sum_model_slots`,
-    :func:`from_model_slots`)."""
+    needs a backward.  ``scatter``, ``reduce``, ``concat`` and
+    ``reduce_scatter`` are the collectives (:func:`to_model_slots`,
+    :func:`sum_model_slots`, :func:`from_model_slots`,
+    :func:`sum_to_model_slots`)."""
 
     def __init__(self, slots, send, run=None):
         self.slots = tuple(slots)
@@ -254,6 +257,9 @@ class ModelRow:
 
     def concat(self, parts, dim: int):
         return from_model_slots(self, parts, dim)
+
+    def reduce_scatter(self, parts, ranges):
+        return sum_to_model_slots(self, parts, ranges)
 
 
 def data_slots(mesh, dp_axes) -> list[int]:
@@ -354,6 +360,38 @@ class _FromModelSlots(torch.autograd.Function):
             for m, s in enumerate(torch.split(g, ctx.sizes, dim=ctx.dim)))
 
 
+def _sum_arrivals(row, j: int, pieces):
+    """Slot ``j``'s sum, in slot order, of ``pieces[m]`` (on model slot
+    m), each added as it arrives."""
+    out = None
+    for m, piece in enumerate(pieces):
+        x = row.send(piece, row.slots[m], row.slots[j])
+        out = x if out is None else out + x
+    return out
+
+
+def _cat_arrivals(row, m: int, pieces):
+    """Slot ``m``'s concatenation along the last dim of ``pieces[j]`` (on
+    model slot j), in slot order."""
+    return torch.cat([row.send(g, row.slots[j], row.slots[m])
+                      for j, g in enumerate(pieces)], dim=-1)
+
+
+class _SumToModelSlots(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, ranges, *parts):
+        ctx.row = row
+        return tuple(row.run(j, _sum_arrivals, row, j,
+                             [p[..., lo:hi] for p in parts])
+                     for j, (lo, hi) in enumerate(ranges))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        row = ctx.row
+        return (None, None) + tuple(row.run(m, _cat_arrivals, row, m, grads)
+                                    for m in range(len(grads)))
+
+
 def to_model_slots(row: ModelRow, x, dim: int | None = None, ranges=None):
     """``x``, on the row's first slot, on each of its model slots: whole,
     or where ``ranges`` gives each slot m an interval [lo, hi) of dim
@@ -373,6 +411,15 @@ def from_model_slots(row: ModelRow, parts, dim: int):
     order on the row's first slot (an MoE's expert outputs, each slot's
     experts); backward sends each slot its slice of the gradient."""
     return _FromModelSlots.apply(row, dim, *parts)
+
+
+def sum_to_model_slots(row: ModelRow, parts, ranges):
+    """A reduce-scatter: for each model slot j, the sum in slot order of
+    ``parts[m]``'s slice ``ranges[j]`` = [lo, hi) of the last dim (every
+    part whole there, one on each model slot m), on slot j; the ranges
+    cover the dim in order.  Backward sends each slot m every slot's
+    gradient slice, concatenated in slot order."""
+    return _SumToModelSlots.apply(row, ranges, *parts)
 
 
 def _intersect(a: tuple, b: tuple):

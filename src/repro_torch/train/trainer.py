@@ -19,14 +19,16 @@ data shard's batch rows run on its data row of slots, in one of two
 ways (:class:`MeshStep`):
 
 * split, where ``api.model_split()`` (llama3.2-3b, gemma3-12b/27b,
-  internvl2-76b, phi3.5-moe, llama4-scout: GQA attention and the gated
-  MLP or an MoE in every layer) and the model axis is wider than one:
-  the row's model slots compute as the reference's GSPMD step does,
-  each on its own blocks of the parameters (its query heads, MLP
-  columns or experts and vocabulary block; see ``models/layers.py``),
-  the partials summed (the expert outputs concatenated) in slot order
-  on the row's first slot, which holds the replicated activations and
-  runs the norms and the MoE's routing.  Nothing is gathered: each split leaf's gradient is summed per
+  internvl2-76b, phi3.5-moe, llama4-scout, minicpm3-4b: GQA attention
+  or MLA and the gated MLP or an MoE in every layer) and the model axis
+  is wider than one: the row's model slots compute as the reference's
+  GSPMD step does, each on its own blocks of the parameters (its query
+  heads, MLP columns or experts and vocabulary block, or its
+  ``d_model`` columns of an embedding whose vocabulary the model degree
+  does not divide; see ``models/layers.py``), the partials summed (the
+  expert outputs concatenated) in slot order on the row's first slot,
+  which holds the replicated activations and runs the norms, MLA's
+  down-projections and the MoE's routing.  Nothing is gathered: each split leaf's gradient is summed per
   block over the data rows onto the first row's slot of that block,
   each replicated leaf's onto slot 0, and the norm is the slot-order
   sum of each slot's blocks' squares;

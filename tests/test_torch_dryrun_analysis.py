@@ -56,6 +56,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build, layers as L
 from repro_torch.train import Trainer, optimizer as O, sharded as S
 from repro_torch.train.trainer import make_mesh_train_step
+from _model_axis import ROW_PARALLEL, smoke
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -418,7 +419,7 @@ def test_serving_cells_record_no_collectives():
     ``ModelAPI.model_split`` leaves out, and a split family on a model
     axis of one."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
-    for arch in (GATHERED_MOE, "minicpm3-4b", "xlstm-125m"):
+    for arch in (GATHERED_MOE, "seamless-m4t-large-v2", "xlstm-125m"):
         for kind in ("prefill", "decode"):
             cell, _ = D.lower_cell(SMOKES[arch],
                                    ShapeConfig("s", kind, 32, 8), mesh)
@@ -484,6 +485,75 @@ def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
         per[dst] += n
     assert rec["total_bytes"] == per.max()
     assert rec["mesh_total_bytes"] == sum(moved.values())
+
+
+# minicpm3-4b's MLA, and the row-parallel fallback: a vocabulary of 500,
+# which the model degree 8 divides no more than 73,448 divides 16, splits
+# the embedding table (and an untied head) along d_model
+MLA_AXIS = [("minicpm3-4b", (2, 4)), ("minicpm3-4b", (4, 2)),
+            ("minicpm3-4b", (1, 8))] + [(n, (1, 8)) for n in ROW_PARALLEL]
+
+
+@pytest.mark.parametrize("name,mesh_shape", MLA_AXIS,
+                         ids=[f"{n}-{m[0]}x{m[1]}" for n, m in MLA_AXIS])
+def test_mla_and_row_parallel_transfers_equal_the_sends(name, mesh_shape,
+                                                        monkeypatch):
+    """``transfers`` of a train step (ZeRO-1 where data > 1) and
+    ``serve_transfers`` of a prefill and a decode step at the dry run's
+    offsets, against every byte the split steps send on 8 CPU slots:
+    an MLA layer's latents out and partials back, its compressed rows to
+    the slots holding their positions and, to decode, every block of a
+    layer to each model slot ("latent"); the row-parallel embedding's
+    columns, loss partials and logits ("logits")."""
+    from repro_torch.launch.serve import MeshServe
+    cfg = smoke(SMOKES, name, dtype=None)
+    mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
+    rows = cfg.vocab_size % mesh_shape[1] == 0
+    zero1 = mesh_shape[0] > 1
+    shape = ShapeConfig("s", "train", 16, 8)
+    api = build(cfg, tp=mesh_shape[1])
+    tr = Trainer(api, shape, mesh=mesh, zero1=zero1)
+    params, opt, _ = tr.init_or_restore()
+    batch = _inputs(api, shape)
+    batch["labels"][0, :3] = -1
+    moved = _recorded_sends(monkeypatch)
+    with L.use_mesh(mesh):
+        tr.step_fn(params, opt, batch)
+    monkeypatch.undo()
+    cell, _ = D.lower_cell(cfg, shape, mesh)
+    if zero1:
+        with L.use_mesh(mesh):
+            specs = O.opt_pspecs(api.param_defs(), zero1=True,
+                                 dp_axes=("data",), dp_size=mesh_shape[0])
+        cell = dataclasses.replace(cell, trees={
+            **cell.trees, "opt": (cell.trees["opt"][0], specs)})
+    counted = collections.Counter()
+    for m in D.transfers(cell).values():
+        counted.update(m)
+    assert D.model_split(cell)
+    assert dict(counted) == dict(moved)
+    for kind in ("prefill", "decode"):
+        shape = ShapeConfig("s", kind, 32, 8)
+        cell, _ = D.lower_cell(cfg, shape, mesh)
+        serve = MeshServe(cell.api, mesh)
+        laid = serve.lay_out_params(L.tree_map(
+            lambda t: t.to(torch.bfloat16), cell.api.init_params(0, CPU)))
+        caches = serve.init_caches(8, 32, specs=cell.trees["caches"][1])
+        inputs = {k: S.lay_out(v, S.Layout(mesh, cell.trees["inputs"][1][k]))
+                  for k, v in _serve_inputs(cell.api, shape, cell).items()}
+        moved = _recorded_sends(monkeypatch)
+        with torch.no_grad():
+            (serve.decode if kind == "decode" else serve.prefill)(
+                laid, inputs, caches)
+        monkeypatch.undo()
+        kinds = D.serve_transfers(cell)
+        counted = collections.Counter()
+        for m in kinds.values():
+            counted.update(m)
+        assert dict(counted) == dict(moved), kind
+        assert ("latent" in kinds) == (kind == "decode"
+                                       and cfg.mla is not None)
+        assert ("logits" in kinds) != rows
 
 
 # ------------------------------------------------- (e) the cost functions

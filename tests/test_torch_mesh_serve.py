@@ -1,13 +1,17 @@
 """Serving on the model axis (``launch/serve.py::MeshServe``) on 8 CPU
-slots: the split prefill and decode steps of the six architectures that
-split (llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe and
-llama4-scout: each data row's model slots on their own heads, MLP
-columns or experts, vocabulary block and block of every cache) against the gathered step (the whole parameters and the
-row's caches on its first slot) and against the reference's
+slots: the split prefill and decode steps of the seven architectures
+that split (llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe,
+llama4-scout and minicpm3-4b, and the vocabulary-500 variants of
+minicpm3-4b, llama3.2-3b and phi3.5-moe, which degree 8 does not
+divide: each data row's model slots on their own heads, MLP columns or
+experts, vocabulary block or ``d_model`` columns and block of every
+cache) against the gathered step (the whole
+parameters and the row's caches on its first slot) and against the
+reference's
 ``api.prefill`` / ``api.decode`` jitted with the same shardings under
 its host mesh of 8 forced devices, at (1, 8), (2, 4) and (4, 2), and in
 long mode (decode at batch 1: a global cache's sequence over the data
-axes) at (2, 4) and (4, 2); the moves of a recorded step (no slot is
+axes; not MLA) at (2, 4) and (4, 2); the moves of a recorded step (no slot is
 written a cache row outside its block, no slot is sent a whole split
 parameter); and the decode_attention_partial plain version, merged
 over any split of the positions, against ``decode_attention_ref``.
@@ -35,6 +39,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import MeshServe
 from repro_torch.models import build, layers as L
 from repro_torch.train import sharded as S
+from _model_axis import ROW_PARALLEL, smoke as _smoke
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
@@ -42,6 +47,10 @@ SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b",
          "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
 CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
     + [(m, True) for m in ((2, 4), (4, 2))]
+# MLA (not in long mode, which it does not split), and with a vocabulary
+# of 500, which degree 8 does not divide: the row-parallel embedding and
+# logits, tied (minicpm3-4b, llama3.2-3b) and untied (phi3.5-moe's head)
+MLA = ("minicpm3-4b",) + ROW_PARALLEL
 TOL = 1e-5
 BATCH, PROMPT, SEQ, STEPS = 8, 16, 32, 3
 
@@ -56,7 +65,7 @@ def _setup(name, tp):
     """The reference's seed-0 parameters at model degree ``tp`` (its
     tree, in numpy) and the inputs: tokens (B, PROMPT + STEPS) and a
     VLM's patches, from a numpy seed."""
-    jcfg = J_SMOKES[name].replace(dtype="float32")
+    jcfg = _smoke(J_SMOKES, name)
     jp = jax.tree.map(np.asarray, jbuild(jcfg, tp=tp).init_params(0))
     rng = np.random.default_rng(0)
     inp = {"tokens": rng.integers(0, jcfg.vocab_size,
@@ -72,7 +81,7 @@ def _steps(name, long_mode):
     in long mode."""
     _, inp = _setup(name, 1)
     b = 1 if long_mode else BATCH
-    pre = SMOKES[name].num_patches
+    pre = _smoke(SMOKES, name).num_patches
     first = {"tokens": inp["tokens"][:b, :PROMPT]}
     if pre:
         first["patches"] = inp["patches"][:b]
@@ -85,11 +94,13 @@ def _steps(name, long_mode):
 def _serve(name, mesh_shape, long_mode, split=True, monkeypatch=None,
            sends=None):
     """The port's MeshServe on 8 CPU slots: (each step's logits, the
-    caches after the last step), gathered, in numpy; ``sends``, where
-    given, collects (src, dst, storage) of every move between slots."""
+    caches after the last step), gathered, in numpy, the serve, the
+    caches as laid out, and each step's logits blocks' shapes; ``sends``,
+    where given, collects (src, dst, storage) of every move between
+    slots."""
     d, m = mesh_shape
     jp, _ = _setup(name, m)
-    cfg = SMOKES[name].replace(dtype="float32")
+    cfg = _smoke(SMOKES, name)
     api = build(cfg, tp=m)
     mesh = make_host_mesh(devices=[CPU] * (d * m), shape=mesh_shape)
     serve = MeshServe(api, mesh, long_mode=long_mode)
@@ -108,25 +119,30 @@ def _serve(name, mesh_shape, long_mode, split=True, monkeypatch=None,
                 sends.append((src, dst, t.untyped_storage().data_ptr()))
             return send(t, mesh_, src, dst, out=out)
         monkeypatch.setattr(S, "send", recording)
-    logits = []
+    logits, shapes = [], []
     with torch.no_grad():
         lg, caches = serve.prefill(params, serve.lay_out_inputs(
             {k: torch.from_numpy(v) for k, v in first.items()}), caches)
-        logits.append(S.gather(lg).numpy().copy())
-        for batch in steps:
-            lg, caches = serve.decode(params, serve.lay_out_inputs(
-                {k: torch.from_numpy(v) for k, v in batch.items()}), caches)
+        for batch in [None] + steps:
+            if batch is not None:
+                lg, caches = serve.decode(params, serve.lay_out_inputs(
+                    {k: torch.from_numpy(v) for k, v in batch.items()}),
+                    caches)
             logits.append(S.gather(lg).numpy().copy())
+            shapes.append({tuple(b.shape) for b in lg.blocks})
     if sends is not None:
         monkeypatch.undo()
     return logits, [t.numpy().copy() for t in
-                    L.tree_leaves(S.gather_tree(caches))], serve, caches
+                    L.tree_leaves(S.gather_tree(caches))], serve, caches, \
+        shapes
 
 
 @functools.lru_cache(maxsize=None)
 def _outputs(name, mesh_shape, long_mode, split=True):
-    """:func:`_serve`'s logits and caches, once for each case."""
-    return _serve(name, mesh_shape, long_mode, split=split)[:2]
+    """:func:`_serve`'s logits, caches, serve and logits blocks' shapes,
+    once for each case."""
+    out = _serve(name, mesh_shape, long_mode, split=split)
+    return out[:3] + out[4:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,9 +153,9 @@ def _reference(name, mesh_shape, long_mode):
     does): each step's logits and the final caches, in numpy."""
     d, m = mesh_shape
     jp, _ = _setup(name, m)
-    jcfg = J_SMOKES[name].replace(dtype="float32")
+    jcfg = _smoke(J_SMOKES, name)
     api = jbuild(jcfg, tp=m)
-    port = MeshServe(build(SMOKES[name].replace(dtype="float32"), tp=m),
+    port = MeshServe(build(_smoke(SMOKES, name), tp=m),
                      make_host_mesh(devices=[CPU] * (d * m),
                                     shape=mesh_shape), long_mode=long_mode)
     jmesh = j_make_host_mesh(d * m, shape=mesh_shape)
@@ -193,8 +209,9 @@ def test_split_serving_equals_the_gathered_step(name, case):
     and the caches (gathered from the slots' blocks) of the split step
     against the gathered step's on the same layouts."""
     mesh_shape, long_mode = case
-    lg, caches = _outputs(name, mesh_shape, long_mode)
-    lg_g, caches_g = _outputs(name, mesh_shape, long_mode, split=False)
+    lg, caches, _, _ = _outputs(name, mesh_shape, long_mode)
+    lg_g, caches_g, _, _ = _outputs(name, mesh_shape, long_mode,
+                                    split=False)
     _hold(lg, lg_g, (name, case, "logits"))
     _hold(caches, caches_g, (name, case, "caches"))
 
@@ -204,10 +221,45 @@ def test_split_serving_equals_the_gathered_step(name, case):
 def test_split_serving_equals_the_references_sharded_jit(spmd_devices, name,
                                                          case):
     mesh_shape, long_mode = case
-    lg, caches = _outputs(name, mesh_shape, long_mode)
+    lg, caches, _, _ = _outputs(name, mesh_shape, long_mode)
     want_lg, want_caches = _reference(name, mesh_shape, long_mode)
     _hold(lg, want_lg, (name, case, "logits"))
     _hold(caches, want_caches, (name, case, "caches"))
+
+
+@pytest.mark.parametrize("case", CASES[:3], ids=_ids)
+@pytest.mark.parametrize("name", MLA)
+def test_mla_split_serving_equals_the_gathered_step(name, case):
+    """minicpm3-4b's MLA heads a slot, its compressed caches by
+    positions; with a vocabulary of 500 at (1, 8) the row-parallel
+    embedding and logits, laid out at the reference's replicated logits
+    spec (each model slot a copy of the whole logits), else each slot's
+    vocabulary block."""
+    test_split_serving_equals_the_gathered_step(name, case)
+    (d, m), _ = case
+    _, _, serve, shapes = _outputs(name, *case)
+    v = serve.api.cfg.vocab_size
+    rows = v % m == 0
+    assert tuple(serve.logits_spec) == ("data", None,
+                                        "model" if rows else None)
+    assert shapes == [{(BATCH // d, 1, v // m if rows else v)}] * (1 + STEPS)
+
+
+# the reference's jit for every case of minicpm3-4b and its vocabulary-500
+# variant, and for the other two vocabulary-500 variants where they take
+# the row-parallel form
+MLA_REF = [(n, c) for n in MLA[:2] for c in CASES[:3]] \
+    + [(n, CASES[0]) for n in MLA[2:]]
+
+
+@pytest.mark.parametrize("name,case", MLA_REF,
+                         ids=[f"{n}-{_ids(c)}" for n, c in MLA_REF])
+def test_mla_split_serving_equals_the_references_sharded_jit(
+        spmd_devices, name, case):
+    """The reference's jit at the replicated logits spec (DP, None,
+    None) where the vocabulary does not divide the model degree."""
+    test_split_serving_equals_the_references_sharded_jit(spmd_devices,
+                                                         name, case)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
@@ -246,7 +298,7 @@ def test_no_slot_is_written_a_row_outside_its_block(monkeypatch, name, case):
     monkeypatch.setattr(L, "_put_rows", rows)
     monkeypatch.setattr(L, "_put_tokens", tokens)
     monkeypatch.setattr(S.ModelRow, "run_at", noted)
-    _, _, serve, caches = _serve(name, mesh_shape, long_mode)
+    _, _, serve, caches, _ = _serve(name, mesh_shape, long_mode)
     monkeypatch.undo()
     held = {}
     for laid in L.tree_leaves(caches):
@@ -257,21 +309,42 @@ def test_no_slot_is_written_a_row_outside_its_block(monkeypatch, name, case):
     assert writes
 
 
+@pytest.mark.parametrize("case", CASES[:3], ids=_ids)
+def test_mla_no_slot_is_written_a_row_outside_its_block(monkeypatch, case):
+    """minicpm3-4b's compressed rows, each written by the slot whose
+    block of positions holds it."""
+    test_no_slot_is_written_a_row_outside_its_block(monkeypatch,
+                                                    "minicpm3-4b", case)
+
+
 @pytest.mark.parametrize("name", SPLIT)
-def test_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name):
+def test_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name,
+                                                 mesh_shape=(2, 4)):
     """At (2, 4) no move of the split step reads a parameter's storage:
     each slot computes on its own blocks (an MoE's on its own experts)
     and only activations, k/v rows, queries, partials, dispatch rows and
-    expert outputs move, no expert stack; the gathered step's moves read them (it
-    gathers the whole parameters onto each data row's first slot)."""
+    expert outputs move, no expert stack; the gathered step's moves read
+    them (it gathers the whole parameters onto each data row's first
+    slot)."""
     for split in (True, False):
         sends = []
-        _, _, serve, _ = _serve(name, (2, 4), False, split=split,
-                                monkeypatch=monkeypatch, sends=sends)
+        _, _, serve, _, _ = _serve(name, mesh_shape, False, split=split,
+                                   monkeypatch=monkeypatch, sends=sends)
         held = {b.untyped_storage().data_ptr()
                 for laid in L.tree_leaves(serve.params) for b in laid.blocks}
         assert sends
         assert any(ptr in held for _, _, ptr in sends) != split
+
+
+@pytest.mark.parametrize("name", MLA)
+def test_mla_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name):
+    """MLA's latents, partials, compressed rows and the decode's blocks of
+    the compressed caches move, no ``wuq``/``wukv``/``wo`` block (at
+    (2, 4)); with a vocabulary of 500 at (1, 8) the row-parallel
+    columns and partials, no block of the table or head split along
+    d_model."""
+    test_no_slot_is_sent_a_whole_split_parameter(
+        monkeypatch, name, mesh_shape=(1, 8) if "@v" in name else (2, 4))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -312,7 +385,10 @@ def test_partials_merged_over_any_split_equal_the_whole(cuts, dtype):
 
 def test_split_forms_still_refuse_what_is_not_ported():
     """Cross-attention split over the model axis (the encoder-decoder)
-    and a vocabulary the model degree does not divide raise."""
+    raises.  A vocabulary the model degree does not divide takes the
+    row-parallel logits: ``logits_apply`` with an untied head, or a
+    tied table, split along ``d_model`` on two slots, equals the whole
+    product of the plain norm and the weight."""
     mesh = make_host_mesh(devices=[CPU] * 2, shape=(1, 2))
     row = S.ModelRow((0, 1), lambda t, src, dst: S.send(t, mesh, src, dst))
     cfg = SMOKES["llama3.2-3b"].replace(dtype="float32")
@@ -320,8 +396,18 @@ def test_split_forms_still_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="cross-attention"):
         L.attn_apply({"wq": blk}, torch.zeros(1, 1, 64), cfg,
                      kv_override=(None, None))
-    head = L.Blocks((torch.zeros(64, 256),) * 2, row, 0)
-    with pytest.raises(NotImplementedError, match="Row-parallel"):
-        L.logits_apply({"final_ln": L.Blocks((torch.ones(64),), row),
-                        "head": head}, torch.zeros(1, 1, 64),
-                       cfg.replace(tie_embeddings=False))
+    g = torch.Generator().manual_seed(0)
+    head = torch.randn(64, 255, generator=g)
+    ln = torch.rand(64, generator=g) + 0.5
+    x = torch.randn(2, 3, 64, generator=g)
+    want = ref.rmsnorm_ref(x, ln, eps=cfg.norm_eps) @ head
+    for tied in (False, True):
+        p = {"final_ln": L.Blocks((ln,), row)}
+        if tied:
+            p["tokens"] = L.Blocks((head.T[:, :32], head.T[:, 32:]), row, 1)
+        else:
+            p["head"] = L.Blocks((head[:32], head[32:]), row, 0)
+        got = L.logits_apply(p, x, cfg.replace(tie_embeddings=tied,
+                                               vocab_size=255))
+        assert got.dim is None and len(got.blocks) == 1
+        torch.testing.assert_close(got.blocks[0], want, rtol=TOL, atol=TOL)

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 import jax
-from jax.sharding import PartitionSpec as JP
+from jax.sharding import NamedSharding, PartitionSpec as JP
 
 from repro.configs import ARCHS as J_ARCHS, SMOKES as J_SMOKES
 from repro.configs.base import ShapeConfig as JShape
@@ -42,7 +42,8 @@ from repro_torch.models import build, layers as L
 from repro_torch.train import optimizer as O
 from repro_torch.train import sharded as S
 from repro_torch.train.checkpoint import Checkpointer
-from repro_torch.train.trainer import Trainer
+from repro_torch.train.trainer import MeshStep, Trainer
+from _model_axis import smoke, whole
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
@@ -52,6 +53,7 @@ DENSE, MOE = "llama3.2-3b", "phi3.5-moe-42b-a6.6b"
 # is the other MoE (top 1 and a shared expert)
 SPLIT = ("gemma3-12b", "internvl2-76b", "gemma3-27b",
          "llama4-scout-17b-a16e")
+MLA = "minicpm3-4b"
 MESHES = [(8, 1), (2, 4), (4, 2)]
 # phi3.5-moe's smoke at a capacity that drops tokens: the reference's
 # meshed run (capacity per data shard) leaves its unmeshed one by more
@@ -183,20 +185,23 @@ def test_layout_splits_gathers_and_refuses_what_does_not_divide():
 
 
 # ------------------------------------------------------- (b) meshed training
-def _jcfg(name):
-    jcfg = J_SMOKES[name].replace(dtype="float32")
-    if jcfg.moe is not None:
-        jcfg = jcfg.replace(moe=dataclasses.replace(
-            jcfg.moe, capacity_factor=MOE_CAPACITY))
-    return jcfg
-
-
-def _cfg(name):
-    cfg = SMOKES[name].replace(dtype="float32")
+def _smoke(table, name):
+    """``name``'s smoke in ``table`` (the port's or the reference's), in
+    fp32, an MoE's at MOE_CAPACITY; "<arch>@v500" with a vocabulary of
+    500 (``_model_axis.smoke``)."""
+    cfg = smoke(table, name)
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=MOE_CAPACITY))
     return cfg
+
+
+def _jcfg(name):
+    return _smoke(J_SMOKES, name)
+
+
+def _cfg(name):
+    return _smoke(SMOKES, name)
 
 
 def _start(path, name, tp):
@@ -215,7 +220,7 @@ def _restore_np(path, step, like):
 
 def _seq(name=None):
     """SEQ text positions, after a VLM's patches."""
-    return SEQ + (SMOKES[name].num_patches if name else 0)
+    return SEQ + (_cfg(name).num_patches if name else 0)
 
 
 def _shape(name=None):
@@ -299,11 +304,15 @@ def _runs():
     experts a slot); the other architectures whose step splits on
     MESHES' meshes wider than one; the dense ones that split also on
     (1, 8), which pads the smokes' 4 heads to 8 and replicates their 2
-    KV heads; gemma3-27b (8 layers) without ZeRO-1.  The MoEs' tokens
-    drop per data shard (``MOE_CAPACITY``)."""
+    KV heads; gemma3-27b (8 layers) without ZeRO-1; minicpm3-4b (MLA)
+    on MESHES' split meshes and (1, 8), and at (1, 8) with a vocabulary
+    of 500, which 8 does not divide: the row-parallel embedding and
+    loss.  The MoEs' tokens drop per data shard (``MOE_CAPACITY``)."""
     runs = [(n, m) for n in (DENSE, MOE) for m in MESHES]
     runs += [(n, m) for n in SPLIT for m in MESHES[1:]]
     runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT[:3]]
+    runs += [(MLA, m) for m in MESHES[1:] + [(1, 8)]]
+    runs += [(MLA + "@v500", (1, 8))]
     return [(n, m, z) for n, m in runs for z in (False, True)
             if not (z and n == "gemma3-27b")]
 
@@ -340,3 +349,53 @@ def test_meshed_training_matches_the_reference(spmd_devices, tmp_path,
         assert max(abs(a - b) for a, b in zip(moe_unmeshed_losses,
                                               meshed)) > 1e-4, \
             (moe_unmeshed_losses, meshed)
+
+
+def test_the_untied_row_parallel_head_matches_the_references_forward(
+        spmd_devices):
+    """phi3.5-moe with a vocabulary of 500 at (1, 8): the embedding table
+    and the untied head split along d_model, the loss row-parallel.  The
+    reference's meshed step does not compile there on jax 0.9.0 (its
+    SPMD partitioner refuses the MoE's shard_map beside the row-parallel
+    head; ROADMAP), so the split step's loss and cross-entropy are held
+    to the reference's forward jitted at the same shardings (rtol
+    RTOL), and every gradient leaf to the reference's unmeshed
+    ``jax.value_and_grad`` (within LEAF_TOL of its largest element),
+    from the reference's seed-0 parameters."""
+    name = MOE + "@v500"
+    japi = jbuild(_jcfg(name), tp=SLOTS)
+    jp = jax.tree.map(np.asarray, japi.init_params(0))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 500, (BATCH, SEQ + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1].copy(), "labels": tokens[:, 1:].copy()}
+    batch["labels"][0, :3] = -1
+    jmesh = j_make_host_mesh(SLOTS, shape=(1, SLOTS))
+    with JL.use_mesh(jmesh, ("data",)):
+        sh = lambda tree: jax.tree.map(  # noqa: E731
+            lambda s: NamedSharding(jmesh, s), tree, is_leaf=_is_p)
+        forward = jax.jit(japi.train_loss, in_shardings=(
+            sh(japi.param_pspecs()), sh(japi.input_pspecs(_shape(name)))))
+        want_loss, want_met = forward(jp, batch)
+    (_, _), want = jax.value_and_grad(japi.train_loss, has_aux=True)(
+        jp, batch)
+    api = build(_cfg(name), tp=SLOTS)
+    mesh = make_host_mesh(devices=[CPU] * SLOTS, shape=(1, SLOTS))
+    with L.use_mesh(mesh):
+        pspecs = api.param_pspecs()
+        parts = MeshStep(api, O.AdamWConfig(), mesh, param_specs=pspecs,
+                         opt_specs=O.opt_pspecs(api.param_defs(),
+                                                zero1=False,
+                                                dp_axes=("data",),
+                                                dp_size=1),
+                         batch_specs=api.input_pspecs(_shape(name)))
+        assert parts.split and S.model_dim(pspecs["embed"]["head"]) == 0
+        params = S.lay_out_tree(api.params_from_numpy(jp, CPU),
+                                S.layouts(mesh, pspecs))
+        loss, met, grads = parts.grads(params, {
+            k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=RTOL)
+    for key in ("xent", "aux"):
+        np.testing.assert_allclose(float(met[key]), float(want_met[key]),
+                                   rtol=RTOL, err_msg=key)
+    _hold_leaves([whole(g).numpy() for g in L.tree_leaves(grads)],
+                 [np.asarray(g) for g in jax.tree.leaves(want)], "grads")

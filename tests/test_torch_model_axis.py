@@ -2,8 +2,10 @@
 (each data row's model slots on their own heads, MLP columns or experts
 and vocabulary block, ``models/layers.py``'s split forms) against the
 gathered one (the whole parameters on each row's first slot) for the
-six architectures that split, at (1, 8), (2, 4) and (4, 2) (the MoE
-smokes' 4 experts 2 and 1 a slot, and whole at degree 8); the three
+seven architectures that split, at (1, 8), (2, 4) and (4, 2) (the MoE
+smokes' 4 experts 2 and 1 a slot, and whole at degree 8; minicpm3-4b's
+MLA heads 1 or 2 a slot), and for three smokes with a vocabulary of
+500 (``_model_axis.ROW_PARALLEL``: row-parallel at (1, 8)); the four
 collectives of ``train/sharded.py`` under ``gradcheck`` in float64;
 the moves of a recorded step, none of which takes a block of a split
 leaf to a slot that does not hold it; and the dry run's record of a
@@ -24,68 +26,30 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build, layers as L
-from repro_torch.train import optimizer as O
 from repro_torch.train import sharded as S
 from repro_torch.train import trainer as T
+from _model_axis import ROW_PARALLEL, mesh_step, whole
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SPLIT = ("llama3.2-3b", "gemma3-12b", "internvl2-76b", "gemma3-27b",
-         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "minicpm3-4b")
 MESHES = [(1, 8), (2, 4), (4, 2)]
 TOL = 1e-5
 SEQ, BATCH = 16, 8
 
 
 def _setup(name, mesh_shape, zero1=False):
-    """(api, mesh step, params laid out, opt state laid out, batch) of
-    ``name``'s fp32 smoke on a mesh of CPU slots; every block its own
-    storage, so a move can be told by the block it carries."""
-    cfg = SMOKES[name].replace(dtype="float32")
-    d, m = mesh_shape
-    mesh = make_host_mesh(devices=[CPU] * (d * m), shape=mesh_shape)
-    api = build(cfg, tp=m)
-    shape = ShapeConfig("t", "train", SEQ + cfg.num_patches, BATCH)
-    with L.use_mesh(mesh):
-        pspecs = api.param_pspecs()
-        ospecs = O.opt_pspecs(api.param_defs(), zero1=zero1,
-                              dp_axes=("data",), dp_size=d)
-        parts = T.MeshStep(api, O.AdamWConfig(), mesh,
-                           param_specs=pspecs, opt_specs=ospecs,
-                           batch_specs=api.input_pspecs(shape))
-    own = lambda laid: S.Laid(laid.layout, laid.shape,  # noqa: E731
-                              [b.clone() for b in laid.blocks])
-    params = api.init_params(0, CPU)
-    laid = L.tree_map(own, S.lay_out_tree(params, S.layouts(mesh, pspecs)))
-    opt = S.lay_out_tree(O.init_state(params),
-                         S.layouts(mesh, ospecs))
-    g = torch.Generator().manual_seed(0)
-    batch = {k: (torch.randint(0, cfg.vocab_size, v.shape, generator=g,
-                               dtype=v.dtype)
-                 if not v.dtype.is_floating_point else
-                 torch.randn(v.shape, generator=g).to(v.dtype))
-             for k, v in api.input_specs(shape).items()}
-    batch["labels"][0, :3] = -1
-    return api, parts, laid, opt, batch
-
-
-def _whole(laid):
-    """The tensor of a ``sharded.Laid`` some of whose blocks are held."""
-    coords = laid.layout.coords()
-    out = torch.full(laid.shape, float("nan"))
-    for j, b in enumerate(laid.blocks):
-        if b is not None:
-            out[laid.layout.block_slices(laid.shape, coords[j])] = b
-    assert not torch.isnan(out).any()
-    return out
+    return mesh_step(name, mesh_shape, SEQ, BATCH, zero1=zero1)
 
 
 @pytest.mark.parametrize("mesh_shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("name", SPLIT)
+@pytest.mark.parametrize("name", SPLIT + ROW_PARALLEL)
 def test_split_step_equals_the_gathered_step(name, mesh_shape):
     """Forward (loss, cross-entropy) and every gradient leaf of one
     micro-batch; (1, 8) pads the smokes' 4 heads to 8 and replicates
-    their 2 KV heads, (4, 2) splits both."""
+    their 2 KV heads, (4, 2) splits both; the vocabulary-500 variants
+    take the row-parallel embedding and loss at (1, 8)."""
     _, parts, params, _, batch = _setup(name, mesh_shape)
     assert parts.split
     mesh = parts.mesh
@@ -98,7 +62,7 @@ def test_split_step_equals_the_gathered_step(name, mesh_shape):
                                rtol=TOL)
     for (path, got), ref in zip(L.tree_items(grads), L.tree_leaves(want)):
         scale = max(float(ref.abs().max()), 1e-30)
-        err = float((_whole(got) - ref).abs().max())
+        err = float((whole(got) - ref).abs().max())
         assert err <= TOL * scale, (path, err, scale)
 
 
@@ -115,9 +79,11 @@ def _row(n):
 
 
 def test_the_collectives_pass_gradcheck_in_float64():
-    """to_model_slots (whole and by ranges), sum_model_slots and
+    """to_model_slots (whole and by ranges), sum_model_slots,
     from_model_slots (an MoE's expert outputs, concatenated in slot
-    order), and the moves each makes forward and backward."""
+    order) and sum_to_model_slots (the row-parallel loss's reduce-scatter
+    over uneven vocabulary blocks), and the moves each makes forward and
+    backward."""
     row, moved = _row(3)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 5, 4, dtype=torch.float64, generator=g,
@@ -154,6 +120,23 @@ def test_the_collectives_pass_gradcheck_in_float64():
     assert torch.equal(y, parts[0] + parts[1] + parts[2])
     y.sum().backward()
     assert moved == [(1, 0), (2, 0), (0, 1), (0, 2)]
+    ranges = L.vocab_blocks(7, 3)
+    assert ranges == [(0, 3), (3, 6), (6, 7)]
+    full = tuple(torch.randn(2, 4, 7, dtype=torch.float64, generator=g,
+                             requires_grad=True) for _ in range(3))
+    assert torch.autograd.gradcheck(
+        lambda *p: S.sum_to_model_slots(row, p, ranges), full)
+    moved.clear()
+    out = S.sum_to_model_slots(row, [p * 1 for p in full], ranges)
+    for (lo, hi), o in zip(ranges, out):
+        assert torch.equal(o, full[0][..., lo:hi] + full[1][..., lo:hi]
+                           + full[2][..., lo:hi])
+    others = sorted((a, c) for a in range(3) for c in range(3) if a != c)
+    assert sorted(moved) == others
+    moved.clear()
+    sum(o.sum() for o in out).backward()
+    assert sorted(moved) == others
+    assert all(torch.equal(p.grad, torch.ones_like(p)) for p in full)
 
 
 def _recorded_step(monkeypatch, name, mesh_shape, split):
@@ -222,7 +205,7 @@ def _recorded_step(monkeypatch, name, mesh_shape, split):
 
 
 @pytest.mark.parametrize("mesh_shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("name", SPLIT)
+@pytest.mark.parametrize("name", SPLIT + ROW_PARALLEL)
 def test_no_block_of_a_split_leaf_goes_to_a_slot_without_it(
         monkeypatch, name, mesh_shape):
     """Gradient blocks go to the first row's slot of their block, and
@@ -240,10 +223,10 @@ def test_the_gathered_step_fails_that_check(monkeypatch):
 
 
 def test_the_dry_run_records_which_steps_split():
-    """The six families split their train and serving steps (the
+    """The seven families split their train and serving steps (the
     serving one ``launch/serve.py::MeshServe``) on a model axis wider
-    than one; no other family splits (jamba's MoE layers ride with its
-    Mamba ones, gathered)."""
+    than one, minicpm3-4b's MLA among them; no other family splits
+    (jamba's MoE layers ride with its Mamba ones, gathered)."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
     train = ShapeConfig("s", "train", 2048, 8)
     for name, cfg in ARCHS.items():
