@@ -47,15 +47,18 @@ touches a device but ``meta``.
     arguments, the other shards' rows bytes beyond them) and runs
     ``loss_and_grads`` on its shard's rows.  Where the step splits over
     the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b,
-    internvl2-76b, phi3.5-moe, llama4-scout and minicpm3-4b on a model
-    axis wider than one), slot (0, 0) runs its own blocks' share of each
-    split layer (its experts or MLA heads among them) and, as its row's
-    first slot, the norms, residuals, replicated projections (MLA's
-    down-projections), an MoE's routing, dispatch and combine and the
-    row-parallel loss's sum, and receives the other model slots'
-    partials and expert outputs, each a stand-in made under
-    ``trace.paused()`` that takes bytes on slot 0 only when sent there
-    (:class:`_Elsewhere`); the gradient sum, the norm and the layouts
+    internvl2-76b, phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b
+    and xlstm-125m on a model axis wider than one), slot (0, 0) runs its
+    own blocks' share of each split layer (its experts, MLA heads, Mamba
+    channels or rows of mLSTM's C among them) and, as its row's first
+    slot, the norms, residuals, replicated projections (MLA's
+    down-projections, mLSTM's gates), an MoE's routing, dispatch and
+    combine, the sLSTM blocks and the row-parallel loss's sum, and
+    receives the other model slots' partials, columns and expert
+    outputs, each a stand-in made under ``trace.paused()`` that takes
+    bytes on slot 0 only when sent there (:class:`_Elsewhere`; another
+    slot's work runs only for its outputs' shapes, once for each
+    signature: :class:`_Paused`); the gradient sum, the norm and the layouts
     count only slot 0's blocks.  Otherwise it gathers the whole
     parameters (``sharded.gather_tree``) and runs the shard on them.  It
     then takes the other dp - 1 shards' gradients (whole, or its blocks')
@@ -113,7 +116,9 @@ touches a device but ``meta``.
   first slot, a split one sends each split layer's activations and
   partials within each data row (an MoE's, its experts' rows of the
   dispatch buffer and their outputs: :func:`ffn_moves`; an MLA layer's,
-  its latents), forward,
+  its latents; a Mamba or mLSTM layer's, its reshuffles of the
+  projections' columns, what goes whole to every slot and its partials:
+  :func:`mixer_moves`), forward,
   backward and again in remat's recompute, and the embedding's and
   loss's combines.  A split serving cell counts its step's moves the
   same way (:func:`serve_transfers`): activations, k/v slices, partial
@@ -122,7 +127,10 @@ touches a device but ``meta``.
   offsets, the query heads gathered onto each slot holding a block of
   a cache split by positions and their ``(out, lse)`` partials, and an
   MLA layer's compressed blocks gathered onto each model slot; the
-  row-parallel logits' partials and copies.  ``bytes_by_kind`` and
+  row-parallel logits' partials and copies; a recurrent layer's
+  reshuffles, whole tensors and partials, and the copies of its states
+  (mLSTM's and sLSTM's replicas on every model slot, and in long mode
+  each block's on the other data rows).  ``bytes_by_kind`` and
   ``total_bytes`` are what the busiest slot sends and receives.  A
   gathered serving cell records ``None``: nothing moves between slots.
 * **Split** (``model_split``): whether the cell's step splits its
@@ -140,7 +148,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import functools
+import inspect
 import json
 import os
 import sys
@@ -152,13 +160,13 @@ import torch
 
 from ..configs import ARCHS, SMOKES, SHAPES, shapes_for
 from ..configs.base import ShapeConfig
-from ..models import build, layers as L
+from ..models import build, layers as L, xlstm as X
 from ..train import optimizer as O
 from ..train import sharded as S
 from ..train.trainer import MeshStep, loss_and_grads, make_train_step
 from .memtrace import StepTrace
 from .mesh import Mesh, dp_axes_of
-from .serve import MeshServe, cache_spans
+from .serve import MeshServe, cache_spans, state_replicas
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -333,6 +341,48 @@ def _like(tree):
                       if isinstance(t, torch.Tensor) else t, tree)
 
 
+def _signature(x):
+    """A key of ``x`` that a ``meta`` step's output shapes depend on: a
+    tensor's shape, dtype and whether it asks for a gradient, sequences
+    item by item, a ``layers.Blocks`` (and its ``part``, which takes a
+    stacked block to a layer's) by its split dim and the kinds of its
+    index, anything else itself (by identity where unhashable)."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.dtype, x.requires_grad)
+    if isinstance(x, (tuple, list)):
+        return (type(x),) + tuple(_signature(a) for a in x)
+    if isinstance(x, dict):
+        return (dict,) + tuple((k, _signature(v)) for k, v in x.items())
+    if isinstance(x, L.Blocks):      # its blocks' shapes come with them
+        return (L.Blocks, x.dim, tuple(type(i) for i in x.index))
+    if inspect.ismethod(x):          # ``Blocks.part``: a layer's index
+        return (x.__func__, _signature(x.__self__))
+    try:
+        hash(x)
+    except TypeError:
+        return ("id", id(x))
+    return x
+
+
+class _Paused:
+    """Other slots' work under ``trace.paused()``: counted nowhere, it
+    runs only for its outputs' shapes, so a call whose function, tensor
+    shapes and other arguments (:func:`_signature`) another slot's call
+    had already gets stand-ins of that call's outputs, not a run (a
+    split layer's tp slots run one signature: one run, not tp - 1)."""
+
+    def __init__(self, trace: StepTrace):
+        self.trace = trace
+        self.seen = {}
+
+    def __call__(self, fn, *args, **kwargs):
+        key = (fn, _signature(args), _signature(kwargs))
+        with self.trace.paused():
+            if key not in self.seen:
+                self.seen[key] = _like(fn(*args, **kwargs))
+            return _like(self.seen[key])
+
+
 class _Elsewhere(torch.autograd.Function):
     """Another slot's part of a split layer, as slot 0's trace sees it:
     ``fn`` runs under ``trace.paused()`` for its outputs' shapes, and
@@ -343,21 +393,20 @@ class _Elsewhere(torch.autograd.Function):
     slot, are stand-ins too (:meth:`SlotStep.loss_and_grads`)."""
 
     @staticmethod
-    def forward(ctx, trace, fn, *args):
-        ctx.trace = trace
+    def forward(ctx, paused, fn, kwargs, *args):
+        ctx.trace = paused.trace
         ctx.like = [(a.shape, a.dtype, a.device)
                     if isinstance(a, torch.Tensor) and a.grad_fn is not None
                     else None for a in args]
-        with trace.paused():
-            return fn(*args)
+        return paused(fn, *args, **kwargs)
 
     @staticmethod
     def backward(ctx, *grads):
         with ctx.trace.paused():
-            return (None, None) + tuple(
+            return (None, None, None) + tuple(
                 torch.empty(like[0], dtype=like[1], device=like[2])
                 if like is not None and need else None
-                for like, need in zip(ctx.like, ctx.needs_input_grad[2:]))
+                for like, need in zip(ctx.like, ctx.needs_input_grad[3:]))
 
 
 class SlotStep(MeshStep):
@@ -373,6 +422,7 @@ class SlotStep(MeshStep):
     def __init__(self, trace: StepTrace, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.trace = trace
+        self.paused = _Paused(trace)
         self._like = {}
 
     def send(self, t, src: int, dst: int, out=None):
@@ -403,8 +453,7 @@ class SlotStep(MeshStep):
         :class:`_Elsewhere`."""
         if slot == 0:
             return fn(*args, **kwargs)
-        return _Elsewhere.apply(self.trace, functools.partial(fn, **kwargs),
-                                *args)
+        return _Elsewhere.apply(self.paused, fn, kwargs, *args)
 
     def model_row(self, i: int) -> S.ModelRow:
         return S.ModelRow(self.rows[i], self.send, self.run)
@@ -464,6 +513,7 @@ class SlotServe(MeshServe):
     def __init__(self, trace: StepTrace, *args, offsets=(), **kwargs):
         super().__init__(*args, **kwargs)
         self.trace = trace
+        self.paused = _Paused(trace)
         self.offsets = offsets
 
     send = SlotStep.send
@@ -471,11 +521,10 @@ class SlotServe(MeshServe):
 
     def run(self, slot: int, fn, *args, **kwargs):
         """A slot's work in a row, no backward: slot 0's traced,
-        another's under ``trace.paused()``."""
+        another's under ``trace.paused()`` (:class:`_Paused`)."""
         if slot == 0:
             return fn(*args, **kwargs)
-        with self.trace.paused():
-            return fn(*args, **kwargs)
+        return self.paused(fn, *args, **kwargs)
 
     def row_offsets(self, i: int, batch) -> tuple:
         lengths = batch["lengths"]
@@ -510,8 +559,8 @@ def _split_serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
                       long_mode=long_mode,
                       offsets=decode_offsets(shape) if decode else ())
     with trace, torch.no_grad():
-        out = serve.row_step(0, api.decode if decode else api.prefill,
-                             params, inputs, caches, decode)
+        out, _ = serve.row_step(0, api.decode if decode else api.prefill,
+                                params, inputs, caches, decode)
     rows = shard_batch(cell, shape)
     shard = dataclasses.replace(shape, global_batch=rows)
     v = api.cfg.vocab_size
@@ -639,6 +688,47 @@ def ffn_moves(cfg, specs, tokens: int, e: int, tp: int) -> dict:
     return out
 
 
+def mixer_moves(cfg, kind: str, specs, tokens: int, e: int,
+                tp: int) -> dict:
+    """{kind: (bytes out to model slot m, bytes back from it)}: what a
+    split recurrent mixer (its parameters' ``specs``) on a row running
+    ``tokens`` tokens in ``e``-byte activations moves between the row's
+    first slot and each model slot m > 0 (the same for every m).  A
+    Mamba layer whose spec splits ``di``: the normed activation out
+    ("activations"); its ``in_proj`` columns back and its channels of
+    ``x`` and ``z`` out ("reshuffle"); the whole (dt_r | B | C) out
+    ("whole"); its ``x_proj`` partial and its partial output back
+    ("partials").  An mLSTM layer whose spec splits ``di``: the normed
+    activation out; its ``up_proj`` columns and its q and k columns back
+    and its channels of ``z`` out ("reshuffle"); the whole ``u``, and
+    the q, k and gates of the heads its block touches, out ("whole",
+    ``xlstm.slot_rows``); its partial output back.  An sLSTM layer, or
+    one whose ``di`` the spec leaves whole, runs on the first slot:
+    nothing."""
+    x = tokens * cfg.d_model * e
+    if kind == "mamba" and S.model_dim(specs["in_proj"]) is not None:
+        di = cfg.ssm.expand * cfg.d_model
+        c = di // tp
+        xdb = tokens * ((cfg.ssm.dt_rank or -(-cfg.d_model // 16))
+                        + 2 * cfg.ssm.d_state) * e
+        return {"activations": (x, 0),
+                "reshuffle": (2 * tokens * c * e, tokens * 2 * c * e),
+                "whole": (xdb, 0), "partials": (0, xdb + x)}
+    if kind == "mlstm" and S.model_dim(specs["up_proj"]) is not None:
+        di, nh = 2 * cfg.d_model, cfg.num_heads
+        c = di // tp
+        _, g, _, _ = X.slot_rows(di, nh, tp, 0)
+        return {"activations": (x, 0),
+                "reshuffle": (tokens * c * e, tokens * 4 * c * e),
+                "whole": (tokens * (di + 2 * g * (di // nh) + 2 * g) * e,
+                          0),
+                "partials": (0, x)}
+    return {}
+
+
+RECURRENT = ("mamba", "mlstm", "slstm")
+
+
 def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     """A split step's layers, in order, each (under remat, bytes its
     forward sends from the row's first slot to model slot m, and from
@@ -646,7 +736,8 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     the other way, and a recompute its forward's again.  A GQA layer
     sends the normed activation (and the KV heads a slot reads where
     ``wk``/``wv`` are replicated), an MLA layer its latents ``cq``,
-    ``ckv`` and ``k_rope``; each gets its partial output back."""
+    ``ckv`` and ``k_rope``; each gets its partial output back; a
+    recurrent mixer moves what :func:`mixer_moves` counts."""
     cfg = cell.api.cfg
     params, specs = cell.trees["params"]
     t, d = cell.shape.seq_len, cfg.d_model
@@ -654,16 +745,22 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     x = b * t * d * e
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
 
-    def layer(blk, blk_specs):
+    def layer(blk, blk_specs, kind):
         to, back = [0] * tp, [0] * tp
-        ffn = ffn_moves(cfg, blk_specs["ffn"], b * t, e, tp)
+        ffn = ffn_moves(cfg, blk_specs["ffn"], b * t, e, tp) \
+            if "ffn" in blk_specs else {"dispatch": 0, "activations": 0}
+        mix = mixer_moves(cfg, kind, blk_specs["mixer"], b * t, e, tp)
         for m in range(1, tp):
-            back[m] += x
-            if cfg.mla is not None:
+            if kind in RECURRENT:
+                to[m] += sum(a for a, _ in mix.values())
+                back[m] += sum(a for _, a in mix.values())
+            elif cfg.mla is not None:
+                back[m] += x
                 ml = cfg.mla
                 to[m] += b * t * (ml.q_lora_rank + ml.kv_lora_rank
                                   + ml.qk_rope_head_dim) * e
             else:
+                back[m] += x
                 to[m] += x
                 if S.model_dim(blk_specs["mixer"]["wk"]) is None:
                     hm = blk["mixer"]["wq"].shape[-2] // tp
@@ -676,10 +773,12 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     out = []
     remat = cfg.remat == "full"
     for per in range(cfg.n_periods):
-        for blk, blk_specs in zip(params["stack"], specs["stack"]):
-            out.append((remat, *layer(blk, blk_specs)))
-    for blk, blk_specs in zip(params["rem"], specs["rem"]):
-        out.append((False, *layer(blk, blk_specs)))
+        for blk, blk_specs, kind in zip(params["stack"], specs["stack"],
+                                        cfg.period_pattern):
+            out.append((remat, *layer(blk, blk_specs, kind)))
+    for blk, blk_specs, kind in zip(params["rem"], specs["rem"],
+                                    cfg.remainder_kinds):
+        out.append((False, *layer(blk, blk_specs, kind)))
     return out
 
 
@@ -756,8 +855,9 @@ def transfers(cell: Cell) -> dict:
     split layers' forward sends (the normed activation to each model
     slot, the KV heads each slot reads where ``wk``/``wv`` are
     replicated, an MLA layer's latents, an MoE's experts' rows of the
-    dispatch buffer, the partials and expert outputs back to the first
-    slot: "forward"), their backward's ("backward"), the forward's again
+    dispatch buffer, a Mamba or mLSTM layer's moves
+    (:func:`mixer_moves`), the partials and expert outputs back to the
+    first slot: "forward"), their backward's ("backward"), the forward's again
     where remat recomputes a period ("recompute"), the embedding's
     tokens, partials (row-parallel: columns) and their gradient
     ("embed"), and the loss's normed chunks, maxima, labels and sums
@@ -845,21 +945,74 @@ def transfers(cell: Cell) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
-def _layers(cell: Cell):
+def _layers(cell: Cell, geometry):
     """Each layer of the cell in order: (its parameters' specs, its kind,
-    its first cache leaf (``k``, or MLA's ``ckv``) and that leaf's
-    spec)."""
+    its caches, their specs and their :class:`serve.Geometry`, from
+    ``geometry``)."""
     cfg = cell.api.cfg
-    key = "k" if cfg.mla is None else "ckv"
     _, p_specs = cell.trees["params"]
     c_tree, c_specs = cell.trees["caches"]
     for per in range(cfg.n_periods):
         for pos, kind in enumerate(cfg.period_pattern):
-            yield (p_specs["stack"][pos], kind, c_tree["stack"][pos][key],
-                   c_specs["stack"][pos][key])
+            yield (p_specs["stack"][pos], kind, c_tree["stack"][pos],
+                   c_specs["stack"][pos], geometry["stack"][pos])
     for pos, kind in enumerate(cfg.remainder_kinds):
-        yield (p_specs["rem"][pos], kind, c_tree["rem"][pos][key],
-               c_specs["rem"][pos][key])
+        yield (p_specs["rem"][pos], kind, c_tree["rem"][pos],
+               c_specs["rem"][pos], geometry["rem"][pos])
+
+
+def _state_moves(out, mesh, coords, row, kind, split, caches, specs,
+                 geometry) -> None:
+    """A recurrent layer's cache moves in a split serving step (see
+    :func:`serve_transfers`), added to ``out`` under "state": a Mamba
+    layer split by channels, each model slot's block to its replicas
+    outside the row (long mode); an mLSTM layer split by rows of C,
+    each slot's rows of C and the n and m of the heads no earlier slot
+    computed to the row's first slot, then, as for a layer run whole on
+    the first slot (sLSTM, or a ``di`` the spec leaves whole), each leaf
+    whole from the first slot to every other model slot, and each model
+    slot's to its replicas outside the row."""
+    h, tp = row[0], len(row)
+
+    def layer_bytes(key, j):
+        sl = S.Layout(mesh, specs[key]).block_slices(caches[key].shape,
+                                                     coords[j])
+        return _numel(sl[geometry[key].lead:]) * caches[key].element_size()
+
+    reps = {key: state_replicas(S.Layout(mesh, specs[key]),
+                                caches[key].shape, coords, row)
+            for key in caches}
+
+    def to_replicas(key, m):
+        for r in reps[key][m]:
+            out["state"][row[m], r] += layer_bytes(key, row[m])
+
+    if kind == "mamba" and split:
+        for key in caches:
+            for m in range(tp):
+                to_replicas(key, m)
+        return
+    if kind == "mlstm" and split:
+        c = caches["C"]
+        lead = geometry["C"].lead
+        sl = S.Layout(mesh, specs["C"]).block_slices(c.shape, coords[h])
+        b = sl[lead].stop - sl[lead].start
+        nh, hd = c.shape[lead + 1], c.shape[lead + 2]
+        done = 0
+        for m in range(1, tp + 1):
+            h0, g, _, r = X.slot_rows(nh * hd, nh, tp, m - 1)
+            new = h0 + g - max(done, h0)
+            done = max(done, h0 + g)
+            if m - 1 == 0:
+                continue
+            out["state"][row[m - 1], h] += b * g * r * hd * 4
+            if new > 0:
+                out["state"][row[m - 1], h] += b * new * (hd + 1) * 4
+    for key in caches:
+        to_replicas(key, 0)
+        for m in range(1, tp):
+            out["state"][h, row[m]] += layer_bytes(key, h)
+            to_replicas(key, m)
 
 
 def _mla_cache_moves(out, row, spans, size, *, b, t, wide, decode, offs,
@@ -917,7 +1070,9 @@ def serve_transfers(cell: Cell) -> dict:
     slot that does not hold them ("latent"); the row-parallel logits'
     partials to the first slot and the whole logits back out to each
     model slot, and in long mode the other rows' logits blocks
-    ("logits")."""
+    ("logits"); a Mamba or mLSTM layer's moves by :func:`mixer_moves`'
+    kinds ("activations", "reshuffle", "whole", "partials") and its
+    states' copies (:func:`_state_moves`, "state")."""
     api, mesh, shape = cell.api, cell.mesh, cell.shape
     cfg = api.cfg
     long_mode = _is_long_mode(shape)
@@ -950,8 +1105,29 @@ def serve_transfers(cell: Cell) -> dict:
             if not rows:
                 out["logits"][row[m], h] += b * v * e
                 out["logits"][h, row[m]] += b * v * e
-        for specs, kind, leaf, c_spec in _layers(cell):
-            ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp)
+        for specs, kind, c_tree, c_specs, geom in _layers(cell,
+                                                         serve.geometry):
+            ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp) \
+                if "ffn" in specs else {"dispatch": 0, "activations": 0}
+            if kind in RECURRENT:
+                mix = mixer_moves(cfg, kind, specs["mixer"], b * t, e, tp)
+                for m in range(1, tp):
+                    for k, (to, back) in mix.items():
+                        if to:
+                            out[k][h, row[m]] += to
+                        if back:
+                            out[k][row[m], h] += back
+                    if ffn["activations"]:
+                        out["activations"][h, row[m]] += ffn["activations"]
+                        out["partials"][row[m], h] += ffn["activations"]
+                    if ffn["dispatch"]:
+                        out["dispatch"][h, row[m]] += ffn["dispatch"]
+                        out["combine"][row[m], h] += ffn["dispatch"]
+                _state_moves(out, mesh, coords, row, kind, bool(mix),
+                             c_tree, c_specs, geom)
+                continue
+            key = "k" if cfg.mla is None else "ckv"
+            leaf, c_spec = c_tree[key], c_specs[key]
             act = x
             if mla:
                 ml = cfg.mla
@@ -964,7 +1140,8 @@ def serve_transfers(cell: Cell) -> dict:
                     out["dispatch"][h, row[m]] += ffn["dispatch"]
                     out["combine"][row[m], h] += ffn["dispatch"]
             spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
-                                      coords, i, heads=not mla)
+                                      coords, i, lead=geom[key].lead,
+                                      heads=not mla)
             if mla:
                 _mla_cache_moves(out, row, spans, size, b=b, t=t,
                                  wide=(ml.kv_lora_rank

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -135,15 +136,43 @@ class PagedLM:
         return torch.argmax(self.decode_logits(seqs), dim=-1).tolist()
 
 
-def cache_spans(layout: S.Layout, shape, coords, i: int, *,
+@dataclass(frozen=True)
+class Geometry:
+    """A cache leaf's batch dim (``lead``) and whether it is a KV cache
+    laid out by positions and heads (``kv``: ``k``/``v``, MLA's
+    compressed ``ckv``/``krope``) or a recurrent mixer's state (Mamba's,
+    mLSTM's, sLSTM's)."""
+    lead: int
+    kv: bool
+
+
+def cache_geometry(api) -> object:
+    """A tree of each cache leaf's :class:`Geometry`, its batch dim the
+    one its normal-mode spec gives the data axes (the ``DP`` entry;
+    ``cache_defs``' shapes are the same in long mode, whose specs
+    replicate the batch), never guessed from its rank."""
+    def keys(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: keys(v, k) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(keys(t, key) for t in tree)
+        return key
+
+    defs = api.cache_defs(1, 1)
+    return L.tree_map(lambda d, key: Geometry(
+        list(d.pspec).index(L.DP), key in ("k", "v", "ckv", "krope")),
+        defs, keys(defs))
+
+
+def cache_spans(layout: S.Layout, shape, coords, i: int, *, lead: int,
                 heads: bool = True):
-    """(blocks' spans, (S, KVH)) of a cache leaf of ``shape`` ((..., B, S,
-    KVH, hd), or with ``heads`` false MLA's compressed (..., B, S, r))
-    laid out by ``layout``, as data row ``i`` (its first slot's flat
-    index) sees it: each slot's ((p0, p1), (h0, h1)) where its block
-    holds the rows of slot ``i``'s block, else None; a compressed cache
-    has one "head", (0, 1) of 1."""
-    lead = len(shape) - (4 if heads else 3)
+    """(blocks' spans, (S, KVH)) of a KV cache leaf of ``shape`` whose
+    batch dim is ``lead`` (:func:`cache_geometry`), its positions and KV
+    heads the two dims after it ((..., B, S, KVH, hd), or with ``heads``
+    false MLA's compressed (..., B, S, r)), laid out by ``layout``, as
+    data row ``i`` (its first slot's flat index) sees it: each slot's
+    ((p0, p1), (h0, h1)) where its block holds the rows of slot ``i``'s
+    block, else None; a compressed cache has one "head", (0, 1) of 1."""
     mine = layout.block_slices(shape, coords[i])[lead]
     spans = []
     for c in coords:
@@ -154,12 +183,35 @@ def cache_spans(layout: S.Layout, shape, coords, i: int, *,
     return tuple(spans), (shape[lead + 1], shape[lead + 2] if heads else 1)
 
 
-def _span_index(span, heads: bool) -> tuple:
-    """The index of a cache leaf's ``span`` ((p0, p1), (h0, h1)) from its
-    position dim on."""
-    (p0, p1), (h0, h1) = span
-    return (Ellipsis, slice(p0, p1)) + ((slice(h0, h1),) if heads else ()) \
-        + (slice(None),)
+def row_holders(layout: S.Layout, shape, coords, i: int, lead: int) -> list:
+    """(slot, slices of the whole) for each slot whose block of a cache
+    leaf of ``shape`` (batch dim ``lead``) holds data row ``i``'s rows of
+    the batch (slot ``i``'s), in slot order."""
+    mine = layout.block_slices(shape, coords[i])[lead]
+    return [(j, sl) for j, sl in ((j, layout.block_slices(shape, c))
+                                  for j, c in enumerate(coords))
+            if sl[lead] == mine]
+
+
+def state_replicas(layout: S.Layout, shape, coords, slots) -> tuple:
+    """For each model slot m of a data row (``slots``, flat indices), the
+    slots outside the row whose block of a recurrent state leaf of
+    ``shape`` laid out by ``layout`` is the same as slot m's and whose
+    model coordinate is m (in long mode, the other data rows' slot m:
+    the state's batch is replicated over them), in slot order."""
+    names = layout.mesh.axis_names
+    ax = names.index("model") if "model" in names else None
+    keys = [S._key(layout.block_slices(shape, c)) for c in coords]
+    return tuple(tuple(j for j, c in enumerate(coords)
+                       if j not in slots and keys[j] == keys[s]
+                       and (ax is None or c[ax] == m))
+                 for m, s in enumerate(slots))
+
+
+def _within_row(sl: tuple, lead: int) -> tuple:
+    """A block's slices of the whole, as an index of the row's part (its
+    batch rows, every other dim whole)."""
+    return sl[:lead] + (slice(None),) + sl[lead + 1:]
 
 
 class MeshServe:
@@ -173,18 +225,24 @@ class MeshServe:
 
     * Split (``split``), where ``api.model_split()`` and the model axis is
       wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b,
-      phi3.5-moe, llama4-scout, minicpm3-4b): each data row's model
-      slots run the step as the reference's GSPMD step does, each on its
-      own heads, MLP columns or experts and vocabulary block (or
-      ``d_model`` columns of the embedding and logits) and its own block
-      of every cache (``models/layers.py``'s split forms); the logits
+      phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b,
+      xlstm-125m): each data row's model slots run the step as the
+      reference's GSPMD step does, each on its own heads, MLP columns or
+      experts, Mamba channels or rows of mLSTM's C, and vocabulary block
+      (or ``d_model`` columns of the embedding and logits) and its own
+      block of every KV cache and Mamba state (``models/layers.py``'s,
+      ``mamba.py``'s and ``xlstm.py``'s split forms); a state the spec
+      replicates over ``"model"`` (mLSTM's, sLSTM's) is written whole,
+      the same bytes, on every model slot's replica; the logits
       stay on the slots, a vocabulary block each, never gathered, or,
       row-parallel, summed on the row's first slot and sent whole to its
       other model slots.  No slot holds the whole parameters or a whole
       cache.  An MLA decode in long mode raises ``NotImplementedError``.
-    * Gathered, for every other family or a model axis of one: the whole
-      parameters and the row's caches gathered onto the row's first
-      slot, the step run there, the caches written back into the blocks.
+    * Gathered, for the encoder-decoder or a model axis of one: the
+      whole parameters and the row's part of each cache (its rows of the
+      batch: the batch dim from the cache's spec, :func:`cache_geometry`)
+      gathered onto the row's first slot, the step run there, the caches
+      written back into every block that holds them, replicas too.
 
     In normal mode each data row runs its own rows of the batch.  In
     long mode (``long_mode``, decode at batch 1) the batch is replicated
@@ -192,8 +250,9 @@ class MeshServe:
     of a global cache lie on every row's slots, which run their partials
     for it, and a ring replicated over the data rows is written on every
     row's replica (so the replicas stay equal, as the reference's GSPMD
-    keeps them) and read on the first row's; the other rows' logits
-    blocks are sent from the first row's.
+    keeps them) and read on the first row's, as is each block of a
+    recurrent state (whose batch is replicated over the data rows); the
+    other rows' logits blocks are sent from the first row's.
 
     Decoding, the host reads each sequence's write offset from the
     ``lengths`` input once a step (:meth:`row_offsets`), the one source
@@ -213,6 +272,7 @@ class MeshServe:
         self.split = tp > 1 and api.model_split()
         # MLA's caches are compressed, (B, S, r): no heads dim
         self.heads = api.cfg.mla is None
+        self.geometry = cache_geometry(api)
         vocab_ok = api.cfg.vocab_size % tp == 0
         with L.use_mesh(mesh, self.active):
             self.p_specs = api.param_pspecs()
@@ -242,18 +302,16 @@ class MeshServe:
         reference's dry run resolves long mode's specs with no data axes,
         so its long_500k caches do not split over them; so does
         ``launch/dryrun.py``, whose bytes a slot are the reference's.)"""
-        defs = self.api.cache_defs(batch, seq, long_mode=self.long_mode)
         with L.use_mesh(self.mesh, self.dp_axes):
             specs = self.api.cache_pspecs(batch, seq,
                                           long_mode=self.long_mode)
         if not self.long_mode:
             return specs
 
-        def replicated_batch(d, spec):
-            lead = len(d.shape) - 4
-            return L.PSpec(*(None if i == lead else e
+        def replicated_batch(spec, geom):
+            return L.PSpec(*(None if i == geom.lead else e
                              for i, e in enumerate(spec)))
-        return L.tree_map(replicated_batch, defs, specs)
+        return L.tree_map(replicated_batch, specs, self.geometry)
 
     def init_caches(self, batch: int, seq: int, specs=None):
         """Zero caches laid out by :meth:`cache_specs` (or ``specs``):
@@ -278,13 +336,15 @@ class MeshServe:
 
         return L.tree_map(leaf, defs, specs)
 
-    def input_layouts(self, batch: dict) -> dict:
-        """The inputs' layouts: the batch over the data axes (replicated
-        in long mode), as ``ModelAPI.input_pspecs``."""
+    def input_layout(self, ndim: int) -> S.Layout:
+        """An input's layout: the batch over the data axes (replicated in
+        long mode), as ``ModelAPI.input_pspecs``."""
         with L.use_mesh(self.mesh, self.active):
-            return {k: S.Layout(self.mesh, L.resolve_pspec(
-                ((L.DP if self.active else ()),) + (None,) * (v.dim() - 1)))
-                for k, v in batch.items()}
+            return S.Layout(self.mesh, L.resolve_pspec(
+                ((L.DP if self.active else ()),) + (None,) * (ndim - 1)))
+
+    def input_layouts(self, batch: dict) -> dict:
+        return {k: self.input_layout(v.dim()) for k, v in batch.items()}
 
     def lay_out_inputs(self, batch: dict) -> dict:
         lays = self.input_layouts(batch)
@@ -293,7 +353,11 @@ class MeshServe:
     # ------------------------------------------------------------ the step
     def prefill(self, params, batch, caches):
         """(logits, caches): the logits (B, 1, V) a ``sharded.Laid`` at
-        the logits spec; the caches written in place."""
+        the logits spec; the caches written in place.  An
+        encoder-decoder's (seamless) returns (logits, caches, enc_out),
+        its encoder's output a ``sharded.Laid`` at the inputs' spec,
+        which :meth:`decode` takes among its inputs (``enc_out``), as
+        ``ModelAPI.decode`` takes ``batch["enc_out"]``."""
         return self._step(self.api.prefill, params, batch, caches, False)
 
     def decode(self, params, batch, caches):
@@ -305,15 +369,33 @@ class MeshServe:
         b = next(iter(batch.values())).shape[0]
         lay = S.Layout(self.mesh, self.logits_spec)
         blocks = [None] * self.mesh.devices.size
+        enc = [None] * self.mesh.devices.size
         for i in self.running:
-            out = self.row_step(i, fn, params, batch, caches, decode)
+            out, enc_out = self.row_step(i, fn, params, batch, caches,
+                                         decode)
             for j, blk in out.items():
                 blocks[j] = blk
-        for j, c in enumerate(self.coords):       # long mode: the replicas
+            if enc_out is not None:
+                for j in self.rows[i]:
+                    enc[j] = self.send(enc_out, i, j)
+        logits = S.Laid(lay, (b, 1, v), self._replicas(lay, (b, 1, v),
+                                                       blocks))
+        if enc[self.running[0]] is None:
+            return logits, caches
+        shape = (b,) + tuple(enc[self.running[0]].shape[1:])
+        e_lay = self.input_layout(len(shape))
+        return logits, caches, S.Laid(e_lay, shape,
+                                      self._replicas(e_lay, shape, enc))
+
+    def _replicas(self, lay, shape, blocks) -> list:
+        """``blocks`` with each slot left out (long mode: the other data
+        rows') sent its block from a slot of the running row that holds
+        it."""
+        for j, c in enumerate(self.coords):
             if blocks[j] is None:
-                src = self._holder(lay, (b, 1, v), c, blocks)
+                src = self._holder(lay, shape, c, blocks)
                 blocks[j] = self.send(blocks[src], src, j)
-        return S.Laid(lay, (b, 1, v), blocks), caches
+        return blocks
 
     def _holder(self, lay, shape, coord, blocks) -> int:
         want = S._key(lay.block_slices(shape, coord))
@@ -323,15 +405,32 @@ class MeshServe:
 
     def row_caches(self, caches, row: S.ModelRow, offsets):
         """Data row ``row``'s view of the caches: ``layers.CacheBlocks``
-        of the blocks that hold its sequences (:func:`cache_spans`)."""
-        def leaf(laid):
+        of the blocks that hold its sequences (:func:`cache_spans`) for a
+        KV cache, ``layers.StateBlocks`` of its model slots' blocks (and
+        their replicas outside the row) for a recurrent state."""
+        def leaf(laid, geom):
+            if not geom.kv:
+                return self._state_blocks(laid, row)
             spans, size = cache_spans(laid.layout, laid.shape, self.coords,
-                                      row.slots[0], heads=self.heads)
+                                      row.slots[0], lead=geom.lead,
+                                      heads=self.heads)
             return L.CacheBlocks(
                 tuple(laid.blocks[j] if sp is not None else None
                       for j, sp in enumerate(spans)), spans, size, row,
                 offsets)
-        return L.tree_map(leaf, caches)
+        return L.tree_map(leaf, caches, self.geometry)
+
+    def _state_blocks(self, laid, row: S.ModelRow):
+        """A recurrent state leaf as data row ``row`` sees it: its model
+        slots' blocks, split by channels where the spec splits it over
+        ``"model"``, and each one's replicas outside the row
+        (:func:`state_replicas`)."""
+        reps = state_replicas(laid.layout, laid.shape, self.coords,
+                              row.slots)
+        return L.StateBlocks(
+            tuple(laid.blocks[j] for j in row.slots), row,
+            S.model_dim(laid.layout.spec),
+            tuple(tuple((j, laid.blocks[j]) for j in r) for r in reps))
 
     def row_offsets(self, i: int, batch) -> tuple:
         """The write offsets of data row ``i``'s sequences on the host:
@@ -340,59 +439,63 @@ class MeshServe:
 
     def row_step(self, i: int, fn, params, batch, caches, decode: bool):
         """Data row ``i``'s step on its rows of the batch (its first
-        slot's blocks of the inputs): {slot: its block of the logits}."""
+        slot's blocks of the inputs): ({slot: its block of the logits},
+        the encoder's output on slot ``i`` or None)."""
         rows = {k: v.blocks[i] for k, v in batch.items()}
         row = self.model_row(i)
         if self.split:
             offs = self.row_offsets(i, batch) if decode else None
-            logits, _ = fn(S.row_blocks(params, row), rows,
-                           self.row_caches(caches, row, offs))
+            logits = fn(S.row_blocks(params, row), rows,
+                        self.row_caches(caches, row, offs))[0]
             if logits.dim is None:         # row-parallel: replicated
                 return {j: self.send(logits.blocks[0], row.slots[0], j)
-                        for j in row.slots}
-            return dict(zip(row.slots, logits.blocks))
+                        for j in row.slots}, None
+            return dict(zip(row.slots, logits.blocks)), None
         whole = S.gather_tree(params, i)
-        views = L.tree_map(lambda laid: self._row_cache(laid, i), caches)
-        logits, _ = fn(whole, rows, views)
-        L.tree_map(lambda laid, view: self._write_back(laid, i, view),
-                   caches, views)
+        views = L.tree_map(lambda laid, geom: self._row_cache(laid, i, geom),
+                           caches, self.geometry)
+        out = fn(whole, rows, views)
+        logits = out[0]
+        L.tree_map(lambda laid, geom, view: self._write_back(laid, i, geom,
+                                                             view),
+                   caches, self.geometry, views)
         lay = S.Layout(self.mesh, self.logits_spec)
         shape = (next(iter(batch.values())).shape[0], 1, logits.shape[-1])
         return {j: self.send(
             logits[:, :, lay.block_slices(shape, self.coords[j])[2]], i, j)
-            for j in row.slots}
+            for j in row.slots}, (out[2] if len(out) > 2 else None)
 
-    def _row_cache(self, laid, i: int) -> torch.Tensor:
+    def _row_cache(self, laid, i: int, geom) -> torch.Tensor:
         """Data row ``i``'s part of a cache leaf (its rows of the batch,
-        every position and head) on its first slot: the slot's own block
-        where that is the whole part, else gathered from the blocks, the
-        slot's own first."""
-        spans, size = cache_spans(laid.layout, laid.shape, self.coords, i,
-                                  heads=self.heads)
+        every other dim whole) on its first slot: the slot's own block
+        where that is the whole part, else gathered from the blocks that
+        hold its rows (:func:`row_holders`), the slot's own first."""
+        held = row_holders(laid.layout, laid.shape, self.coords, i,
+                           geom.lead)
         own = laid.blocks[i]
-        if spans[i] == ((0, size[0]), (0, size[1])):
+        mine = dict(held)[i]
+        if all(s.stop - s.start == n for k, (s, n) in
+               enumerate(zip(mine, laid.shape)) if k != geom.lead):
             return own
-        lead = len(laid.shape) - (4 if self.heads else 3)
-        whole = torch.empty(tuple(own.shape[:lead + 1])
-                            + tuple(laid.shape[lead + 1:]), dtype=own.dtype,
-                            device=own.device)
+        shape = list(laid.shape)
+        shape[geom.lead] = own.shape[geom.lead]
+        whole = torch.empty(shape, dtype=own.dtype, device=own.device)
         done = set()
-        for j in [i] + list(range(len(spans))):
-            if spans[j] is None or spans[j] in done:
+        for j, sl in [(i, mine)] + held:
+            if S._key(sl) in done:
                 continue
-            done.add(spans[j])
+            done.add(S._key(sl))
             self.send(laid.blocks[j], j, i,
-                      out=whole[_span_index(spans[j], self.heads)])
+                      out=whole[_within_row(sl, geom.lead)])
         return whole
 
-    def _write_back(self, laid, i: int, whole: torch.Tensor) -> None:
-        """The row's part, written by its step, back into every block
-        that holds some of it."""
-        spans, _ = cache_spans(laid.layout, laid.shape, self.coords, i,
-                               heads=self.heads)
-        for j, sp in enumerate(spans):
-            if sp is not None and laid.blocks[j] is not whole:
-                self.send(whole[_span_index(sp, self.heads)], i, j,
+    def _write_back(self, laid, i: int, geom, whole: torch.Tensor) -> None:
+        """The row's part, written by its step, back into every block that
+        holds some of it (a replica too)."""
+        for j, sl in row_holders(laid.layout, laid.shape, self.coords, i,
+                                 geom.lead):
+            if laid.blocks[j] is not whole:
+                self.send(whole[_within_row(sl, geom.lead)], i, j,
                           out=laid.blocks[j])
 
 

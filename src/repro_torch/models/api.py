@@ -84,17 +84,20 @@ class ModelAPI:
         the model axis, to train (``train/trainer.py::MeshStep``) and to
         serve (``launch/serve.py::MeshServe``: prefill and decode, each
         slot on its own block of every cache): where every layer is GQA
-        attention (global, local or NoPE) or MLA and the gated MLP or an
-        MoE FFN, with an embedding and logits (split by vocabulary rows,
-        or along ``d_model`` where the vocabulary does not divide the
-        model degree), as in llama3.2-3b, gemma3-12b/27b, internvl2-76b,
-        phi3.5-moe, llama4-scout and minicpm3-4b.  The recurrent mixers
-        (jamba's MoE layers with them) and the encoder-decoder keep the
-        gathered step."""
+        attention (global, local or NoPE), MLA, Mamba, mLSTM or sLSTM and
+        the gated MLP, an MoE FFN or none, with an embedding and logits
+        (split by vocabulary rows, or along ``d_model`` where the
+        vocabulary does not divide the model degree), as in llama3.2-3b,
+        gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout,
+        minicpm3-4b, jamba-v0.1-52b (the ``hybrid`` family: Mamba layers
+        by inner channels beside GQA attention, gated MLPs and MoE FFNs)
+        and xlstm-125m (the ``ssm`` family: mLSTM by rows of C, sLSTM
+        whole on each data row's first slot).  The encoder-decoder keeps
+        the gathered step."""
         cfg = self.cfg
-        return (cfg.family in ("dense", "vlm", "moe")
-                and all(k in ("attn", "local", "nope")
-                        for k in cfg.period_pattern))
+        return (cfg.family in ("dense", "vlm", "moe", "hybrid", "ssm")
+                and all(k in ("attn", "local", "nope", "mamba", "mlstm",
+                              "slstm") for k in cfg.period_pattern))
 
     # ---------------------------------------------------------------- cache
     def cache_defs(self, batch: int, seq: int, *, long_mode: bool = False):

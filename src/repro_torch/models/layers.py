@@ -17,10 +17,13 @@ The specs lay out *state*: ``train/sharded.py`` splits the parameters
 and optimizer moments into one block per slot of a ``launch/mesh.py``
 mesh as the reference's ``NamedSharding`` does.  The compute follows
 them where the reference's GSPMD step splits it, in a meshed train or
-serving step of an architecture whose every layer is GQA attention or
-MLA and the gated MLP or an MoE FFN (``ModelAPI.model_split``:
-llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout,
-minicpm3-4b) on a mesh whose model axis is wider than one.  There each
+serving step of an architecture whose every layer is GQA attention,
+MLA or a recurrent mixer and the gated MLP, an MoE FFN or none
+(``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b, internvl2-76b,
+phi3.5-moe, llama4-scout, minicpm3-4b, and jamba-v0.1-52b and
+xlstm-125m, whose Mamba and mLSTM layers split by inner channels in
+``mamba.py`` and ``xlstm.py``) on a mesh whose model axis is wider
+than one.  There each
 parameter is a :class:`Blocks` leaf, the data row's blocks on its model
 slots, and the split forms run what the reference's constraints
 (``shard()``) split on each slot's own blocks: its query heads and
@@ -58,10 +61,14 @@ its heads; the logits stay split, each slot's vocabulary block
 (:func:`logits_apply`), or row-parallel, whole on every slot.  In long
 mode the local layers' rings are replicated over the data rows: every
 replica receives each write (the reference's GSPMD keeps them equal),
-and the computing row reads its own.  Every other meshed step (the
-other families, a model axis of one) runs on whole tensors, the compute
-left unsplit: a data shard's rows on whole gathered parameters
-(``train/trainer.py``, ``MeshServe``).  Either way ``moe_apply`` routes
+and the computing row reads its own.  A recurrent mixer's state is a
+:class:`StateBlocks` leaf, each model slot's block (its channels, or a
+replica of the whole), written by the slot that holds it
+(:func:`put_state`) and sent to its replicas, so that they stay equal
+bit for bit.  Every other meshed step (the encoder-decoder, a model
+axis of one) runs on whole tensors, the compute left unsplit: a data
+shard's rows on whole gathered parameters (``train/trainer.py``,
+``MeshServe``).  Either way ``moe_apply`` routes
 as the reference's no-mesh branch over the tokens it is given: run on
 one data shard's rows, that is the reference's per-shard capacity
 under ``shard_map``.
@@ -357,6 +364,78 @@ class CacheBlocks:
                                    and first[sp] not in self.row.slots):
                 first[sp] = j
         return sorted((j, sp) for sp, j in first.items())
+
+
+@dataclass(frozen=True, eq=False)
+class StateBlocks:
+    """A recurrent cache leaf (Mamba's ``conv``/``ssm``, mLSTM's
+    ``C``/``n``/``m``, sLSTM's ``c``/``h``/``n``/``m``) of a split serving
+    step, as one data row sees it: ``blocks[m]`` is the row's model slot
+    m's block of its sequences, split along ``dim`` (the inner channels)
+    where the spec splits it over ``"model"``, else (``dim`` None) each a
+    replica of the whole; ``replicas[m]`` the (slot, block) pairs outside
+    the row that hold the same block as model slot m (in long mode, the
+    other data rows'), each written what slot m's block is after every
+    step (:func:`put_state`).  ``row`` as :class:`CacheBlocks`; indexing as
+    :class:`Blocks`."""
+    blocks: tuple
+    row: object
+    dim: int | None = None
+    replicas: tuple = ()
+    index: tuple = ()
+
+    def __getitem__(self, i) -> "StateBlocks":
+        return replace(self, dim=None if self.dim is None else self.dim - 1,
+                       index=self.index + (i,))
+
+    def part(self, block: torch.Tensor) -> torch.Tensor:
+        return block[self.index] if self.index else block
+
+    def at(self, m: int) -> torch.Tensor:
+        """Model slot m's block at ``index``."""
+        return self.part(self.blocks[m])
+
+
+def _put_state(block, new):
+    """A slot's own block of a recurrent cache written ``new``."""
+    return block.copy_(new)
+
+
+def put_state(c: StateBlocks, m: int, new) -> None:
+    """``new``, on model slot m, written into its block of ``c`` by that
+    slot, and sent to each replica of the block, which writes it too."""
+    row = c.row
+    src = row.slots[m]
+    row.run_at(src, _put_state, c.at(m), new)
+    for j, block in c.replicas[m] if c.replicas else ():
+        row.run_at(j, _put_state, c.part(block), row.send(new, src, j))
+
+
+def columns_slot(x, w, *, at):
+    """A slot's columns of a projection split by output columns (Mamba's
+    ``in_proj``, mLSTM's ``up_proj``): ``x @`` its block."""
+    return x @ at(w).to(x.dtype)
+
+
+def whole_on_first(apply, p, x, cfg, cache=None):
+    """A recurrent mixer that the spec leaves unsplit (sLSTM, or a ``di``
+    the model degree does not divide) on a row's model slots: ``apply``
+    on the whole parameters and, with a cache (a dict of
+    :class:`StateBlocks` replicated over the model axis), the first
+    slot's blocks, written in place there, then sent to every other
+    model slot and to each replica, which write them
+    (:func:`put_state`), so that every replica is the first slot's bit
+    for bit.  Returns the output."""
+    first = None if cache is None else {k: c.at(0) for k, c in cache.items()}
+    y, _ = apply({k: v.whole for k, v in p.items()}, x, cfg, cache=first)
+    for c in (cache or {}).values():
+        row, new = c.row, c.at(0)
+        for j, block in c.replicas[0] if c.replicas else ():
+            row.run_at(j, _put_state, c.part(block),
+                       row.send(new, row.slots[0], j))
+        for m in range(1, len(c.blocks)):
+            put_state(c, m, row.send_to(new, m))
+    return y
 
 
 def is_split(tree) -> bool:

@@ -24,8 +24,8 @@ again, so the split layers' sends are re-issued in the backward pass
 (checkpoint's early stop, which would end the recompute at the last
 saved tensor, before the period's last sum, is off there).  So does a
 split serving step (``launch/serve.py::MeshServe``): split parameters,
-caches as ``layers.CacheBlocks`` (each slot's block, written in place),
-no remat, and the last position's logits a ``layers.Blocks`` of each
+caches as ``layers.CacheBlocks`` (KV caches) and ``layers.StateBlocks``
+(recurrent states), each slot's block written in place, no remat, and the last position's logits a ``layers.Blocks`` of each
 model slot's vocabulary block (row-parallel: of the whole logits on the
 row's first slot).
 """

@@ -7,7 +7,17 @@ A name "<arch>@v<N>" is <arch>'s smoke with a vocabulary of N
 the model degrees 2 and 4 but not 8, so at (1, 8) the embedding table
 (and an untied ``head``) is split along ``d_model``, as the reference's
 ``embed_defs`` falls back to where its model degree does not divide the
-vocabulary; elsewhere it is split by vocabulary rows."""
+vocabulary; elsewhere it is split by vocabulary rows.
+
+A name "<arch>@d<N>" is <arch>'s smoke with ``d_model`` N (and, where N
+is not a multiple of its heads, gcd(heads, N) heads and KV heads).  66
+gives the recurrent mixers an inner dim of 132 (Mamba's ``expand`` 2,
+mLSTM's 2 d), which the model degrees 2 and 4 divide but 8 does not:
+at (1, 8) the reference's specs leave ``di`` whole and the layer runs on
+each data row's first slot; at degree 4 a slot holds 33 channels, half
+of one of the two mLSTM heads."""
+from math import gcd
+
 import torch
 
 from repro_torch.configs import SMOKES
@@ -22,15 +32,23 @@ CPU = "cpu"
 # tied MLA, tied GQA, and phi3.5-moe's untied head split along d_model
 ROW_PARALLEL = ("minicpm3-4b@v500", "llama3.2-3b@v500",
                 "phi3.5-moe-42b-a6.6b@v500")
+# the recurrent mixers with an inner dim degree 8 does not divide
+INNER_WHOLE = ("jamba-v0.1-52b@d66", "xlstm-125m@d66")
 
 
 def smoke(table, name, dtype="float32"):
     """``name``'s smoke in ``table`` (the port's or the reference's), in
     ``dtype`` (None: the smoke's own)."""
-    arch, _, vocab = name.partition("@v")
+    arch, _, width = name.partition("@d")
+    arch, _, vocab = arch.partition("@v")
     cfg = table[arch]
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
+    if width:
+        d = int(width)
+        h = gcd(cfg.num_heads, d)
+        cfg = cfg.replace(d_model=d, num_heads=h,
+                          num_kv_heads=min(cfg.num_kv_heads, h))
     return cfg.replace(vocab_size=int(vocab)) if vocab else cfg
 
 

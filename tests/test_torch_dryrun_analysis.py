@@ -21,10 +21,12 @@
 (d) ``transfers`` against every byte that ``Trainer(mesh=...)``'s real
     step sends between slots on 8 CPU slots, recorded by wrapping
     ``train/sharded.py::send``, at the byte, on (2, 4) and (4, 2) meshes
-    with and without ZeRO-1 (the split steps of llama3.2-3b and the two
-    MoE families, an MoE's dispatch and combine among them, and jamba's
-    gathered one), and ``serve_transfers`` against ``MeshServe``'s split
-    prefill and decode steps the same way;
+    with and without ZeRO-1 (the split steps of llama3.2-3b, the two
+    MoE families, jamba and xlstm, an MoE's dispatch and combine and the
+    recurrent mixers' reshuffles among them, and seamless's gathered
+    one), and ``serve_transfers`` against ``MeshServe``'s split prefill
+    and decode steps the same way (the recurrent states' copies among
+    them);
 (e) the kernels' cost functions: flash's closed form of the visible
     pairs against the loop it replaced, the bounds ``chip_smoke.py``
     computed before against the package's, decode's count on ``meta``,
@@ -357,23 +359,24 @@ def _recorded_sends(monkeypatch):
     return moved
 
 
-# the steps that split over the model axis, and a gathered witness with
-# MoE layers (jamba's Mamba layers keep it gathered)
-SPLIT_TRAIN = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
-GATHERED_MOE = "jamba-v0.1-52b"
+# the steps that split over the model axis (jamba's and xlstm's recurrent
+# mixers among them), and the encoder-decoder, which stays gathered
+SPLIT_TRAIN = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e",
+               "jamba-v0.1-52b", "xlstm-125m")
+GATHERED = "seamless-m4t-large-v2"
 
 
 @pytest.mark.parametrize("zero1", [False, True])
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
-@pytest.mark.parametrize("arch", SPLIT_TRAIN + (GATHERED_MOE,))
+@pytest.mark.parametrize("arch", SPLIT_TRAIN + (GATHERED,))
 def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
                                                        zero1, monkeypatch):
-    """llama3.2-3b's, phi3.5-moe's and llama4-scout's steps split over the
-    model axis (their layers' forward, backward and remat-recompute
-    sends, an MoE's dispatch rows and expert outputs among them, the
-    embedding's and the loss's combines, the gradient summed block by
-    block); jamba's gathers the parameters onto each data row's first
-    slot."""
+    """llama3.2-3b's, phi3.5-moe's, llama4-scout's, jamba's and xlstm's
+    steps split over the model axis (their layers' forward, backward and
+    remat-recompute sends, an MoE's dispatch rows and expert outputs and
+    the Mamba and mLSTM reshuffles among them, the embedding's and the
+    loss's combines, the gradient summed block by block); seamless's
+    gathers the parameters onto each data row's first slot."""
     cfg = SMOKES[arch]
     shape = ShapeConfig("s", "train", 16, 8)
     mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
@@ -415,11 +418,11 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
 
 
 def test_serving_cells_record_no_collectives():
-    """A gathered serving step moves nothing between slots: the families
-    ``ModelAPI.model_split`` leaves out, and a split family on a model
-    axis of one."""
+    """A gathered serving step moves nothing between slots: the family
+    ``ModelAPI.model_split`` leaves out (the encoder-decoder), and a
+    split family on a model axis of one."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
-    for arch in (GATHERED_MOE, "seamless-m4t-large-v2", "xlstm-125m"):
+    for arch in (GATHERED,):
         for kind in ("prefill", "decode"):
             cell, _ = D.lower_cell(SMOKES[arch],
                                    ShapeConfig("s", kind, 32, 8), mesh)
@@ -444,7 +447,8 @@ def _serve_inputs(api, shape, cell):
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-12b",
                                   "internvl2-76b", "phi3.5-moe-42b-a6.6b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "jamba-v0.1-52b",
+                                  "xlstm-125m"])
 def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
         arch, mesh_shape, kind, batch, monkeypatch):
     """``transfers``'s serving counterpart (``serve_transfers``) against
@@ -475,9 +479,18 @@ def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
     assert dict(counted) == dict(moved)
     assert D.model_split(cell)
     assert "embed" in kinds and "activations" in kinds
-    assert ("positions" in kinds) == (kind == "decode")
+    attention = any(k in ("attn", "local", "nope")
+                    for k in cfg.period_pattern)
+    assert ("positions" in kinds) == (kind == "decode" and attention)
     moe = cfg.moe is not None
     assert ("dispatch" in kinds) == ("combine" in kinds) == moe
+    # the recurrent mixers' reshuffles; mLSTM's and sLSTM's replicated
+    # states copied every step, Mamba's split states only to long mode's
+    # replicas on the other data rows
+    recurrent = cfg.ssm is not None or "mlstm" in cfg.period_pattern
+    assert ("reshuffle" in kinds) == ("whole" in kinds) == recurrent
+    assert ("state" in kinds) == ("mlstm" in cfg.period_pattern
+                                  or (recurrent and batch == 1))
     rec = D.collectives(cell)
     per = np.zeros(8, dtype=np.int64)
     for (src, dst), n in moved.items():

@@ -1,11 +1,14 @@
 """Serving on the model axis (``launch/serve.py::MeshServe``) on 8 CPU
-slots: the split prefill and decode steps of the seven architectures
+slots: the split prefill and decode steps of the nine architectures
 that split (llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe,
-llama4-scout and minicpm3-4b, and the vocabulary-500 variants of
-minicpm3-4b, llama3.2-3b and phi3.5-moe, which degree 8 does not
-divide: each data row's model slots on their own heads, MLP columns or
-experts, vocabulary block or ``d_model`` columns and block of every
-cache) against the gathered step (the whole
+llama4-scout, minicpm3-4b, jamba-v0.1-52b and xlstm-125m, and the
+vocabulary-500 variants of minicpm3-4b, llama3.2-3b and phi3.5-moe,
+which degree 8 does not divide, and the inner-dim-132 variants of
+jamba and xlstm, whose Mamba and mLSTM layers run whole at degree 8:
+each data row's model slots on their own heads, MLP columns or
+experts, Mamba channels or rows of mLSTM's C, vocabulary block or
+``d_model`` columns and block of every cache) against the gathered
+step (the whole
 parameters and the row's caches on its first slot) and against the
 reference's
 ``api.prefill`` / ``api.decode`` jitted with the same shardings under
@@ -13,11 +16,18 @@ its host mesh of 8 forced devices, at (1, 8), (2, 4) and (4, 2), and in
 long mode (decode at batch 1: a global cache's sequence over the data
 axes; not MLA) at (2, 4) and (4, 2); the moves of a recorded step (no slot is
 written a cache row outside its block, no slot is sent a whole split
-parameter); and the decode_attention_partial plain version, merged
-over any split of the positions, against ``decode_attention_ref``.
+parameter); the gathered step itself for the families whose caches
+are not (B, S, KVH, hd) (jamba's and xlstm's recurrent states) and the
+encoder-decoder (seamless, whose prefill also returns the encoder's
+output, which its decode steps take) at (8, 1) and (2, 4), and the two
+recurrent families in long mode, against the unmeshed step run on each
+data shard's rows and against the reference's sharded jit; and the
+decode_attention_partial plain version, merged over any split of the
+positions, against ``decode_attention_ref``.
 
 The smokes run in fp32, a prefill of 8 x 16 tokens (after a VLM's
-patches) into caches of 32, then 3 decode steps.  Tolerance: each
+patches; seamless's encoder reads 8 frames) into caches of 32, then 3
+decode steps.  Tolerance: each
 step's logits and every cache leaf within 1e-5 of their largest
 element."""
 import collections
@@ -36,15 +46,16 @@ from repro_torch.configs import SMOKES
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import merge_partials
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.serve import MeshServe
+from repro_torch.launch.serve import MeshServe, cache_geometry
 from repro_torch.models import build, layers as L
 from repro_torch.train import sharded as S
-from _model_axis import ROW_PARALLEL, smoke as _smoke
+from _model_axis import INNER_WHOLE, ROW_PARALLEL, smoke as _smoke
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b",
-         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "jamba-v0.1-52b",
+         "xlstm-125m")
 CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
     + [(m, True) for m in ((2, 4), (4, 2))]
 # MLA (not in long mode, which it does not split), and with a vocabulary
@@ -52,7 +63,7 @@ CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
 # logits, tied (minicpm3-4b, llama3.2-3b) and untied (phi3.5-moe's head)
 MLA = ("minicpm3-4b",) + ROW_PARALLEL
 TOL = 1e-5
-BATCH, PROMPT, SEQ, STEPS = 8, 16, 32, 3
+BATCH, PROMPT, SEQ, STEPS, FRAMES = 8, 16, 32, 3, 8
 
 
 def _ids(case):
@@ -73,6 +84,9 @@ def _setup(name, tp):
     if jcfg.num_patches:
         inp["patches"] = rng.standard_normal(
             (BATCH, jcfg.num_patches, jcfg.d_model)).astype(np.float32)
+    if jcfg.family == "encdec":
+        inp["frames"] = rng.standard_normal(
+            (BATCH, FRAMES, jcfg.d_model)).astype(np.float32)
     return jp, inp
 
 
@@ -83,8 +97,9 @@ def _steps(name, long_mode):
     b = 1 if long_mode else BATCH
     pre = _smoke(SMOKES, name).num_patches
     first = {"tokens": inp["tokens"][:b, :PROMPT]}
-    if pre:
-        first["patches"] = inp["patches"][:b]
+    for k in ("patches", "frames"):
+        if k in inp:
+            first[k] = inp[k][:b]
     steps = [{"tokens": inp["tokens"][:b, i:i + 1],
               "lengths": np.full((b,), i + pre, np.int32)}
              for i in range(PROMPT, PROMPT + STEPS)]
@@ -104,7 +119,7 @@ def _serve(name, mesh_shape, long_mode, split=True, monkeypatch=None,
     api = build(cfg, tp=m)
     mesh = make_host_mesh(devices=[CPU] * (d * m), shape=mesh_shape)
     serve = MeshServe(api, mesh, long_mode=long_mode)
-    assert serve.split
+    assert serve.split or not split
     serve.split = split
     first, steps = _steps(name, long_mode)
     b = first["tokens"].shape[0]
@@ -121,13 +136,15 @@ def _serve(name, mesh_shape, long_mode, split=True, monkeypatch=None,
         monkeypatch.setattr(S, "send", recording)
     logits, shapes = [], []
     with torch.no_grad():
-        lg, caches = serve.prefill(params, serve.lay_out_inputs(
+        lg, caches, *enc = serve.prefill(params, serve.lay_out_inputs(
             {k: torch.from_numpy(v) for k, v in first.items()}), caches)
         for batch in [None] + steps:
             if batch is not None:
-                lg, caches = serve.decode(params, serve.lay_out_inputs(
-                    {k: torch.from_numpy(v) for k, v in batch.items()}),
-                    caches)
+                inputs = serve.lay_out_inputs(
+                    {k: torch.from_numpy(v) for k, v in batch.items()})
+                if enc:                     # the encoder's output, laid out
+                    inputs["enc_out"] = enc[0]
+                lg, caches = serve.decode(params, inputs, caches)
             logits.append(S.gather(lg).numpy().copy())
             shapes.append({tuple(b.shape) for b in lg.blocks})
     if sends is not None:
@@ -177,21 +194,63 @@ def _reference(name, mesh_shape, long_mode):
         return {k: ns(lay.spec) for k, lay in port.input_layouts(
             {k: torch.from_numpy(v) for k, v in batch.items()}).items()}
 
+    encdec = jcfg.family == "encdec"
+    enc_sh = ns(port.input_layout(3).spec)
     with JL.use_mesh(jmesh, () if long_mode else ("data",)):
         p_sh = jax.tree.map(ns, api.param_pspecs(),
                             is_leaf=lambda x: isinstance(x, JP))
         prefill = jax.jit(api.prefill, in_shardings=(p_sh, in_sh(first),
                                                      c_sh),
-                          out_shardings=(lg_sh, c_sh))
-        lg, caches = prefill(jp, first, caches)
+                          out_shardings=(lg_sh, c_sh) + ((enc_sh,)
+                                                         if encdec else ()))
+        lg, caches, *enc = prefill(jp, first, caches)
         logits = [np.asarray(lg)]
-        decode = jax.jit(api.decode, in_shardings=(p_sh, in_sh(steps[0]),
-                                                   c_sh),
+        extra = {"enc_out": enc[0]} if encdec else {}
+        d_sh = {**in_sh(steps[0]), **{k: enc_sh for k in extra}}
+        decode = jax.jit(api.decode, in_shardings=(p_sh, d_sh, c_sh),
                          out_shardings=(lg_sh, c_sh))
         for batch in steps:
-            lg, caches = decode(jp, batch, caches)
+            lg, caches = decode(jp, {**batch, **extra}, caches)
             logits.append(np.asarray(lg))
     return logits, [np.asarray(a) for a in jax.tree.leaves(caches)]
+
+
+def _unmeshed(name, mesh_shape, long_mode):
+    """The port's unmeshed ``api.prefill`` / ``api.decode`` on each data
+    shard's rows of the batch (the meshed step's MoE capacity is a
+    shard's, as the reference's under ``shard_map``; the whole batch in
+    long mode), the shards' logits and caches concatenated along the
+    batch: (each step's logits, the final caches), in numpy."""
+    d, m = mesh_shape
+    jp, _ = _setup(name, m)
+    cfg = _smoke(SMOKES, name)
+    api = build(cfg, tp=m)
+    params = api.params_from_numpy(jp, CPU)
+    first, steps = _steps(name, long_mode)
+    b = first["tokens"].shape[0]
+    shards = 1 if long_mode else d
+    seq = SEQ + cfg.num_patches
+    logits, caches = [], []
+    with torch.no_grad():
+        for r in range(shards):
+            rows = slice(r * b // shards, (r + 1) * b // shards)
+            c = L.init_tree(api.cache_defs(b // shards, seq), 0, CPU)
+            lg, c, *enc = api.prefill(params, {
+                k: torch.from_numpy(v[rows]) for k, v in first.items()}, c)
+            out = [lg]
+            for batch in steps:
+                inputs = {k: torch.from_numpy(v[rows])
+                          for k, v in batch.items()}
+                if enc:
+                    inputs["enc_out"] = enc[0]
+                lg, c = api.decode(params, inputs, c)
+                out.append(lg)
+            logits.append(out)
+            caches.append(L.tree_leaves(c))
+    leads = [g.lead for g in L.tree_leaves(cache_geometry(api))]
+    return ([torch.cat(step).numpy() for step in zip(*logits)],
+            [torch.cat(leaf, dim=lead).numpy()
+             for leaf, lead in zip(zip(*caches), leads)])
 
 
 def _hold(got, want, what):
@@ -345,6 +404,51 @@ def test_mla_no_slot_is_sent_a_whole_split_parameter(monkeypatch, name):
     d_model."""
     test_no_slot_is_sent_a_whole_split_parameter(
         monkeypatch, name, mesh_shape=(1, 8) if "@v" in name else (2, 4))
+
+
+# the gathered step (a data row's caches on its first slot, the whole
+# parameters there) of the families whose caches are recurrent states or
+# that return the encoder's output, on a model axis of one and of four,
+# and the recurrent two in long mode
+GATHERED = [(n, c) for n in ("jamba-v0.1-52b", "xlstm-125m")
+            for c in (((8, 1), False), ((2, 4), False), ((2, 4), True))] \
+    + [("seamless-m4t-large-v2", c) for c in (((8, 1), False),
+                                              ((2, 4), False))]
+
+
+@pytest.mark.parametrize("name,case", GATHERED,
+                         ids=[f"{n}-{_ids(c)}" for n, c in GATHERED])
+def test_the_gathered_step_serves_states_and_the_encoder(spmd_devices, name,
+                                                          case):
+    """Each cache leaf's batch dim read from its spec, not its rank: the
+    recurrent states ((P, B, dc-1, di), (P, B, di, N), mLSTM's (P, B, nh,
+    hd, hd) ...) gathered and written back whole for each data row, the
+    encoder's output returned laid out at the inputs' spec and taken back
+    by decode.  Each step's logits and every cache leaf against the
+    unmeshed step on each data shard's rows and against the reference's
+    sharded jit."""
+    mesh_shape, long_mode = case
+    lg, caches, _, _ = _outputs(name, mesh_shape, long_mode, split=False)
+    want_lg, want_caches = _unmeshed(name, mesh_shape, long_mode)
+    _hold(lg, want_lg, (name, case, "logits"))
+    _hold(caches, want_caches, (name, case, "caches"))
+    want_lg, want_caches = _reference(name, mesh_shape, long_mode)
+    _hold(lg, want_lg, (name, case, "logits"))
+    _hold(caches, want_caches, (name, case, "caches"))
+
+
+@pytest.mark.parametrize("case", CASES[:3], ids=_ids)
+@pytest.mark.parametrize("name", INNER_WHOLE)
+def test_an_inner_dim_the_degree_does_not_divide_runs_whole(name, case):
+    """jamba's and xlstm's smokes with an inner dim of 132: at (1, 8) the
+    spec leaves ``di`` whole and the Mamba and mLSTM layers run on each
+    data row's first slot, their states replicated over the model slots;
+    at (2, 4) and (4, 2) they split.  Split against gathered."""
+    test_split_serving_equals_the_gathered_step(name, case)
+    _, _, serve, _ = _outputs(name, *case)
+    mixer = serve.p_specs["stack"][0]["mixer"]
+    w = mixer["in_proj" if "in_proj" in mixer else "up_proj"]
+    assert (S.model_dim(w) is None) == (case[0][1] == 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -54,6 +54,9 @@ DENSE, MOE = "llama3.2-3b", "phi3.5-moe-42b-a6.6b"
 SPLIT = ("gemma3-12b", "internvl2-76b", "gemma3-27b",
          "llama4-scout-17b-a16e")
 MLA = "minicpm3-4b"
+# the recurrent families: jamba's Mamba (and its MoE, GQA and MLP
+# layers), xlstm's mLSTM by rows of C and sLSTM on the first slot
+RECURRENT = ("jamba-v0.1-52b", "xlstm-125m")
 MESHES = [(8, 1), (2, 4), (4, 2)]
 # phi3.5-moe's smoke at a capacity that drops tokens: the reference's
 # meshed run (capacity per data shard) leaves its unmeshed one by more
@@ -307,14 +310,18 @@ def _runs():
     KV heads; gemma3-27b (8 layers) without ZeRO-1; minicpm3-4b (MLA)
     on MESHES' split meshes and (1, 8), and at (1, 8) with a vocabulary
     of 500, which 8 does not divide: the row-parallel embedding and
-    loss.  The MoEs' tokens drop per data shard (``MOE_CAPACITY``)."""
+    loss; jamba and xlstm (``RECURRENT``) on the same three, ZeRO-1
+    where data > 1.  The MoEs' tokens drop per data shard
+    (``MOE_CAPACITY``)."""
     runs = [(n, m) for n in (DENSE, MOE) for m in MESHES]
     runs += [(n, m) for n in SPLIT for m in MESHES[1:]]
     runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT[:3]]
     runs += [(MLA, m) for m in MESHES[1:] + [(1, 8)]]
     runs += [(MLA + "@v500", (1, 8))]
-    return [(n, m, z) for n, m in runs for z in (False, True)
-            if not (z and n == "gemma3-27b")]
+    out = [(n, m, z) for n, m in runs for z in (False, True)
+           if not (z and n == "gemma3-27b")]
+    return out + [(n, m, m[0] > 1) for n in RECURRENT
+                  for m in MESHES[1:] + [(1, 8)]]
 
 
 @pytest.mark.parametrize("name,mesh_shape,zero1", _runs(), ids=[

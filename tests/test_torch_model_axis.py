@@ -1,11 +1,15 @@
 """The model axis of a meshed train step, on 8 CPU slots: the split step
-(each data row's model slots on their own heads, MLP columns or experts
-and vocabulary block, ``models/layers.py``'s split forms) against the
-gathered one (the whole parameters on each row's first slot) for the
-seven architectures that split, at (1, 8), (2, 4) and (4, 2) (the MoE
-smokes' 4 experts 2 and 1 a slot, and whole at degree 8; minicpm3-4b's
-MLA heads 1 or 2 a slot), and for three smokes with a vocabulary of
-500 (``_model_axis.ROW_PARALLEL``: row-parallel at (1, 8)); the four
+(each data row's model slots on their own heads, MLP columns or experts,
+Mamba channels or rows of mLSTM's C and vocabulary block,
+``models/layers.py``'s, ``mamba.py``'s and ``xlstm.py``'s split forms)
+against the gathered one (the whole parameters on each row's first
+slot) for the nine architectures that split, at (1, 8), (2, 4) and
+(4, 2) (the MoE smokes' 4 experts 2 and 1 a slot, and whole at degree
+8; minicpm3-4b's MLA heads 1 or 2 a slot; xlstm's mLSTM half a head,
+one or two heads a slot), for three smokes with a vocabulary of 500
+(``_model_axis.ROW_PARALLEL``: row-parallel at (1, 8)) and for jamba
+and xlstm with an inner dim of 132 (``_model_axis.INNER_WHOLE``: their
+Mamba and mLSTM layers whole on each row's first slot at (1, 8)); the four
 collectives of ``train/sharded.py`` under ``gradcheck`` in float64;
 the moves of a recorded step, none of which takes a block of a split
 leaf to a slot that does not hold it; and the dry run's record of a
@@ -28,12 +32,13 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build, layers as L
 from repro_torch.train import sharded as S
 from repro_torch.train import trainer as T
-from _model_axis import ROW_PARALLEL, mesh_step, whole
+from _model_axis import INNER_WHOLE, ROW_PARALLEL, mesh_step, whole
 from _torch_threads import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 SPLIT = ("llama3.2-3b", "gemma3-12b", "internvl2-76b", "gemma3-27b",
-         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "minicpm3-4b")
+         "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "minicpm3-4b",
+         "jamba-v0.1-52b", "xlstm-125m")
 MESHES = [(1, 8), (2, 4), (4, 2)]
 TOL = 1e-5
 SEQ, BATCH = 16, 8
@@ -44,12 +49,13 @@ def _setup(name, mesh_shape, zero1=False):
 
 
 @pytest.mark.parametrize("mesh_shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("name", SPLIT + ROW_PARALLEL)
+@pytest.mark.parametrize("name", SPLIT + ROW_PARALLEL + INNER_WHOLE)
 def test_split_step_equals_the_gathered_step(name, mesh_shape):
     """Forward (loss, cross-entropy) and every gradient leaf of one
     micro-batch; (1, 8) pads the smokes' 4 heads to 8 and replicates
     their 2 KV heads, (4, 2) splits both; the vocabulary-500 variants
-    take the row-parallel embedding and loss at (1, 8)."""
+    take the row-parallel embedding and loss at (1, 8), the inner-dim-132
+    ones their recurrent mixers whole on the first slot."""
     _, parts, params, _, batch = _setup(name, mesh_shape)
     assert parts.split
     mesh = parts.mesh
@@ -223,10 +229,10 @@ def test_the_gathered_step_fails_that_check(monkeypatch):
 
 
 def test_the_dry_run_records_which_steps_split():
-    """The seven families split their train and serving steps (the
+    """The nine families split their train and serving steps (the
     serving one ``launch/serve.py::MeshServe``) on a model axis wider
-    than one, minicpm3-4b's MLA among them; no other family splits
-    (jamba's MoE layers ride with its Mamba ones, gathered)."""
+    than one, minicpm3-4b's MLA, jamba's Mamba and xlstm's mLSTM and
+    sLSTM among them; the encoder-decoder does not."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
     train = ShapeConfig("s", "train", 2048, 8)
     for name, cfg in ARCHS.items():
