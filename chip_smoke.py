@@ -172,18 +172,17 @@ Phases, each uncaught, so any failure exits non-zero:
    splits over the model axis (``model_split``), and ``trace_s``.  Any failed cell fails the
    run; the dry-run processes never initialise CUDA, allocate nothing and
    launch nothing, and this process's allocated card memory is unchanged
-   across the phase's wait.  Every cell of llama3.2-3b, gemma3-12b/27b,
-   internvl2-76b, phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b
-   and xlstm-125m splits (each slot runs its own heads, MLP columns or
-   experts, Mamba channels or rows of mLSTM's C, vocabulary block or
-   d_model columns and, serving, its own block of every cache), and no
-   other cell (seamless's) does; a line each gives its peak beside the
-   one the gathered step traced, which it must be under; llama3.2-3b's
-   and minicpm3-4b's train_4k, internvl2-76b's prefill_32k and
+   across the phase's wait.  Every cell splits (each slot runs its own
+   heads, MLP columns or experts, Mamba channels or rows of mLSTM's C,
+   vocabulary block or d_model columns and, serving, its own block of
+   every cache; seamless's its heads of the encoder's, the decoder's
+   self- and cross-attention); a line each gives its peak beside the
+   one the gathered step traced, which it must be under; llama3.2-3b's,
+   minicpm3-4b's and seamless's train_4k, internvl2-76b's prefill_32k and
    decode_32k, gemma3-27b's long_500k, the two MoE families' prefill_32k
    and decode_32k, minicpm3-4b's decode_32k and (on (2, 16, 16)) its
-   prefill_32k, and jamba's and xlstm's decode_32k and long_500k must
-   fit.  Then the card witness:
+   prefill_32k, jamba's and xlstm's decode_32k and long_500k, and
+   seamless's prefill_32k and decode_32k must fit.  Then the card witness:
    each of WITNESSES
    (phase 10's llama3.2-3b training, phase 9's xlstm-125m training, phase
    8's gemma3-12b prefill), traced on ``meta`` at a (1, 1) mesh, then one
@@ -292,11 +291,43 @@ Phases, each uncaught, so any failure exits non-zero:
    initialised to zeros printed ungated, their moments gated),
    every slot's blocks the shapes their specs give; launches, step ms,
    ``max_memory_allocated``; the phase's seconds;
-16. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+16. the encoder-decoder on the model axis, after phase 15: phase 8's
+   seamless-m4t-large-v2 cut (published widths: d_model 1,024, 16 heads
+   and 16 KV heads of 64, d_ff 8,192, relu, vocabulary 256,206, an
+   untied head; 2 encoder and 2 decoder layers; fp32 parameters, bf16
+   activations) through ``MeshServe`` at (1, 2) (8 heads and 8 KV heads
+   a slot of the encoder's, the decoder's self- and cross-attention, the
+   vocabulary by rows) and (1, 16) (one head and one KV head a slot; the
+   embedding and the head along d_model, 64 columns a slot, every slot
+   holding the whole logits): phase 8's 2 x a 256-token prompt and 256
+   frames into caches of 512, 8 steps, the encoder's output sent to each
+   model slot once by the prefill and read from each slot's own copy at
+   every step.  For each: every slot's parameter and cache blocks the
+   shapes their specs give (the attention weights a slot's heads);
+   launch counts zeroed just before and read just after (rmsnorm,
+   flash_attention and decode_attention > 0); the logits against the
+   unmeshed run (phase 8's path) within 2e-2 of the scale plus the plain
+   versions' reading of the same comparison, in fp32 within 1e-3, and
+   against the same split run on the plain versions; each kernel call
+   against its plain version; prefill and decode ms,
+   ``max_memory_allocated``; the (1, 16) run's kernel calls timed cold
+   (``"path": "mesh_serve_encdec"`` rows).  Then ``Trainer(mesh=...)``
+   in fp32, 4 x 512 (256 frames and 256 tokens), 3 steps at (1, 2),
+   (2, 2) with ZeRO-1 and (1, 16) (the row-parallel loss), each against
+   the unmeshed Trainer, in the published relu and with gelu in its
+   place: losses and grad norms within rtol 1e-5; with gelu every
+   parameter and moment within 1e-4 of each leaf's max; with relu, whose
+   derivative jumps where the card's shape-dependent fp32 rounding moves
+   a pre-activation across 0, each part's largest leaf error printed
+   beside the unmeshed run's own at grad_accum 2 (``ED_TRAIN_ACTS``);
+   every slot's blocks the shapes their specs give; launches, step ms,
+   ``max_memory_allocated``; the phase's seconds;
+17. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
    keyed by ``mesh``, and the dense, recurrent, train, mesh_train,
-   mesh serve, mesh_serve_moe, mesh_serve_mla and mesh_serve_recurrent
-   paths', keyed by ``path``; decode_attention's partial entry a row of
-   its own), then ``{"ok": true, "device": ...}`` last.
+   mesh serve, mesh_serve_moe, mesh_serve_mla, mesh_serve_recurrent and
+   mesh_serve_encdec paths', keyed by ``path``; decode_attention's
+   partial entry a row of its own), then ``{"ok": true, "device": ...}``
+   last.
 
 Without CUDA, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -528,6 +559,39 @@ RA_TRAIN_TOL = {"xlstm-125m": (1e-4, 1e-3),
 # like every leaf's, agree within 2e-6
 RA_TRAIN_BATCH, RA_TRAIN_SEQ, RA_TRAIN_STEPS = 4, 128, 3
 RA_ROWS_MESH = "1x16"
+# the encoder-decoder on the model axis (phase 16, after phase 15): phase
+# 8's seamless cut (published widths: d_model 1,024, 16 heads and 16 KV
+# heads of 64, d_ff 8,192, relu, vocabulary 256,206, untied head; 2
+# encoder and 2 decoder layers; fp32 parameters, bf16 activations)
+# through MeshServe at (1, 2) (8 heads and 8 KV heads a slot, the
+# vocabulary by rows) and (1, 16) (one head and one KV head a slot;
+# 256,206 does not divide 16, so the embedding and the head split along
+# d_model, 64 columns a slot, and every slot holds the whole logits):
+# phase 8's FAMILY_BATCH x FAMILY_PROMPT tokens and as many frames into
+# caches of FAMILY_SEQ, ED_STEPS steps; also in fp32.  Then
+# Trainer(mesh=) in fp32, ED_TRAIN_BATCH x ED_TRAIN_SEQ (frames and
+# tokens ED_TRAIN_SEQ / 2 each, as input_specs halves them),
+# ED_TRAIN_STEPS steps, at each of ED_TRAIN_MESHES (ZeRO-1 where data >
+# 1; (1, 16) the row-parallel loss) against the unmeshed Trainer.  The
+# kernels line's "mesh_serve_encdec" rows come from the ED_ROWS_MESH run
+ED_ARCH = "seamless-m4t-large-v2"
+ED_SERVE_MESHES = ((1, 2), (1, 16))
+ED_STEPS = 8
+ED_TRAIN_MESHES = ((1, 2), (2, 2), (1, 16))
+ED_TRAIN_BATCH, ED_TRAIN_SEQ, ED_TRAIN_STEPS = 4, 512, 3
+# relu's derivative jumps at 0, and the card's fp32 products round by
+# shape: a pre-activation within rounding of 0 flips its gradient term
+# whenever the products take other shapes, so after 3 AdamW steps a
+# split run leaves the unmeshed one by up to 1.3e-2 of a moment's max
+# (w_gate's at (1, 16); 1.3e-4 of a parameter's), and so does the
+# unmeshed run against itself at grad_accum ED_WITNESS_ACCUM (4.7e-3 /
+# 1.3e-4, run 30e), where nothing is split; with gelu the split stays
+# within 8.2e-6.  So the published relu cut is gated on its losses and grad
+# norms, its leaves printed beside that witness, and the same cut with
+# gelu on every leaf (MESH_TRAIN_TOL)
+ED_TRAIN_ACTS = ("relu", "gelu")
+ED_WITNESS_ACCUM = 2
+ED_ROWS_MESH = "1x16"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM, fp32 FMA and
 # bf16 tensor cores (the rate a bound for bf16 operands is held to)
@@ -552,11 +616,13 @@ DRYRUN_SPLIT_PEAK_BEFORE = {"llama3.2-3b": (219.103e9, 125.218e9),
                                                       1226.283e9),
                             "minicpm3-4b": (243.802e9, 140.932e9),
                             "jamba-v0.1-52b": (512.542e9, 512.541e9),
-                            "xlstm-125m": (13.792e9, 13.792e9)}
-DRYRUN_SPLIT_FITS = ("llama3.2-3b", "minicpm3-4b")
+                            "xlstm-125m": (13.792e9, 13.792e9),
+                            "seamless-m4t-large-v2": (83.429e9, 48.136e9)}
+DRYRUN_SPLIT_FITS = ("llama3.2-3b", "minicpm3-4b", "seamless-m4t-large-v2")
 # the serving cells of those families, which split too since serving on
 # the model axis (the MoE two since their experts split, jamba and xlstm
-# since their recurrent mixers split): each one's peak a slot on
+# since their recurrent mixers split, seamless since its cross-attention
+# split): each one's peak a slot on
 # (16, 16) and (2, 16, 16) as the gathered step traced them (run 24c);
 # the split peak must be lower, and those named below must fit
 DRYRUN_SERVE_PEAK_BEFORE = {
@@ -581,7 +647,9 @@ DRYRUN_SERVE_PEAK_BEFORE = {
     ("jamba-v0.1-52b", "long_500k"): (118.863e9, 118.863e9),
     ("xlstm-125m", "prefill_32k"): (0.406e9, 0.382e9),
     ("xlstm-125m", "decode_32k"): (0.573e9, 0.450e9),
-    ("xlstm-125m", "long_500k"): (0.362e9, 0.362e9)}
+    ("xlstm-125m", "long_500k"): (0.362e9, 0.362e9),
+    ("seamless-m4t-large-v2", "prefill_32k"): (15.733e9, 10.028e9),
+    ("seamless-m4t-large-v2", "decode_32k"): (33.315e9, 18.820e9)}
 # (a cell that must fit on one mesh only names it: True for (2, 16, 16))
 DRYRUN_SERVE_FITS = (("internvl2-76b", "prefill_32k"),
                      ("internvl2-76b", "decode_32k"),
@@ -595,7 +663,9 @@ DRYRUN_SERVE_FITS = (("internvl2-76b", "prefill_32k"),
                      ("jamba-v0.1-52b", "decode_32k"),
                      ("jamba-v0.1-52b", "long_500k"),
                      ("xlstm-125m", "decode_32k"),
-                     ("xlstm-125m", "long_500k"))
+                     ("xlstm-125m", "long_500k"),
+                     ("seamless-m4t-large-v2", "prefill_32k"),
+                     ("seamless-m4t-large-v2", "decode_32k"))
 # its card witness: configurations phases 8-10 run on the card, (arch,
 # kind, layers or None for all, dtype or None for the config's, seq,
 # batch), each traced on meta at a (1, 1) mesh and run for one step on
@@ -2365,6 +2435,26 @@ def hold_state(torch, what, got, want, exact: bool,
     return worst
 
 
+def leaf_errors(torch, got, want) -> dict:
+    """{"params", "m", "v": (largest error / its leaf's max, that leaf)}
+    of a run's (params, opt) against another's, either laid out (gathered
+    first) or whole."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import sharded as S
+    out = {}
+    for part in ("params", "m", "v"):
+        a = got[0] if part == "params" else got[1][part]
+        b = want[0] if part == "params" else want[1][part]
+        worst = (0.0, "")
+        for (path, x), y in zip(L.tree_items(a), L.tree_leaves(b)):
+            x = S.gather(x) if isinstance(x, S.Laid) else x
+            err = float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                   1e-30)
+            worst = max(worst, (err, "/".join(map(str, path))))
+        out[part] = (float(f"{worst[0]:.4g}"), worst[1])
+    return out
+
+
 def hold_blocks(trainer, params, opt) -> dict:
     """Every slot's block of the parameters and moments has the shape its
     spec dictates, on its slot's device; returns bytes a slot holds."""
@@ -2583,26 +2673,31 @@ def mesh_train_phase(torch, card) -> list[dict]:
 def mesh_generate(torch, serve, params, inp, prompt: int, steps: int,
                   seq: int):
     """``dense_generate`` through ``MeshServe`` (``serve``, parameters
-    laid out on its mesh): the prefill into fresh caches laid out by its
-    specs, then ``steps`` teacher-forced decode steps (each step's
-    offsets read from its ``lengths``).  Returns each call's logits as laid out (a
+    laid out on its mesh): the prefill (of the frames too, for an
+    encoder-decoder) into fresh caches laid out by its specs, then
+    ``steps`` teacher-forced decode steps (each step's offsets read from
+    its ``lengths``; an encoder-decoder's fed the encoder's output the
+    prefill laid out).  Returns each call's logits as laid out (a
     ``sharded.Laid`` at the logits spec), the prefill's and each step's
     seconds (host clock to a synchronize) and the caches."""
     b = inp["tokens"].shape[0]
     caches = serve.init_caches(b, seq)
+    first = {k: v for k, v in inp.items() if k != "tokens"}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, caches = serve.prefill(params, serve.lay_out_inputs(
-        {"tokens": inp["tokens"][:, :prompt]}), caches)
+    lg, caches, *enc = serve.prefill(params, serve.lay_out_inputs(
+        {"tokens": inp["tokens"][:, :prompt], **first}), caches)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     logits, step_s = [lg], []
     lengths = torch.full((b,), prompt, dtype=torch.int32, device=DEVICE)
     for i in range(prompt, prompt + steps):
         t0 = time.perf_counter()
-        lg, caches = serve.decode(params, serve.lay_out_inputs(
-            {"tokens": inp["tokens"][:, i:i + 1], "lengths": lengths}),
-            caches)
+        batch = serve.lay_out_inputs({"tokens": inp["tokens"][:, i:i + 1],
+                                      "lengths": lengths})
+        if enc:
+            batch["enc_out"] = enc[0]
+        lg, caches = serve.decode(params, batch, caches)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         logits.append(lg)
@@ -3454,6 +3549,211 @@ def recurrent_axis_phase(torch, card) -> list[dict]:
     return rows
 
 
+def encdec_axis_phase(torch, card) -> list[dict]:
+    """Phase 16: the encoder-decoder on the model axis (see the module
+    docstring).  Returns the ``kernels`` rows of the (1, 16) serving run,
+    keyed ``"path": "mesh_serve_encdec"``."""
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import MeshServe
+    from repro_torch.models import build
+    from repro_torch.train import Trainer, sharded as S
+
+    t_phase = time.perf_counter()
+    plain = {"rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.attention_ref,
+             "decode_attention": ref.decode_attention_ref}
+    originals = {name: getattr(ops, name) for name in plain}
+    names = tuple(plain)
+    base = ARCHS[ED_ARCH]
+    cfg = base.replace(num_layers=FAMILY_LAYERS, enc_layers=FAMILY_LAYERS)
+    v, b = cfg.vocab_size, FAMILY_BATCH
+    prompt, steps, seq = FAMILY_PROMPT, ED_STEPS, FAMILY_SEQ
+    inp = dense_inputs(torch, cfg, b, prompt, steps)
+    params = build(cfg).init_params(0, DEVICE)     # 16 heads: no padding
+    unmeshed = {}
+    for what, dtype, fns in (("bf16", cfg.dtype, {}),
+                             ("plain", cfg.dtype, plain),
+                             ("fp32", "float32", {})):
+        with wrappers_as(ops, fns):
+            unmeshed[what] = torch.stack(dense_generate(
+                torch, build(cfg.replace(dtype=dtype)), params, inp,
+                prompt, steps, seq)[0], 1)
+    rows = []
+    for d, m in ED_SERVE_MESHES:
+        t0 = time.perf_counter()
+        tag = f"encdec axis {d}x{m}"
+        mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+        serve = MeshServe(build(cfg, tp=m), mesh)
+        assert serve.split
+        laid = serve.lay_out_params(params)
+        hold_laid_blocks(tag, laid)
+        for part in ("self", "cross"):
+            for key, dim in (("wq", 2), ("wk", 2), ("wv", 2), ("wo", 1)):
+                assert {blk.shape[dim] for blk in laid["dec"][part][key]
+                        .blocks} == {cfg.num_heads // m}, (tag, part, key)
+        rows_split = v % m == 0
+        run = lambda n, srv=serve: mesh_generate(  # noqa: E731
+            torch, srv, laid, inp, prompt, n, seq)
+        run(1)                          # warm: cuBLAS's plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with recording(torch, ops, names) as recorded:
+            kernels.reset_launch_counts()
+            out, pre_s, step_s, caches = run(steps)
+            launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        print(f"{tag} main path launches: {launches}")
+        assert all(launches[k] > 0 for k in names), (tag, launches)
+        hold_laid_blocks(tag, caches)
+        for lg in out:
+            assert lg.shape == (b, 1, v)
+            assert all(tuple(blk.shape) == (b, 1, v // m if rows_split
+                                            else v)
+                       for blk in lg.blocks), tag
+        got = torch.stack([S.gather(lg)[:, 0].float() for lg in out], 1)
+        assert torch.isfinite(got).all()
+        step = np.asarray(step_s)
+        vocab = "vocabulary rows" if rows_split \
+            else "embedding and head along d_model, whole logits a slot"
+        print(f"{tag} ({cfg.enc_layers} encoder and {cfg.num_layers} "
+              f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads // m} "
+              f"of {cfg.num_heads} heads and KV heads a slot, {vocab}): "
+              f"prefill {b} x {prompt} tokens and frames in "
+              f"{pre_s * 1e3:.3f} ms; decode {len(step)} steps, best "
+              f"{step.min() * 1e3:.3f} ms, median "
+              f"{np.median(step) * 1e3:.3f} ms a step; max_memory_allocated "
+              f"{peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+              f"before it  [{card}]")
+        with wrappers_as(ops, plain):
+            p_out = run(steps)[0]
+        got_p = torch.stack([S.gather(lg)[:, 0].float() for lg in p_out], 1)
+        room = compare_logits(torch, "split plain versions vs unmeshed "
+                              "plain versions (the witness), bf16", got_p,
+                              unmeshed["plain"], prefix=tag)
+        compare_logits(torch, "split vs unmeshed (phase 8's path), bf16",
+                       got, unmeshed["bf16"], scale_tol=TOL_BF16, room=room,
+                       prefix=tag)
+        # both runs carry the split's own bf16 rounding (at (1, 16) the 16
+        # row-parallel partial logits summed in bf16), which the witness
+        # reads: 0.0703 against 2e-2 x 3.44 unwidened in run 30a
+        compare_logits(torch, "split kernels vs split plain versions, bf16",
+                       got, got_p, scale_tol=TOL_BF16, room=room, prefix=tag)
+        serve32 = MeshServe(build(cfg.replace(dtype="float32"), tp=m), mesh)
+        got32 = torch.stack([S.gather(lg)[:, 0].float()
+                             for lg in run(steps, serve32)[0]], 1)
+        compare_logits(torch, "split vs unmeshed (phase 8's path), fp32",
+                       got32, unmeshed["fp32"], tol=DENSE_FP32_TOL,
+                       prefix=tag)
+        errs = {k: max((hold_to_plain(torch, k, originals[k], plain[k], a,
+                                      kw)
+                        for a, kw, _ in recorded[k].values()), default=0.0)
+                for k in names}
+        print(f"{tag}: each kernel call against its plain version, max abs "
+              f"err {errs} (tol {TOL_BF16} on bf16 outputs)")
+        if f"{d}x{m}" == ED_ROWS_MESH:
+            rows += dense_rows(torch, card, recorded, originals, plain,
+                               path="mesh_serve_encdec",
+                               extra={"arch": ED_ARCH, "mesh": ED_ROWS_MESH})
+        print(f"{tag}: {time.perf_counter() - t0:.1f} s")
+        del serve, serve32, laid, out, p_out, caches, recorded
+        torch.cuda.empty_cache()
+    del params
+    unmeshed.clear()
+    torch.cuda.empty_cache()
+
+    # ---- training: the unmeshed Trainer, then each mesh, split; in the
+    # published relu and with gelu in its place (see ED_TRAIN_ACTS)
+    shape = ShapeConfig("encdec", "train", ED_TRAIN_SEQ, ED_TRAIN_BATCH)
+    tokens = ED_TRAIN_BATCH * ED_TRAIN_SEQ // 2
+
+    def step_ms(tr):
+        dts = np.asarray([x["dt"] for x in tr.metrics_log]) * 1e3
+        return float(dts[1:].min()), float(np.median(dts[1:]))
+
+    for act in ED_TRAIN_ACTS:
+        cfg32 = cfg.replace(dtype="float32", act=act)
+        gated = act != cfg.act
+        flat = Trainer(build(cfg32), shape, device=DEVICE)
+        kernels.reset_launch_counts()
+        f_params, f_opt, _ = flat.run(ED_TRAIN_STEPS)
+        assert kernels.launch_counts()["rmsnorm"] > 0
+        want = {key: [x[key] for x in flat.metrics_log]
+                for key in ("loss", "grad_norm")}
+        best, med = step_ms(flat)
+        print(f"encdec axis train {act} unmeshed ({cfg.enc_layers} + "
+              f"{cfg.num_layers} of {base.enc_layers} + {base.num_layers} "
+              f"layers, fp32, {ED_TRAIN_BATCH} x {ED_TRAIN_SEQ // 2} frames "
+              f"and tokens): losses {want['loss']}; step ms best "
+              f"{best:.3f}, median {med:.3f} (after the first), "
+              f"{tokens / med * 1e3:.1f} tokens/s  [{card}]")
+        del flat
+        witness = None
+        if not gated:                   # the run against itself, reshaped
+            w_params, w_opt, _ = Trainer(
+                build(cfg32), shape, device=DEVICE,
+                grad_accum=ED_WITNESS_ACCUM).run(ED_TRAIN_STEPS)
+            witness = leaf_errors(torch, (w_params, w_opt),
+                                  (f_params, f_opt))
+            del w_params, w_opt
+            print(f"encdec axis train {act} unmeshed at grad_accum "
+                  f"{ED_WITNESS_ACCUM} (the witness: other product shapes, "
+                  f"no split) against the unmeshed run, max error / leaf "
+                  f"max: {witness}  [{card}]")
+        for d, m in ED_TRAIN_MESHES:
+            tag = f"encdec axis train {act} {d}x{m}"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mesh = make_host_mesh(shape=(d, m), devices=[MESH_SLOT] * (d * m))
+            tr = Trainer(build(cfg32, tp=m), shape, mesh=mesh, zero1=d > 1)
+            assert tr.api.model_split()
+            kernels.reset_launch_counts()
+            params, opt, _ = tr.run(ED_TRAIN_STEPS)
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() - held
+            assert launches["rmsnorm"] > 0 and \
+                launches["flash_attention"] > 0, (tag, launches)
+            got = {key: [x[key] for x in tr.metrics_log]
+                   for key in ("loss", "grad_norm")}
+            for key in got:
+                np.testing.assert_allclose(got[key], want[key],
+                                           rtol=RESUME_RTOL,
+                                           err_msg=f"{tag} {key}")
+            if gated:
+                errs = {part: hold_state(torch, f"{tag} {part}", a, w, False)
+                        for part, a, w in (("params", params, f_params),
+                                           ("m", opt["m"], f_opt["m"]),
+                                           ("v", opt["v"], f_opt["v"]))}
+                leaves = f"(tol {MESH_TRAIN_TOL})"
+            else:
+                errs = leaf_errors(torch, (params, opt), (f_params, f_opt))
+                leaves = "(not gated: relu's flips; the witness above)"
+            hold_blocks(tr, params, opt)
+            best, med = step_ms(tr)
+            loss = "row-parallel" if v % m else "by vocabulary rows"
+            print(f"{tag} main path launches: {launches}")
+            print(f"{tag} (zero1 {d > 1}; the loss {loss}): losses "
+                  f"{got['loss']} and grad_norm {got['grad_norm']} within "
+                  f"rtol {RESUME_RTOL} of the unmeshed Trainer's, every "
+                  f"leaf: max error / leaf max {errs} {leaves}; step ms "
+                  f"best {best:.3f}, median {med:.3f}, "
+                  f"{tokens / med * 1e3:.1f} tokens/s; max_memory_allocated "
+                  f"{peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+                  f"before it  [{card}]")
+            del tr, params, opt
+            torch.cuda.empty_cache()
+        del f_params, f_opt
+        torch.cuda.empty_cache()
+    print(f"encdec axis phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def step_ranges(torch, fn) -> tuple[dict, float]:
     """Host ms of each of the train step's profiler ranges (the trainer's
     ``train_step.forward``, ``.backward`` and ``.optimizer``) in one call
@@ -4081,7 +4381,10 @@ def main() -> int:
     # ------------------------------------------------ 15. recurrent on a mesh
     rows += recurrent_axis_phase(torch, card)   # with the host quiet too
 
-    # ------------------------------------------------ 16. result lines
+    # ------------------------------------------------ 16. encdec on a mesh
+    rows += encdec_axis_phase(torch, card)
+
+    # ------------------------------------------------ 17. result lines
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,14 +46,14 @@ touches a device but ``meta``.
     (which the port's step takes whole on slot 0: its shard's rows are
     arguments, the other shards' rows bytes beyond them) and runs
     ``loss_and_grads`` on its shard's rows.  Where the step splits over
-    the model axis (``model_split``: llama3.2-3b, gemma3-12b/27b,
-    internvl2-76b, phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b
-    and xlstm-125m on a model axis wider than one), slot (0, 0) runs its
+    the model axis (``model_split``: every architecture on a model axis
+    wider than one), slot (0, 0) runs its
     own blocks' share of each split layer (its experts, MLA heads, Mamba
     channels or rows of mLSTM's C among them) and, as its row's first
     slot, the norms, residuals, replicated projections (MLA's
     down-projections, mLSTM's gates), an MoE's routing, dispatch and
-    combine, the sLSTM blocks and the row-parallel loss's sum, and
+    combine, the sLSTM blocks, the row-parallel loss's sum and an
+    encoder-decoder's ``enc_ln``, and
     receives the other model slots' partials, columns and expert
     outputs, each a stand-in made under ``trace.paused()`` that takes
     bytes on slot 0 only when sent there (:class:`_Elsewhere`; another
@@ -118,9 +118,13 @@ touches a device but ``meta``.
   dispatch buffer and their outputs: :func:`ffn_moves`; an MLA layer's,
   its latents; a Mamba or mLSTM layer's, its reshuffles of the
   projections' columns, what goes whole to every slot and its partials:
-  :func:`mixer_moves`), forward,
-  backward and again in remat's recompute, and the embedding's and
-  loss's combines.  A split serving cell counts its step's moves the
+  :func:`mixer_moves`; a cross-attention's, its normed activation and,
+  where ``wk``/``wv`` are replicated, the KV heads of the encoder's
+  positions a slot reads), forward, backward and again in remat's
+  recompute, the embedding's and loss's combines, and an
+  encoder-decoder's output sent to each model slot once a step where
+  the cross ``wk``/``wv`` split, and its gradient back ("encoder").  A
+  split serving cell counts its step's moves the
   same way (:func:`serve_transfers`): activations, k/v slices, partial
   sums, an MoE's dispatch rows and expert outputs, and the cache rows
   by position to prefill; the same at T = 1 to decode, plus the write
@@ -130,13 +134,18 @@ touches a device but ``meta``.
   row-parallel logits' partials and copies; a recurrent layer's
   reshuffles, whole tensors and partials, and the copies of its states
   (mLSTM's and sLSTM's replicas on every model slot, and in long mode
-  each block's on the other data rows).  ``bytes_by_kind`` and
-  ``total_bytes`` are what the busiest slot sends and receives.  A
-  gathered serving cell records ``None``: nothing moves between slots.
+  each block's on the other data rows); an encoder-decoder's encoder
+  layers to prefill, its output to each model slot ("encoder", the
+  copies a prefill returns) and, where the cross ``wk``/``wv`` are
+  replicated, each layer's KV heads of the encoder's positions
+  ("cross", every step: a decode moves no byte of the output itself).
+  ``bytes_by_kind`` and ``total_bytes`` are what the busiest slot sends
+  and receives.  A gathered serving cell records ``None``: nothing
+  moves between slots.
 * **Split** (``model_split``): whether the cell's step splits its
-  compute over the model axis (:func:`model_split`): every cell of the
-  families ``ModelAPI.model_split`` names on a model axis wider than
-  one; the others run gathered.
+  compute over the model axis (:func:`model_split`): every cell on a
+  model axis wider than one (``ModelAPI.model_split`` names every
+  family); on a model axis of one the step runs gathered.
 
 What has no counterpart, since there is no compiler: ``lower`` and
 ``compile`` (their times are replaced by ``trace_s``),
@@ -559,8 +568,8 @@ def _split_serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
                       long_mode=long_mode,
                       offsets=decode_offsets(shape) if decode else ())
     with trace, torch.no_grad():
-        out, _ = serve.row_step(0, api.decode if decode else api.prefill,
-                                params, inputs, caches, decode)
+        out, enc = serve.row_step(0, api.decode if decode else api.prefill,
+                                  params, inputs, caches, decode)
     rows = shard_batch(cell, shape)
     shard = dataclasses.replace(shape, global_batch=rows)
     v = api.cfg.vocab_size
@@ -571,8 +580,8 @@ def _split_serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
                              f"expected {want}")
     logits = torch.empty((rows, 1, v), dtype=out[0].dtype, device=META)
     own = api.abstract_cache(rows, s, **kw)      # the shard's, as gathered
-    return (logits, own), (cell.trees["params"][0], own), \
-        api.input_specs(shard)
+    outs = (logits, own) + ((enc[0],) if enc else ())
+    return outs, (cell.trees["params"][0], own), api.input_specs(shard)
 
 
 def _serve_program(cell: Cell, shape: ShapeConfig, trace: StepTrace):
@@ -729,6 +738,64 @@ def mixer_moves(cfg, kind: str, specs, tokens: int, e: int,
 RECURRENT = ("mamba", "mlstm", "slstm")
 
 
+def sent_kv_heads(cfg, wq, wk_spec, tp: int, m: int) -> int:
+    """The KV heads model slot m is sent by a split attention layer
+    (``wq`` its query weight, ``wk_spec`` its ``wk``'s spec): those its
+    query heads read where ``wk``/``wv`` are replicated, none where they
+    are split (each slot projects its own)."""
+    if S.model_dim(wk_spec) is not None:
+        return 0
+    hm = wq.shape[-2] // tp
+    lo, hi = L._slot_kv_heads(m, hm, hm * tp // cfg.num_kv_heads)
+    return hi - lo
+
+
+def encoder_len(cell: Cell) -> int:
+    """The encoder's positions in an encoder-decoder cell: its frames
+    (train, prefill) or the encoder's output decode reads."""
+    inputs = cell.api.input_specs(cell.shape)
+    return inputs["frames" if "frames" in inputs else "enc_out"].shape[1]
+
+
+def _encdec_layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
+    """:func:`_layer_moves` of an encoder-decoder: each encoder layer's
+    attention and MLP over its frames, then each decoder layer's self-
+    and cross-attention and MLP over its tokens; a cross-attention sends
+    the normed activation (and where ``wk``/``wv`` are replicated the KV
+    heads a slot reads, over the encoder's positions) and gets its
+    partial back."""
+    cfg = cell.api.cfg
+    params, specs = cell.trees["params"]
+    e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    te, t = encoder_len(cell), cell.api.input_specs(cell.shape)[
+        "tokens"].shape[1]
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    remat = cfg.remat == "full"
+
+    def attn(m, p, sp, tq, tkv):
+        return b * tq * d * e + 2 * b * tkv * sent_kv_heads(
+            cfg, p["wq"], sp["wk"], tp, m) * hd * e, b * tq * d * e
+
+    def layer(parts, mlp, tq):
+        to, back = [0] * tp, [0] * tp
+        x = ffn_moves(cfg, mlp, b * tq, e, tp)["activations"]
+        for m in range(1, tp):
+            for p, sp, tkv in parts:
+                a, c = attn(m, p, sp, tq, tkv)
+                to[m] += a
+                back[m] += c
+            to[m] += x
+            back[m] += x
+        return remat, to, back
+
+    enc = layer([(params["enc"]["attn"], specs["enc"]["attn"], te)],
+                specs["enc"]["mlp"], te)
+    dec = layer([(params["dec"][k], specs["dec"][k], tkv)
+                 for k, tkv in (("self", t), ("cross", te))],
+                specs["dec"]["mlp"], t)
+    return [enc] * cfg.enc_layers + [dec] * cfg.num_layers
+
+
 def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     """A split step's layers, in order, each (under remat, bytes its
     forward sends from the row's first slot to model slot m, and from
@@ -737,13 +804,16 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
     sends the normed activation (and the KV heads a slot reads where
     ``wk``/``wv`` are replicated), an MLA layer its latents ``cq``,
     ``ckv`` and ``k_rope``; each gets its partial output back; a
-    recurrent mixer moves what :func:`mixer_moves` counts."""
+    recurrent mixer moves what :func:`mixer_moves` counts; an
+    encoder-decoder's layers, :func:`_encdec_layer_moves`."""
     cfg = cell.api.cfg
+    if cfg.family == "encdec":
+        return _encdec_layer_moves(cell, tp, b)
     params, specs = cell.trees["params"]
     t, d = cell.shape.seq_len, cfg.d_model
     e = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     x = b * t * d * e
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
 
     def layer(blk, blk_specs, kind):
         to, back = [0] * tp, [0] * tp
@@ -761,11 +831,9 @@ def _layer_moves(cell: Cell, tp: int, b: int) -> list[tuple]:
                                   + ml.qk_rope_head_dim) * e
             else:
                 back[m] += x
-                to[m] += x
-                if S.model_dim(blk_specs["mixer"]["wk"]) is None:
-                    hm = blk["mixer"]["wq"].shape[-2] // tp
-                    lo, hi = L._slot_kv_heads(m, hm, hm * tp // kvh)
-                    to[m] += 2 * b * t * (hi - lo) * hd * e
+                to[m] += x + 2 * b * t * sent_kv_heads(
+                    cfg, blk["mixer"]["wq"], blk_specs["mixer"]["wk"], tp,
+                    m) * hd * e
             to[m] += ffn["dispatch"] + ffn["activations"]
             back[m] += ffn["dispatch"] + ffn["activations"]
         return to, back
@@ -803,10 +871,17 @@ def _split_moves(cell: Cell, parts: MeshStep, out) -> None:
     xt = b * tt * cfg.d_model * e
     f32 = 4
     rows = _vocab_rows(cfg, cell.trees["params"][1])
+    enc = 0                       # the encoder's output, sent once a step
+    if cfg.family == "encdec" and S.model_dim(
+            cell.trees["params"][1]["dec"]["cross"]["wk"]) is not None:
+        enc = b * encoder_len(cell) * cfg.d_model * e
     for i in parts.slots:
         row = parts.rows[i]
         tp = len(row)
         layers = _layer_moves(cell, tp, b)
+        for m in range(1, tp * bool(enc)):
+            out["encoder"][row[0], row[m]] += enc
+            out["encoder"][row[m], row[0]] += enc
         xs = xt if rows else xt // tp         # x, or its d_model columns
         if not rows:          # each slot's block of every slot's partial
             for c, (lo, hi) in enumerate(L.vocab_blocks(cfg.vocab_size,
@@ -858,7 +933,9 @@ def transfers(cell: Cell) -> dict:
     dispatch buffer, a Mamba or mLSTM layer's moves
     (:func:`mixer_moves`), the partials and expert outputs back to the
     first slot: "forward"), their backward's ("backward"), the forward's again
-    where remat recomputes a period ("recompute"), the embedding's
+    where remat recomputes a period ("recompute"), an encoder-decoder's
+    output to each model slot and its gradient back, once a step, where
+    the cross ``wk``/``wv`` split ("encoder"), the embedding's
     tokens, partials (row-parallel: columns) and their gradient
     ("embed"), and the loss's normed chunks, maxima, labels and sums
     (row-parallel: the chunks' columns and fp32 partial logits, each
@@ -952,6 +1029,13 @@ def _layers(cell: Cell, geometry):
     cfg = cell.api.cfg
     _, p_specs = cell.trees["params"]
     c_tree, c_specs = cell.trees["caches"]
+    if cfg.family == "encdec":     # the decoder's: self-attention's caches
+        dec = p_specs["dec"]
+        for _ in range(cfg.num_layers):
+            yield ({"mixer": dec["self"], "ffn": dec["mlp"],
+                    "cross": dec["cross"]}, "attn", c_tree["self"],
+                   c_specs["self"], geometry["self"])
+        return
     for per in range(cfg.n_periods):
         for pos, kind in enumerate(cfg.period_pattern):
             yield (p_specs["stack"][pos], kind, c_tree["stack"][pos],
@@ -1072,7 +1156,12 @@ def serve_transfers(cell: Cell) -> dict:
     model slot, and in long mode the other rows' logits blocks
     ("logits"); a Mamba or mLSTM layer's moves by :func:`mixer_moves`'
     kinds ("activations", "reshuffle", "whole", "partials") and its
-    states' copies (:func:`_state_moves`, "state")."""
+    states' copies (:func:`_state_moves`, "state"); an encoder-decoder's
+    encoder layers to prefill ("activations", "partials", "kv"), its
+    output to each model slot ("encoder"), and each decoder layer's
+    cross-attention: its normed activation and partial, and where
+    ``wk``/``wv`` are replicated the KV heads of the encoder's positions
+    each slot reads ("cross")."""
     api, mesh, shape = cell.api, cell.mesh, cell.shape
     cfg = api.cfg
     long_mode = _is_long_mode(shape)
@@ -1094,10 +1183,13 @@ def serve_transfers(cell: Cell) -> dict:
     mla = cfg.mla is not None
     off_bytes = b * inputs["lengths"].element_size() if decode else 0
     out = collections.defaultdict(collections.Counter)
+    encdec = cfg.family == "encdec"
+    te = encoder_len(cell) if encdec else 0
     for i in serve.running:
         row = serve.rows[i]
         tp, h = len(row), row[0]
         dm = d if rows else d // tp       # the embedding's and logits' width
+        hm = L.padded_heads(cfg.num_heads, kvh, tp) // tp
         for m in range(1, tp):
             out["embed"][h, row[m]] += b * tt * tok.element_size()
             out["embed"][row[m], h] += b * tt * dm * e
@@ -1105,6 +1197,18 @@ def serve_transfers(cell: Cell) -> dict:
             if not rows:
                 out["logits"][row[m], h] += b * v * e
                 out["logits"][h, row[m]] += b * v * e
+            if encdec and not decode:     # the encoder, and its output
+                enc_p, enc_s = cell.trees["params"][0]["enc"], \
+                    cell.trees["params"][1]["enc"]
+                xe = b * te * d * e
+                out["activations"][h, row[m]] += 2 * xe * cfg.enc_layers
+                out["partials"][row[m], h] += 2 * xe * cfg.enc_layers
+                n = sent_kv_heads(cfg, enc_p["attn"]["wq"],
+                                  enc_s["attn"]["wk"], tp, m)
+                if n:
+                    out["kv"][h, row[m]] += 2 * b * te * n * hd * e \
+                        * cfg.enc_layers
+                out["encoder"][h, row[m]] += xe
         for specs, kind, c_tree, c_specs, geom in _layers(cell,
                                                          serve.geometry):
             ffn = ffn_moves(cfg, specs["ffn"], b * t, e, tp) \
@@ -1139,6 +1243,13 @@ def serve_transfers(cell: Cell) -> dict:
                 if ffn["dispatch"]:
                     out["dispatch"][h, row[m]] += ffn["dispatch"]
                     out["combine"][row[m], h] += ffn["dispatch"]
+                if "cross" in specs:      # its normed activation, partial
+                    out["activations"][h, row[m]] += x
+                    out["partials"][row[m], h] += x
+                    if S.model_dim(specs["cross"]["wk"]) is None:
+                        lo, hi = L._slot_kv_heads(m, hm, hm * tp // kvh)
+                        out["cross"][h, row[m]] += 2 * b * te * (hi - lo) \
+                            * hd * e
             spans, size = cache_spans(S.Layout(mesh, c_spec), leaf.shape,
                                       coords, i, lead=geom[key].lead,
                                       heads=not mla)
@@ -1151,7 +1262,6 @@ def serve_transfers(cell: Cell) -> dict:
                                  off_bytes=off_bytes)
                 continue
             split_kv = S.model_dim(specs["mixer"]["wk"]) is not None
-            hm = L.padded_heads(cfg.num_heads, kvh, tp) // tp
             gp = hm * tp // kvh
             kvm = kvh // tp if split_kv else kvh
             heads = [(m * kvm, (m + 1) * kvm) for m in range(tp)] \

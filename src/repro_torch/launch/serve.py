@@ -223,10 +223,9 @@ class MeshServe:
     data axes, vocabulary over ``"model"`` where the model degree divides
     it, else replicated over ``"model"``.
 
-    * Split (``split``), where ``api.model_split()`` and the model axis is
-      wider than one (llama3.2-3b, gemma3-12b/27b, internvl2-76b,
-      phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b,
-      xlstm-125m): each data row's model slots run the step as the
+    * Split (``split``), where ``api.model_split()`` (every
+      architecture) and the model axis is wider than one: each data
+      row's model slots run the step as the
       reference's GSPMD step does, each on its own heads, MLP columns or
       experts, Mamba channels or rows of mLSTM's C, and vocabulary block
       (or ``d_model`` columns of the embedding and logits) and its own
@@ -236,9 +235,14 @@ class MeshServe:
       the same bytes, on every model slot's replica; the logits
       stay on the slots, a vocabulary block each, never gathered, or,
       row-parallel, summed on the row's first slot and sent whole to its
-      other model slots.  No slot holds the whole parameters or a whole
-      cache.  An MLA decode in long mode raises ``NotImplementedError``.
-    * Gathered, for the encoder-decoder or a model axis of one: the
+      other model slots.  An encoder-decoder's prefill sends the
+      encoder's output to each model slot once (its slots' replicas,
+      where the cross-attention's ``wk``/``wv`` split, are the copies it
+      returns), and its decode reads each model slot's own copy of the
+      ``enc_out`` input, so a decode step moves no byte of it.  No slot
+      holds the whole parameters or a whole cache.  An MLA decode in
+      long mode raises ``NotImplementedError``.
+    * Gathered, on a model axis of one: the
       whole parameters and the row's part of each cache (its rows of the
       batch: the batch dim from the cache's spec, :func:`cache_geometry`)
       gathered onto the row's first slot, the step run there, the caches
@@ -355,9 +359,10 @@ class MeshServe:
         """(logits, caches): the logits (B, 1, V) a ``sharded.Laid`` at
         the logits spec; the caches written in place.  An
         encoder-decoder's (seamless) returns (logits, caches, enc_out),
-        its encoder's output a ``sharded.Laid`` at the inputs' spec,
-        which :meth:`decode` takes among its inputs (``enc_out``), as
-        ``ModelAPI.decode`` takes ``batch["enc_out"]``."""
+        its encoder's output a ``sharded.Laid`` at the inputs' spec (a
+        copy on each slot of a row), which :meth:`decode` takes among its
+        inputs (``enc_out``), as ``ModelAPI.decode`` takes
+        ``batch["enc_out"]``."""
         return self._step(self.api.prefill, params, batch, caches, False)
 
     def decode(self, params, batch, caches):
@@ -375,9 +380,8 @@ class MeshServe:
                                          decode)
             for j, blk in out.items():
                 blocks[j] = blk
-            if enc_out is not None:
-                for j in self.rows[i]:
-                    enc[j] = self.send(enc_out, i, j)
+            for j, blk in (enc_out or {}).items():
+                enc[j] = blk
         logits = S.Laid(lay, (b, 1, v), self._replicas(lay, (b, 1, v),
                                                        blocks))
         if enc[self.running[0]] is None:
@@ -439,18 +443,29 @@ class MeshServe:
 
     def row_step(self, i: int, fn, params, batch, caches, decode: bool):
         """Data row ``i``'s step on its rows of the batch (its first
-        slot's blocks of the inputs): ({slot: its block of the logits},
-        the encoder's output on slot ``i`` or None)."""
+        slot's blocks of the inputs; split, the encoder's output as each
+        model slot's own copy): ({slot: its block of the logits}, {slot:
+        its copy of the encoder's output} or None)."""
         rows = {k: v.blocks[i] for k, v in batch.items()}
         row = self.model_row(i)
         if self.split:
+            if "enc_out" in batch:
+                rows["enc_out"] = L.Replicas(tuple(
+                    batch["enc_out"].blocks[j] for j in row.slots))
             offs = self.row_offsets(i, batch) if decode else None
-            logits = fn(S.row_blocks(params, row), rows,
-                        self.row_caches(caches, row, offs))[0]
+            out = fn(S.row_blocks(params, row), rows,
+                     self.row_caches(caches, row, offs))
+            logits, enc = out[0], None
+            if len(out) > 2:
+                enc = out[2].blocks
+                if len(enc) == 1:          # on the first slot alone
+                    enc = [self.send(enc[0], row.slots[0], j)
+                           for j in row.slots]
+                enc = dict(zip(row.slots, enc))
             if logits.dim is None:         # row-parallel: replicated
                 return {j: self.send(logits.blocks[0], row.slots[0], j)
-                        for j in row.slots}, None
-            return dict(zip(row.slots, logits.blocks)), None
+                        for j in row.slots}, enc
+            return dict(zip(row.slots, logits.blocks)), enc
         whole = S.gather_tree(params, i)
         views = L.tree_map(lambda laid, geom: self._row_cache(laid, i, geom),
                            caches, self.geometry)
@@ -461,9 +476,11 @@ class MeshServe:
                    caches, self.geometry, views)
         lay = S.Layout(self.mesh, self.logits_spec)
         shape = (next(iter(batch.values())).shape[0], 1, logits.shape[-1])
+        enc = None if len(out) < 3 else {j: self.send(out[2], i, j)
+                                          for j in row.slots}
         return {j: self.send(
             logits[:, :, lay.block_slices(shape, self.coords[j])[2]], i, j)
-            for j in row.slots}, (out[2] if len(out) > 2 else None)
+            for j in row.slots}, enc
 
     def _row_cache(self, laid, i: int, geom) -> torch.Tensor:
         """Data row ``i``'s part of a cache leaf (its rows of the batch,

@@ -90,14 +90,15 @@ class ModelAPI:
         vocabulary does not divide the model degree), as in llama3.2-3b,
         gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout,
         minicpm3-4b, jamba-v0.1-52b (the ``hybrid`` family: Mamba layers
-        by inner channels beside GQA attention, gated MLPs and MoE FFNs)
-        and xlstm-125m (the ``ssm`` family: mLSTM by rows of C, sLSTM
-        whole on each data row's first slot).  The encoder-decoder keeps
-        the gathered step."""
-        cfg = self.cfg
-        return (cfg.family in ("dense", "vlm", "moe", "hybrid", "ssm")
-                and all(k in ("attn", "local", "nope", "mamba", "mlstm",
-                              "slstm") for k in cfg.period_pattern))
+        by inner channels beside GQA attention, gated MLPs and MoE FFNs),
+        xlstm-125m (the ``ssm`` family: mLSTM by rows of C, sLSTM whole
+        on each data row's first slot) and seamless-m4t-large-v2 (the
+        ``encdec`` family: the encoder's attention and the decoder's
+        self- and cross-attention by heads, the encoder's output sent to
+        each model slot once a step where the cross ``wk``/``wv`` split:
+        ``encdec.py``)."""
+        return all(k in ("attn", "local", "nope", "mamba", "mlstm", "slstm")
+                   for k in self.cfg.period_pattern)
 
     # ---------------------------------------------------------------- cache
     def cache_defs(self, batch: int, seq: int, *, long_mode: bool = False):

@@ -17,17 +17,19 @@ The specs lay out *state*: ``train/sharded.py`` splits the parameters
 and optimizer moments into one block per slot of a ``launch/mesh.py``
 mesh as the reference's ``NamedSharding`` does.  The compute follows
 them where the reference's GSPMD step splits it, in a meshed train or
-serving step of an architecture whose every layer is GQA attention,
-MLA or a recurrent mixer and the gated MLP, an MoE FFN or none
-(``ModelAPI.model_split``: llama3.2-3b, gemma3-12b/27b, internvl2-76b,
-phi3.5-moe, llama4-scout, minicpm3-4b, and jamba-v0.1-52b and
-xlstm-125m, whose Mamba and mLSTM layers split by inner channels in
-``mamba.py`` and ``xlstm.py``) on a mesh whose model axis is wider
-than one.  There each
+serving step of every architecture (``ModelAPI.model_split``:
+llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe, llama4-scout,
+minicpm3-4b, jamba-v0.1-52b and xlstm-125m, whose Mamba and mLSTM
+layers split by inner channels in ``mamba.py`` and ``xlstm.py``, and
+seamless-m4t-large-v2, whose encoder's output every decoder layer's
+cross-attention reads: ``encdec.py``) on a mesh whose model axis is
+wider than one.  There each
 parameter is a :class:`Blocks` leaf, the data row's blocks on its model
 slots, and the split forms run what the reference's constraints
 (``shard()``) split on each slot's own blocks: its query heads and
-``wo``'s matching rows (``attn_apply``; ``mla_apply``: its heads'
+``wo``'s matching rows (``attn_apply``, cross-attention's from the
+encoder's output as a :class:`Replicas`, a copy on each model slot that
+projects its own KV heads from it; ``mla_apply``: its heads'
 ``wuq``/``wukv``/``wo`` blocks on the latents the first slot sends),
 its MLP columns and ``w_out``'s rows (``mlp_apply``), its experts
 (``moe_apply``: the row's first slot routes and dispatches, each slot
@@ -65,10 +67,9 @@ and the computing row reads its own.  A recurrent mixer's state is a
 :class:`StateBlocks` leaf, each model slot's block (its channels, or a
 replica of the whole), written by the slot that holds it
 (:func:`put_state`) and sent to its replicas, so that they stay equal
-bit for bit.  Every other meshed step (the encoder-decoder, a model
-axis of one) runs on whole tensors, the compute left unsplit: a data
-shard's rows on whole gathered parameters (``train/trainer.py``,
-``MeshServe``).  Either way ``moe_apply`` routes
+bit for bit.  A meshed step on a model axis of one runs on whole
+tensors, the compute left unsplit: a data shard's rows on whole
+gathered parameters (``train/trainer.py``, ``MeshServe``).  Either way ``moe_apply`` routes
 as the reference's no-mesh branch over the tokens it is given: run on
 one data shard's rows, that is the reference's per-shard capacity
 under ``shard_map``.
@@ -394,6 +395,15 @@ class StateBlocks:
     def at(self, m: int) -> torch.Tensor:
         """Model slot m's block at ``index``."""
         return self.part(self.blocks[m])
+
+
+@dataclass(frozen=True, eq=False)
+class Replicas:
+    """An activation of a split step on a data row's model slots:
+    ``blocks[m]`` model slot m's copy of the whole tensor, or one block,
+    the row's first slot's alone.  The encoder's output as a split
+    cross-attention reads it (:func:`_cross_split`)."""
+    blocks: tuple
 
 
 def _put_state(block, new):
@@ -752,15 +762,14 @@ def attn_apply(p, x, cfg, *, kind="attn", causal=True, positions=None,
     Modes: plain (cache=None), prefill (cache + t>1, fills from offset 0),
     decode (cache + t==1, per-sequence offsets ``cache_len`` (B,)).
     ``local`` layers keep a **ring cache** of size window.
-    kv_override: precomputed (k, v) for cross-attention (with ``kv_len``).
+    kv_override: precomputed (k, v) for cross-attention (with ``kv_len``);
+    on :class:`Blocks` leaves, the encoder's output as a :class:`Replicas`,
+    from which each model slot projects its own k/v (:func:`_cross_split`).
     The cache's tensors are written in place and returned.
     """
     if isinstance(p["wq"], Blocks):
         if kv_override is not None:
-            raise NotImplementedError(
-                "cross-attention split over the model axis (the "
-                "encoder-decoder): see ROADMAP's **Serving on the model "
-                "axis**")
+            return _cross_split(p, x, cfg, kv_override, kv_len=kv_len), cache
         if cache is None:
             if positions is not None:
                 raise NotImplementedError(
@@ -1237,6 +1246,65 @@ def _attn_split(p, x, cfg, *, kind, causal, keep_kv=False):
         parts = [o[0] for o in parts]
     y = x + row.reduce(parts)
     return (y, producers) if keep_kv else y
+
+
+def _cross_slot(m, xn, wq, wo, k, v, enc, wk, wv, kv_len, *, cfg, gp, at):
+    """Slot m's part of split cross-attention: its query heads, unroped,
+    against its KV heads (``k``/``v`` sent to it, or projected here from
+    its replica ``enc`` of the encoder's output through its ``wk``/``wv``
+    blocks), non-causal, then ``wo``'s matching rows: a partial (B,T,D)."""
+    wq = at(wq)
+    b, t, _ = xn.shape
+    hm, hd = wq.shape[1], wq.shape[2]
+    q = torch.einsum("btd,dhk->bthk", xn, wq.to(xn.dtype))
+    if k is None:
+        k = torch.einsum("bsd,dhk->bshk", enc, at(wk).to(enc.dtype))
+        v = torch.einsum("bsd,dhk->bshk", enc, at(wv).to(enc.dtype))
+    kvh = k.shape[2]
+    out = _sdpa(q.reshape(b, t, kvh, hm // kvh, hd), k, v, causal=False,
+                window=0, kv_len=kv_len).reshape(b, t, hm, hd)
+    return _slot_out(m, out, wo, cfg=cfg, gp=gp, at=at)
+
+
+def _cross_split(p, x, cfg, enc: Replicas, *, kv_len=None):
+    """Cross-attention (``attn_apply`` with ``kv_override``) on a row's
+    model slots, from the encoder's output ``enc``: the norm once on the
+    first slot, each slot on its query heads with no rope.  Where
+    ``wk``/``wv`` are split each slot projects its own KV heads from its
+    own replica of ``enc`` (one a model slot); else k and v are projected
+    once from the first slot's and each slot is sent only the KV heads its
+    query heads read.  The partials are summed in slot order on the first
+    slot."""
+    row = p["wq"].row
+    tp = len(p["wq"].blocks)
+    hm = p["wq"].blocks[0].shape[-2]
+    gp = hm * tp // cfg.num_kv_heads
+    none = (None,) * tp
+    xn = rms_norm(x, p["ln"].whole, cfg.norm_eps)
+    xs = row.scatter(xn)
+    if p["wk"].dim is not None:
+        if len(enc.blocks) != tp:
+            raise ValueError(f"cross-attention with wk/wv split over {tp} "
+                             f"model slots reads a replica of the "
+                             f"encoder's output on each, got "
+                             f"{len(enc.blocks)}")
+        ks = vs = none
+        encs, wks, wvs = enc.blocks, p["wk"].blocks, p["wv"].blocks
+    else:
+        e = enc.blocks[0]
+        k = torch.einsum("bsd,dhk->bshk", e, p["wk"].whole.to(e.dtype))
+        v = torch.einsum("bsd,dhk->bshk", e, p["wv"].whole.to(e.dtype))
+        ranges = [_slot_kv_heads(m, hm, gp) for m in range(tp)]
+        ks = row.scatter(k, dim=2, ranges=ranges)
+        vs = row.scatter(v, dim=2, ranges=ranges)
+        encs = wks = wvs = none
+    lens = none if kv_len is None \
+        else tuple(row.send_to(kv_len, m) for m in range(tp))
+    parts = [row.run(m, _cross_slot, m, xs[m], p["wq"].blocks[m],
+                     p["wo"].blocks[m], ks[m], vs[m], encs[m], wks[m],
+                     wvs[m], lens[m], cfg=cfg, gp=gp, at=p["wq"].part)
+             for m in range(tp)]
+    return x + row.reduce(parts)
 
 
 # ------------------------------------------------ serving on the model axis

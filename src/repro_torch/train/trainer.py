@@ -18,16 +18,16 @@ the reference's ``NamedSharding`` puts on the matching device.  Each
 data shard's batch rows run on its data row of slots, in one of two
 ways (:class:`MeshStep`):
 
-* split, where ``api.model_split()`` (llama3.2-3b, gemma3-12b/27b,
-  internvl2-76b, phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b,
-  xlstm-125m: GQA attention, MLA, Mamba, mLSTM or sLSTM and the gated
-  MLP, an MoE or no FFN in every layer) and the model axis is wider
-  than one: the row's model slots compute as the reference's GSPMD
-  step does, each on its own blocks of the parameters (its query heads,
+* split, where ``api.model_split()`` (every architecture: GQA
+  attention, MLA, Mamba, mLSTM or sLSTM and the gated MLP, an MoE or no
+  FFN in every layer, and seamless's encoder-decoder) and the model axis
+  is wider than one: the row's model slots compute as the reference's
+  GSPMD step does, each on its own blocks of the parameters (its query heads,
   MLP columns or experts, Mamba channels or rows of mLSTM's C and
   vocabulary block, or its ``d_model`` columns of an embedding whose
   vocabulary the model degree does not divide; see
-  ``models/layers.py``, ``mamba.py``, ``xlstm.py``), the partials
+  ``models/layers.py``, ``mamba.py``, ``xlstm.py``, ``encdec.py``:
+  the encoder's output sent to each model slot once a step), the partials
   summed (the expert outputs and projections' columns concatenated) in
   slot order on the row's first slot, which holds the replicated
   activations and runs the norms, MLA's down-projections, the MoE's
@@ -35,7 +35,7 @@ ways (:class:`MeshStep`):
   each split leaf's gradient is summed per block over the data rows onto the first row's slot of that block,
   each replicated leaf's onto slot 0, and the norm is the slot-order
   sum of each slot's blocks' squares;
-* gathered, for the encoder-decoder and a model axis of one: the whole
+* gathered, on a model axis of one: the whole
   parameters are gathered onto the row's first slot, which runs the
   shard's rows through the normal kernels, and the shards' whole
   gradients are summed in slot order on slot 0.

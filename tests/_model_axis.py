@@ -29,9 +29,10 @@ from repro_torch.train import sharded as S
 from repro_torch.train import trainer as T
 
 CPU = "cpu"
-# tied MLA, tied GQA, and phi3.5-moe's untied head split along d_model
+# tied MLA, tied GQA, and phi3.5-moe's and seamless's untied heads split
+# along d_model
 ROW_PARALLEL = ("minicpm3-4b@v500", "llama3.2-3b@v500",
-                "phi3.5-moe-42b-a6.6b@v500")
+                "phi3.5-moe-42b-a6.6b@v500", "seamless-m4t-large-v2@v500")
 # the recurrent mixers with an inner dim degree 8 does not divide
 INNER_WHOLE = ("jamba-v0.1-52b@d66", "xlstm-125m@d66")
 

@@ -22,9 +22,9 @@
     step sends between slots on 8 CPU slots, recorded by wrapping
     ``train/sharded.py::send``, at the byte, on (2, 4) and (4, 2) meshes
     with and without ZeRO-1 (the split steps of llama3.2-3b, the two
-    MoE families, jamba and xlstm, an MoE's dispatch and combine and the
-    recurrent mixers' reshuffles among them, and seamless's gathered
-    one), and ``serve_transfers`` against ``MeshServe``'s split prefill
+    MoE families, jamba, xlstm and seamless, an MoE's dispatch and
+    combine, the recurrent mixers' reshuffles and the encoder's output
+    to each model slot among them), and ``serve_transfers`` against ``MeshServe``'s split prefill
     and decode steps the same way (the recurrent states' copies among
     them);
 (e) the kernels' cost functions: flash's closed form of the visible
@@ -359,24 +359,26 @@ def _recorded_sends(monkeypatch):
     return moved
 
 
-# the steps that split over the model axis (jamba's and xlstm's recurrent
-# mixers among them), and the encoder-decoder, which stays gathered
+# the steps that split over the model axis: jamba's and xlstm's recurrent
+# mixers and the encoder-decoder's cross-attention among them
 SPLIT_TRAIN = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e",
                "jamba-v0.1-52b", "xlstm-125m")
-GATHERED = "seamless-m4t-large-v2"
+ENCDEC = "seamless-m4t-large-v2"
 
 
 @pytest.mark.parametrize("zero1", [False, True])
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
-@pytest.mark.parametrize("arch", SPLIT_TRAIN + (GATHERED,))
+@pytest.mark.parametrize("arch", SPLIT_TRAIN + (ENCDEC,))
 def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
                                                        zero1, monkeypatch):
-    """llama3.2-3b's, phi3.5-moe's, llama4-scout's, jamba's and xlstm's
-    steps split over the model axis (their layers' forward, backward and
-    remat-recompute sends, an MoE's dispatch rows and expert outputs and
-    the Mamba and mLSTM reshuffles among them, the embedding's and the
-    loss's combines, the gradient summed block by block); seamless's
-    gathers the parameters onto each data row's first slot."""
+    """llama3.2-3b's, phi3.5-moe's, llama4-scout's, jamba's, xlstm's and
+    seamless's steps split over the model axis (their layers' forward,
+    backward and remat-recompute sends, an MoE's dispatch rows and expert
+    outputs, the Mamba and mLSTM reshuffles and seamless's encoder output
+    to each model slot and its gradient back ("encoder") among them, the
+    embedding's and the loss's combines, the gradient summed block by
+    block).  The gathered step's (the parameters gathered onto each data
+    row's first slot) is ``tests/test_torch_encdec_axis.py``'s."""
     cfg = SMOKES[arch]
     shape = ShapeConfig("s", "train", 16, 8)
     mesh = make_host_mesh(devices=[CPU] * 8, shape=mesh_shape)
@@ -401,7 +403,8 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
         counted.update(m)
     assert dict(counted) == dict(moved)
     split = D.model_split(cell)
-    assert split == (arch in SPLIT_TRAIN)
+    assert split
+    assert ("encoder" in kinds) == (arch == ENCDEC)
     assert ("layback" in kinds) == zero1
     # a split step's slots read their moments' slices from their own blocks
     assert ("relayout" in kinds) == (zero1 and not split)
@@ -418,11 +421,11 @@ def test_transfers_equal_the_bytes_a_meshed_step_sends(arch, mesh_shape,
 
 
 def test_serving_cells_record_no_collectives():
-    """A gathered serving step moves nothing between slots: the family
-    ``ModelAPI.model_split`` leaves out (the encoder-decoder), and a
-    split family on a model axis of one."""
-    mesh = D.make_mesh(multi_pod=False, dev=True)
-    for arch in (GATHERED,):
+    """A gathered serving step moves nothing between slots: on a model
+    axis of one (every family splits on a wider one), the
+    encoder-decoder's and a decoder's."""
+    mesh = D.meta_mesh((8, 1), ("data", "model"))
+    for arch in (ENCDEC,):
         for kind in ("prefill", "decode"):
             cell, _ = D.lower_cell(SMOKES[arch],
                                    ShapeConfig("s", kind, 32, 8), mesh)
@@ -448,7 +451,7 @@ def _serve_inputs(api, shape, cell):
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma3-12b",
                                   "internvl2-76b", "phi3.5-moe-42b-a6.6b",
                                   "llama4-scout-17b-a16e", "jamba-v0.1-52b",
-                                  "xlstm-125m"])
+                                  "xlstm-125m", ENCDEC])
 def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
         arch, mesh_shape, kind, batch, monkeypatch):
     """``transfers``'s serving counterpart (``serve_transfers``) against
@@ -491,6 +494,8 @@ def test_serve_transfers_equal_the_bytes_a_meshed_serving_step_sends(
     assert ("reshuffle" in kinds) == ("whole" in kinds) == recurrent
     assert ("state" in kinds) == ("mlstm" in cfg.period_pattern
                                   or (recurrent and batch == 1))
+    # the encoder's output to each model slot, once, by a prefill
+    assert ("encoder" in kinds) == (arch == ENCDEC and kind == "prefill")
     rec = D.collectives(cell)
     per = np.zeros(8, dtype=np.int64)
     for (src, dst), n in moved.items():

@@ -1,12 +1,14 @@
 """Serving on the model axis (``launch/serve.py::MeshServe``) on 8 CPU
-slots: the split prefill and decode steps of the nine architectures
-that split (llama3.2-3b, gemma3-12b/27b, internvl2-76b, phi3.5-moe,
-llama4-scout, minicpm3-4b, jamba-v0.1-52b and xlstm-125m, and the
-vocabulary-500 variants of minicpm3-4b, llama3.2-3b and phi3.5-moe,
-which degree 8 does not divide, and the inner-dim-132 variants of
-jamba and xlstm, whose Mamba and mLSTM layers run whole at degree 8:
-each data row's model slots on their own heads, MLP columns or
-experts, Mamba channels or rows of mLSTM's C, vocabulary block or
+slots: the split prefill and decode steps of the ten architectures,
+every one of which splits (llama3.2-3b, gemma3-12b/27b, internvl2-76b,
+phi3.5-moe, llama4-scout, minicpm3-4b, jamba-v0.1-52b, xlstm-125m and
+seamless-m4t-large-v2, whose prefill returns the encoder's output with
+a copy on each slot and whose decode reads each slot's own, and the
+vocabulary-500 variants of minicpm3-4b, llama3.2-3b, phi3.5-moe and
+seamless, which degree 8 does not divide, and the inner-dim-132
+variants of jamba and xlstm, whose Mamba and mLSTM layers run whole at
+degree 8: each data row's model slots on their own heads, MLP columns
+or experts, Mamba channels or rows of mLSTM's C, vocabulary block or
 ``d_model`` columns and block of every cache) against the gathered
 step (the whole
 parameters and the row's caches on its first slot) and against the
@@ -55,7 +57,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 CPU = "cpu"
 SPLIT = ("llama3.2-3b", "gemma3-12b", "gemma3-27b", "internvl2-76b",
          "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "jamba-v0.1-52b",
-         "xlstm-125m")
+         "xlstm-125m", "seamless-m4t-large-v2")
 CASES = [(m, False) for m in ((1, 8), (2, 4), (4, 2))] \
     + [(m, True) for m in ((2, 4), (4, 2))]
 # MLA (not in long mode, which it does not split), and with a vocabulary
@@ -322,7 +324,8 @@ def test_mla_split_serving_equals_the_references_sharded_jit(
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
-@pytest.mark.parametrize("name", ["gemma3-12b", "internvl2-76b"])
+@pytest.mark.parametrize("name", ["gemma3-12b", "internvl2-76b",
+                                  "seamless-m4t-large-v2"])
 def test_no_slot_is_written_a_row_outside_its_block(monkeypatch, name, case):
     """Every cache write of the split step is a slot writing its own
     block (one of the cache's blocks, the slot's) inside its positions;
@@ -488,19 +491,30 @@ def test_partials_merged_over_any_split_equal_the_whole(cuts, dtype):
 
 
 def test_split_forms_still_refuse_what_is_not_ported():
-    """Cross-attention split over the model axis (the encoder-decoder)
-    raises.  A vocabulary the model degree does not divide takes the
-    row-parallel logits: ``logits_apply`` with an untied head, or a
-    tied table, split along ``d_model`` on two slots, equals the whole
-    product of the plain norm and the weight."""
+    """Cross-attention split over the model axis (the encoder-decoder),
+    which raised until it was ported, equals the plain one on two slots:
+    ``attn_apply`` on the layer's heads split by slot, from the encoder's
+    output on each slot (``layers.Replicas``).  A vocabulary the model
+    degree does not divide takes the row-parallel logits:
+    ``logits_apply`` with an untied head, or a tied table, split along
+    ``d_model`` on two slots, equals the whole product of the plain norm
+    and the weight."""
     mesh = make_host_mesh(devices=[CPU] * 2, shape=(1, 2))
     row = S.ModelRow((0, 1), lambda t, src, dst: S.send(t, mesh, src, dst))
     cfg = SMOKES["llama3.2-3b"].replace(dtype="float32")
-    blk = L.Blocks((torch.zeros(2, 2),) * 2, row, 1)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        L.attn_apply({"wq": blk}, torch.zeros(1, 1, 64), cfg,
-                     kv_override=(None, None))
+    enc_cfg = SMOKES["seamless-m4t-large-v2"].replace(dtype="float32")
+    p = L.init_tree(L.attn_defs(enc_cfg, 2), 1, torch.device(CPU))
+    split = {k: L.Blocks((p[k],), row) if k == "ln" else L.Blocks(
+        tuple(torch.chunk(p[k], 2, dim=0 if k == "wo" else 1)), row,
+        0 if k == "wo" else 1) for k in p}
     g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 64, generator=g)
+    enc = torch.randn(2, 5, 64, generator=g)
+    k, v = (torch.einsum("bsd,dhk->bshk", enc, p[w]) for w in ("wk", "wv"))
+    want, _ = L.attn_apply(p, x, enc_cfg, kv_override=(k, v))
+    got, _ = L.attn_apply(split, x, enc_cfg,
+                          kv_override=L.Replicas((enc, enc)))
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
     head = torch.randn(64, 255, generator=g)
     ln = torch.rand(64, generator=g) + 0.5
     x = torch.randn(2, 3, 64, generator=g)

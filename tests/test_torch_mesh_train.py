@@ -57,6 +57,10 @@ MLA = "minicpm3-4b"
 # the recurrent families: jamba's Mamba (and its MoE, GQA and MLP
 # layers), xlstm's mLSTM by rows of C and sLSTM on the first slot
 RECURRENT = ("jamba-v0.1-52b", "xlstm-125m")
+# the encoder-decoder: its encoder's and decoder's attention by heads, the
+# encoder's output sent to each model slot once a step where its 4 KV
+# heads split (degrees 2 and 4), k/v sent by KV heads where they do not
+ENCDEC = "seamless-m4t-large-v2"
 MESHES = [(8, 1), (2, 4), (4, 2)]
 # phi3.5-moe's smoke at a capacity that drops tokens: the reference's
 # meshed run (capacity per data shard) leaves its unmeshed one by more
@@ -310,9 +314,10 @@ def _runs():
     KV heads; gemma3-27b (8 layers) without ZeRO-1; minicpm3-4b (MLA)
     on MESHES' split meshes and (1, 8), and at (1, 8) with a vocabulary
     of 500, which 8 does not divide: the row-parallel embedding and
-    loss; jamba and xlstm (``RECURRENT``) on the same three, ZeRO-1
-    where data > 1.  The MoEs' tokens drop per data shard
-    (``MOE_CAPACITY``)."""
+    loss; jamba, xlstm (``RECURRENT``) and seamless (``ENCDEC``) on the
+    same three, ZeRO-1 where data > 1, and seamless at (1, 8) with a
+    vocabulary of 500 too (its untied head split along ``d_model``).
+    The MoEs' tokens drop per data shard (``MOE_CAPACITY``)."""
     runs = [(n, m) for n in (DENSE, MOE) for m in MESHES]
     runs += [(n, m) for n in SPLIT for m in MESHES[1:]]
     runs += [(n, (1, 8)) for n in (DENSE,) + SPLIT[:3]]
@@ -320,8 +325,9 @@ def _runs():
     runs += [(MLA + "@v500", (1, 8))]
     out = [(n, m, z) for n, m in runs for z in (False, True)
            if not (z and n == "gemma3-27b")]
-    return out + [(n, m, m[0] > 1) for n in RECURRENT
-                  for m in MESHES[1:] + [(1, 8)]]
+    return out + [(n, m, m[0] > 1) for n in RECURRENT + (ENCDEC,)
+                  for m in MESHES[1:] + [(1, 8)]] \
+        + [(ENCDEC + "@v500", (1, 8), False)]
 
 
 @pytest.mark.parametrize("name,mesh_shape,zero1", _runs(), ids=[

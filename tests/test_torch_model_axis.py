@@ -3,10 +3,12 @@
 Mamba channels or rows of mLSTM's C and vocabulary block,
 ``models/layers.py``'s, ``mamba.py``'s and ``xlstm.py``'s split forms)
 against the gathered one (the whole parameters on each row's first
-slot) for the nine architectures that split, at (1, 8), (2, 4) and
-(4, 2) (the MoE smokes' 4 experts 2 and 1 a slot, and whole at degree
-8; minicpm3-4b's MLA heads 1 or 2 a slot; xlstm's mLSTM half a head,
-one or two heads a slot), for three smokes with a vocabulary of 500
+slot) for the ten architectures, every one of which splits, at (1, 8),
+(2, 4) and (4, 2) (the MoE smokes' 4 experts 2 and 1 a slot, and whole
+at degree 8; minicpm3-4b's MLA heads 1 or 2 a slot; xlstm's mLSTM half
+a head, one or two heads a slot; seamless's encoder, self- and
+cross-attention by heads, its 4 KV heads replicated at (1, 8)), for
+four smokes with a vocabulary of 500
 (``_model_axis.ROW_PARALLEL``: row-parallel at (1, 8)) and for jamba
 and xlstm with an inner dim of 132 (``_model_axis.INNER_WHOLE``: their
 Mamba and mLSTM layers whole on each row's first slot at (1, 8)); the four
@@ -38,7 +40,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 CPU = "cpu"
 SPLIT = ("llama3.2-3b", "gemma3-12b", "internvl2-76b", "gemma3-27b",
          "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "minicpm3-4b",
-         "jamba-v0.1-52b", "xlstm-125m")
+         "jamba-v0.1-52b", "xlstm-125m", "seamless-m4t-large-v2")
 MESHES = [(1, 8), (2, 4), (4, 2)]
 TOL = 1e-5
 SEQ, BATCH = 16, 8
@@ -229,10 +231,11 @@ def test_the_gathered_step_fails_that_check(monkeypatch):
 
 
 def test_the_dry_run_records_which_steps_split():
-    """The nine families split their train and serving steps (the
-    serving one ``launch/serve.py::MeshServe``) on a model axis wider
-    than one, minicpm3-4b's MLA, jamba's Mamba and xlstm's mLSTM and
-    sLSTM among them; the encoder-decoder does not."""
+    """Every family splits its train and serving steps (the serving one
+    ``launch/serve.py::MeshServe``) on a model axis wider than one,
+    minicpm3-4b's MLA, jamba's Mamba, xlstm's mLSTM and sLSTM and the
+    encoder-decoder's cross-attention among them; none does on a model
+    axis of one."""
     mesh = D.make_mesh(multi_pod=False, dev=True)
     train = ShapeConfig("s", "train", 2048, 8)
     for name, cfg in ARCHS.items():
