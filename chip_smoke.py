@@ -5,14 +5,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX and nothing of the JAX package ``repro``.
-Phases, each uncaught, so any failure exits non-zero:
+(``--only 9,16`` runs phase 1 and the phases named, to check a few
+phases; the smoke run takes no arguments.)  It imports nothing of JAX and
+nothing of the JAX package ``repro``.  Each phase prints its seconds;
+the last lines sum them.  Every ``kernels`` row is timed with CUDA
+events behind a spin kernel (``event_ms``); torch.profiler gives only
+the card's busy shares, each window held to the wrappers' launch
+counters.  Phases, each uncaught, so any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``); build the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` and print the seconds;
-2. the quickstart flow over RPC: ``update_graph``, ``program_config(...,
-   "hetero")``, a 2-layer GCN ``run`` that must go through AggCombine on
-   the vector device and launch the agg_combine kernel;
+2. the quickstart flow over RPC, through ``examples/torch_quickstart.py``:
+   ``update_graph``, ``program_config(..., "hetero")``, a 2-layer GCN
+   ``run`` that must go through AggCombine on the vector device and
+   launch the agg_combine kernel;
 3. the main path at full width: the "physics" graph (12,000 vertices,
    90,000 zipf(1.35) edges, 420 features), GCN/GIN/NGCF at [420, 128, 64]
    with fanouts [10, 10], one ``run_batch`` of 32 requests x 16 targets
@@ -21,14 +27,16 @@ Phases, each uncaught, so any failure exits non-zero:
    service at 2e-5, and fused against serial ``run`` bit for bit;
 4. every GNN kernel against its plain version on the arguments the main
    path gave it (recorded in phase 3), with kernel, plain and library
-   times on the card (device time under torch.profiler; the kernel's
-   back-to-back call time too) and the least time the card could take
-   (``bound_ms``), spmm and sddmm held bit for bit; then gemm, spmm,
-   agg_combine and sddmm by shape: kernel ms a launch beside
-   ``torch.matmul`` (gemm), ``embedding_bag`` (spmm) or the port's
-   unfused spmm then gemm kernels (agg_combine), and the share of the
-   bound reached; spmm also cold (each launch on another copy of h, past
-   the L2) beside its warm figure;
+   times on the card (kernel and library cold, each pass on copies of
+   the inputs past the L2, and warm; the plain version warm; the plain
+   version and the library call as CUDA graph replays; the kernel's
+   back-to-back call time, host included) and the
+   least time the card could take (``bound_ms``), which no row may read
+   under, spmm and
+   sddmm held bit for bit; then gemm, spmm, agg_combine and sddmm by
+   shape: kernel ms a launch cold and warm beside ``torch.matmul``
+   (gemm), ``embedding_bag`` (spmm) or the port's unfused spmm then gemm
+   kernels (agg_combine), and the share of the bound reached;
 5. the SPMD engine: phase 3's group under Hetero on a service built with
    ``mesh=make_host_mesh(shape=(d, m), devices=["cuda:0"] * (d * m))``
    for each (d, m) of MESH_SHAPES, every slot on the one card.  Per mesh
@@ -105,7 +113,7 @@ Phases, each uncaught, so any failure exits non-zero:
    ~27 GB of fp32 parameters from seed 0), bf16 activations, batch 2 x a
    256-token prompt into caches of 512 and 8 decode steps; then
    xlstm-125m whole (12 layers, d_model 768, 4 heads, mLSTM head dim
-   384, vocab 50,304), batch 4 x 256 and 16 steps.  For each: launch
+   384, vocab 50,304), batch 4 x 128 and 8 steps.  For each: launch
    counts zeroed just before and read just after (jamba: rmsnorm,
    flash_attention and decode_attention > 0); the cached logits against
    the model's own full forward, in bf16 within 2e-2 of the logits'
@@ -117,13 +125,13 @@ Phases, each uncaught, so any failure exits non-zero:
    also at the positions whose routes agree, within 2e-2 of the scale
    alone, as phi3.5-moe's; each kernel call against its plain version,
    timed cold.  Then training xlstm-125m through
-   ``launch.train.main`` at its defaults (batch 8, seq 128, remat
-   "full"): 10 steps; a run that fails at step 7 and its resume from the
-   step-5 checkpoint, whose losses must equal the uninterrupted run's
-   within rtol 1e-5; step ms, tokens/s, a step's forward / backward /
-   optimizer split (the trainer's profiler ranges) and the card's busy
-   share; a tiny overfit (15 steps on one batch at lr 3e-3, the loss
-   must fall by more than 0.5).  Last,
+   ``examples/torch_train_lm.py`` at the launcher's default shape (batch
+   8, seq 128, remat "full"): 4 steps; a run that fails at step 3 and
+   its resume from the step-2 checkpoint, whose losses must equal the
+   uninterrupted run's within rtol 1e-5; step ms, tokens/s, a step's
+   forward / backward / optimizer split (the trainer's profiler ranges)
+   and the card's busy share; a tiny overfit (15 steps on one batch of
+   8 x 32 at lr 3e-3, the loss must fall by more than 0.5).  Last,
    llama3.2-3b at its widths, 2 layers, batch 4 x seq 512, 3 steps of
    the Trainer (every leaf a gradient, or the step raises), with the
    rmsnorm and flash_attention Functions' gradients on the run's
@@ -157,8 +165,9 @@ Phases, each uncaught, so any failure exits non-zero:
    cell (34) on both production meshes of ``meta`` slots, (16, 16) and
    (2, 16, 16), in processes of their own (four that take the cells in
    turn, and one for the witness below; niced, CPU only) started
-   before phase 1 and joined
-   after phase 14, so that they run beside every card phase; bytes a slot counted at the production shapes, slot (0, 0)'s
+   after phase 8 (none runs beside phases 3-8, whose times seed the
+   benchmark's cells: the script asserts it) and joined after phase 14,
+   the wait printed; bytes a slot counted at the production shapes, slot (0, 0)'s
    program traced through the card's routes and kernel checks at one
    data shard's batch, at the production shapes apart from jamba's and
    xlstm's train and prefill cells, traced at ``--dev``'s shape (their
@@ -281,7 +290,7 @@ Phases, each uncaught, so any failure exits non-zero:
    plain versions; jamba in fp32 within 1e-4 where the routes agree
    (all of them); each kernel call against its plain version; prefill
    and decode ms, ``max_memory_allocated``; jamba's (1, 16) kernel
-   calls timed cold (``"path": "mesh_serve_recurrent"`` rows).  Then ``Trainer(mesh=...)`` in fp32, 4 x 128, 3 steps:
+   calls timed cold (``"path": "mesh_serve_recurrent"`` rows).  Then ``Trainer(mesh=...)`` in fp32, 4 x 64, 3 steps:
    xlstm-125m's first period (6 of 12 layers) at (1, 2) and at (2, 2)
    with ZeRO-1, and jamba cut to its first layer (Mamba and its gated
    MLP, full width) at (1, 2), each against the unmeshed Trainer:
@@ -322,7 +331,17 @@ Phases, each uncaught, so any failure exits non-zero:
    beside the unmeshed run's own at grad_accum 2 (``ED_TRAIN_ACTS``);
    every slot's blocks the shapes their specs give; launches, step ms,
    ``max_memory_allocated``; the phase's seconds;
-17. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+17. the port's examples on the card: ``examples/torch_serve_gnn.py`` at
+   4 clients x 4 requests under each drill of EXAMPLE_DRILLS (gcn and
+   gin with a live grow-by-one reshard and a shard killed mid-migration,
+   ngcf through the mutation firehose, gcn over remote shards with the
+   autonomic chaos drill), each under the lock witness, with its model's
+   kernels launched, its drills' asserts (bit for bit against a serial
+   replay or a reference answer) holding and no request failed, the four
+   GNN kernels launched over the four; ``examples/torch_mutable_graph.py
+   --days 3``; ``examples/torch_serve_lm_paged.py`` at smoke size, the
+   three LM kernels launched.  Each run's seconds and requests/s;
+18. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
    keyed by ``mesh``, and the dense, recurrent, train, mesh_train,
    mesh serve, mesh_serve_moe, mesh_serve_mla, mesh_serve_recurrent and
    mesh_serve_encdec paths', keyed by ``path``; decode_attention's
@@ -335,6 +354,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
@@ -360,6 +380,26 @@ DEVICE = "cuda"
 GNN_KERNELS = ("agg_combine", "spmm", "gemm", "sddmm")
 # the CSSD array behind the serving runtime (examples/serve_gnn.py --chaos)
 ARRAY_SHARDS, ARRAY_REPLICATION, ARRAY_CLIENTS = 4, 2, 8
+# the port's examples on the card (phase 17): examples/torch_serve_gnn.py
+# under each drill (the README's live reshard with a kill mid-migration,
+# gcn and gin; the firehose with ngcf; the autonomic chaos drill over
+# remote shards), each at 4 clients x 4 requests; then
+# examples/torch_mutable_graph.py and examples/torch_serve_lm_paged.py
+EXAMPLE_DRILLS = (
+    ("gcn reshard-grow 1, kill-shard 1",
+     ["--model", "gcn", "--shards", "3", "--replication", "2",
+      "--reshard-grow", "1", "--kill-shard", "1"]),
+    ("gin reshard-grow 1, kill-shard 1",
+     ["--model", "gin", "--shards", "3", "--replication", "2",
+      "--reshard-grow", "1", "--kill-shard", "1"]),
+    ("ngcf firehose", ["--model", "ngcf", "--shards", "2", "--firehose"]),
+    ("gcn remote-shards 3, chaos",
+     ["--model", "gcn", "--remote-shards", "3", "--replication", "2",
+      "--chaos"]))
+EXAMPLE_LOAD, EXAMPLE_REQUESTS = ["--requests", "4", "--clients", "4"], 16
+EXAMPLE_KERNELS = {"gcn": ("agg_combine",), "gin": ("spmm", "gemm"),
+                   "ngcf": ("spmm", "gemm", "sddmm")}
+EXAMPLE_DAYS = 3
 # the SPMD engine: (data, model) meshes of slots on the one card, and the
 # mesh whose run_batch is held to its serial run bit for bit
 MESH_SHAPES = ((1, 1), (1, 2), (2, 2), (1, 4), (2, 4))
@@ -383,6 +423,7 @@ L2_BYTES = 50 * 2**20                 # the H100's L2
 # in turn on copies of its tensor arguments that together pass eight L2s
 COLD_BYTES, COLD_MAX_COPIES, COLD_LAUNCHES = 8 * L2_BYTES, 512, 40
 SPIN_CYCLES_PER_US = 2000              # the H100's 1.98 GHz top clock, rounded up
+EVENT_CHUNK = 16                      # timed calls behind one spin
 PROFILE_TRIES = 3                     # profiler windows before giving up
 LM_LOGITS_TOL = 1e-3
 
@@ -415,13 +456,19 @@ DENSE_FP32_TOL = 1e-3
 JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 4
 JAMBA_BATCH, JAMBA_PROMPT, JAMBA_SEQ, JAMBA_STEPS = 2, 256, 512, 8
 XLSTM_ARCH = "xlstm-125m"
-XLSTM_BATCH, XLSTM_PROMPT, XLSTM_SEQ, XLSTM_STEPS = 4, 256, 512, 16
-# training xlstm-125m through the launcher's defaults (batch 8, seq 128,
-# remat "full"): 10 steps, a run that fails at step 7 and its resume from
-# the step-5 checkpoint (losses within the reference's rtol 1e-5,
-# tests/test_train_infra.py), then the tiny overfit of tests/test_models.py
-TRAIN_STEPS, TRAIN_FAULT_AT, TRAIN_CKPT_EVERY, RESUME_RTOL = 10, 7, 5, 1e-5
-OVERFIT_STEPS, OVERFIT_LR, OVERFIT_DROP = 15, 3e-3, 0.5
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_SEQ, XLSTM_STEPS = 4, 128, 256, 8
+# training xlstm-125m through examples/torch_train_lm.py at the example's
+# batch of 4 and half its sequence (remat "full"; at seq 256 a step took
+# 14-19 s and its profiled windows 6 minutes of the budget): 4 steps,
+# then the launcher on the example's arguments with a checkpoint every 2
+# steps, a run that fails at step 3 and its resume from the step-2
+# checkpoint (losses within the reference's rtol 1e-5,
+# tests/test_train_infra.py), then the tiny overfit of
+# tests/test_models.py (8 steps) on one batch of 8 x 32 tokens
+TRAIN_SEQ = 128
+TRAIN_STEPS, TRAIN_FAULT_AT, TRAIN_CKPT_EVERY, RESUME_RTOL = 4, 3, 2, 1e-5
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_DROP = 8, 3e-3, 0.5
+OVERFIT_BATCH, OVERFIT_SEQ = 8, 32
 # an attention family's training: llama3.2-3b at its widths, 2 layers
 ATTN_TRAIN_ARCH, ATTN_TRAIN_LAYERS = "llama3.2-3b", 2
 ATTN_TRAIN_BATCH, ATTN_TRAIN_SEQ, ATTN_TRAIN_STEPS = 4, 512, 3
@@ -557,7 +604,7 @@ RA_TRAIN_TOL = {"xlstm-125m": (1e-4, 1e-3),
 # near-cancelling gradient elements, so rounding there moves them by
 # per cent of their max (conv_b 1.3e-2 in 29e) while their m and v, held
 # like every leaf's, agree within 2e-6
-RA_TRAIN_BATCH, RA_TRAIN_SEQ, RA_TRAIN_STEPS = 4, 128, 3
+RA_TRAIN_BATCH, RA_TRAIN_SEQ, RA_TRAIN_STEPS = 4, 64, 3
 RA_ROWS_MESH = "1x16"
 # the encoder-decoder on the model axis (phase 16, after phase 15): phase
 # 8's seamless cut (published widths: d_model 1,024, 16 heads and 16 KV
@@ -752,47 +799,188 @@ def flash_bf16_sass(_build) -> dict[str, dict[str, int]]:
     return counts
 
 
+# the kernel each wrapper launch runs once (decode_attention's split kernel
+# runs only where a sequence has positions; its combine kernel always, for
+# the partial entry too), as a pattern of the profiler's kernel names
+COUNT_SYMBOLS = {"agg_combine": r"\bagg_combine_kernel\b",
+                 "spmm": r"\bspmm_kernel\b", "gemm": r"\bgemm_kernel\b",
+                 "sddmm": r"\bsddmm_kernel\b",
+                 "rmsnorm": r"\brmsnorm_kernel\b",
+                 "flash_attention": r"\bflash_(?:wgmma_)?kernel\b",
+                 "decode_attention": r"\bdecode_combine_kernel\b"}
+
+
+MARKERS = [64]                        # the marker burst's size, grown in use
+
+
 def profiled(torch, fn, reps: int = 1):
     """The card's work during ``reps`` calls of ``fn`` under torch.profiler
     (its key_averages entries) and the host ms of that window, which ends
-    in a synchronize (the profiler slows the host somewhat).  The profiler
-    now and then records no device time for a window; every ``fn`` here
-    launches work on the card, so such a window is taken again, up to
-    PROFILE_TRIES windows in all.  The entries are empty only if every
-    window lost them.  Only the card's activity is recorded: host op
-    events add nothing to the device time and slow the windows of the
-    plain versions, whose loops launch many small kernels."""
+    in a synchronize (the profiler slows the host somewhat).  Only the
+    card's activity is recorded, with ``acc_events`` on (one window is
+    one cycle; without it the profiler warns that it clears events at
+    the end of each cycle).  torch.profiler drops the first launches of
+    a window, a few more in each window a process opens (3-4 more a
+    window on torch 2.11, ``tools/torch_profiler_counts.py``), so each
+    window opens with a burst of MARKERS[0] spin kernels and a
+    synchronize, which absorb the loss and are left out of the entries
+    and the host ms; the burst grows to twice what it lost where it lost
+    half.  Each window is held to the kernel wrappers' launch counters:
+    the launches of each kernel the profiler recorded (``COUNT_SYMBOLS``)
+    must equal what its wrapper counted in the window.  A short window
+    is printed and taken again with a burst four times larger, up to
+    PROFILE_TRIES windows in all; if every window is short, the phase
+    raises."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    from repro_torch import kernels
+    for attempt in range(1, PROFILE_TRIES + 1):
+        burst = MARKERS[0]
+        before = kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(burst):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        counted = {k: v - before[k]
+                   for k, v in kernels.launch_counts().items()}
+        counted["decode_attention"] += counted.pop("decode_attention_partial")
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
-        if events:
-            break
-    return events, wall * 1e3
+        lost = burst - sum(e.count for e in events
+                           if re.search(r"\bspin_kernel\b", e.key))
+        if 2 * lost >= burst:
+            MARKERS[0] = 2 * max(lost, burst)
+        events = [e for e in events
+                  if not re.search(r"\bspin_kernel\b", e.key)]
+        seen = {k: sum(e.count for e in events if re.search(sym, e.key))
+                for k, sym in COUNT_SYMBOLS.items()}
+        short = {k: (seen[k], counted[k]) for k in COUNT_SYMBOLS
+                 if seen[k] != counted[k]}
+        if not short and (events or not any(counted.values())):
+            return events, wall * 1e3
+        print(f"profiled: window {attempt} of {PROFILE_TRIES} recorded "
+              f"(kernel: recorded, launched) {short or 'no device events'}"
+              f"; {lost} of {burst} markers lost")
+        MARKERS[0] = 4 * max(MARKERS[0], burst)
+    raise AssertionError(f"torch.profiler lost kernel launches in all "
+                         f"{PROFILE_TRIES} windows: {short}")
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of one call of ``fn``: the summed time of every
-    kernel and copy the card ran over ``reps`` calls (torch.profiler),
-    after one warm-up call.  Host overhead between launches is not in it.
-    Where every profiler window lost the card's events, the time is taken
-    with CUDA events instead (host gaps between launches included), and a
-    line says so: a time is never reported that was not measured."""
-    fn()
+def graph_calls(torch, calls) -> list:
+    """Each of ``calls`` captured into a CUDA graph (one memory pool for
+    all, so replays run in turn on one stream), as callables that replay
+    it and return its output: a plain version's or a library call's
+    launches then reach the card as one, back to back, with none of the
+    host's issue between them."""
+    pool = torch.cuda.graph_pool_handle()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    replays = []
+    with torch.cuda.stream(side):
+        calls[0]()                      # warm: cuBLAS workspaces, plans
+        for c in calls:
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=pool)
+            out = c()
+            g.capture_end()
+            replays.append(lambda g=g, out=out: (g.replay(), out)[1])
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    events, _ = profiled(torch, fn, reps)
-    if events:
-        return sum(e.self_device_time_total for e in events) / 1e3 / reps
-    print(f"device_ms: torch.profiler recorded no device time in "
-          f"{PROFILE_TRIES} windows; this time is from CUDA events")
-    return call_ms(torch, fn, reps)
+    return replays
+
+
+def event_ms(torch, calls, launches: int = COLD_LAUNCHES,
+             graphed: bool = False) -> float:
+    """Device ms of one call: ``calls`` (callables without arguments, each
+    on inputs of its own) run in turn, at least ``launches`` calls timed,
+    each between two CUDA events, the median of as many empty pairs (the
+    events' own time) taken off.  The calls go in chunks of EVENT_CHUNK,
+    each behind a spin kernel (``torch.cuda._sleep``) on an idle card
+    that outlasts the host's issue of the whole chunk, so the card runs
+    the chunk's calls back to back and no pair holds a host gap: each
+    chunk's issue is held to its spin, and a chunk the host did not
+    issue within it is taken again with a spin of twice its pace; after
+    PROFILE_TRIES passes the phase raises (a spin sized from one fast
+    issue of a call, as before this check, let a one-head flash launch
+    read its host's gap).  The spin is sized at 1.5 times the slowest of
+    three timed issues of the first call a call, at least 20 us.  With
+    ``graphed``, for plain versions and library calls, each call is
+    first captured into a CUDA graph (``graph_calls``) and its replay
+    timed: a plain version's loops issue more launches than the card's
+    queue holds, and a library call's host path can outrun a spin sized
+    from its fastest issue, so neither could be covered as it is, and
+    both are read as device time.  Each output is kept, so each goes to
+    fresh memory; the timed pass follows an untimed one that grows the
+    caching allocator's pool to hold them, so no ``cudaMalloc`` falls
+    between a pair."""
+    if graphed:
+        calls = graph_calls(torch, calls)
+    for c in calls:                     # warm: plans, allocator, modules
+        c()
+    torch.cuda.synchronize()
+    issue_us = 0.0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        calls[0]()
+        issue_us = max(issue_us, (time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+
+    def timed(fns, pace_us, check):
+        """Each pair's device ms, and the slowest chunk's host us a call
+        where a chunk's issue outran its spin (0.0 where none did)."""
+        pairs, outs, worst = [], [], 0.0   # outputs kept: fresh memory
+        for i in range(0, len(fns), EVENT_CHUNK):
+            chunk = fns[i:i + EVENT_CHUNK]
+            torch.cuda.synchronize()
+            spin = pace_us * len(chunk)
+            torch.cuda._sleep(int(spin * SPIN_CYCLES_PER_US))
+            t0 = time.perf_counter()
+            for fn in chunk:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                outs.append(fn())
+                end.record()
+                pairs.append((start, end))
+            host = (time.perf_counter() - t0) * 1e6
+            if check and 1.2 * host + 20.0 > spin:
+                worst = max(worst, host / len(chunk))
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in pairs], worst
+
+    fns = calls * -(-launches // len(calls))
+    pace = max(20.0, 1.5 * issue_us)
+    gc.disable()                        # no collection inside a chunk
+    try:
+        timed(fns, pace, False)         # the pool grows to hold the outputs
+        empty = float(np.median(timed([lambda: None] * len(fns), pace,
+                                      False)[0]))
+        for _ in range(PROFILE_TRIES):
+            got, worst = timed(fns, pace, True)
+            if not worst:
+                break
+            pace = 2 * worst
+        else:
+            raise AssertionError(
+                f"event_ms: the host's issue ({worst:.1f} us a call) "
+                f"outran a spin of {pace / 2:.1f} us a call in "
+                f"{PROFILE_TRIES} passes")
+    finally:
+        gc.enable()
+    return float(np.mean(got)) - empty
+
+
+def warm_ms(torch, fn, launches: int = COLD_LAUNCHES, **kw) -> float:
+    """Device ms of ``fn`` on the same inputs every time (``event_ms`` of
+    one call repeated): its inputs in the L2 where they fit."""
+    return event_ms(torch, [fn], launches, **kw)
 
 
 def call_ms(torch, fn, reps: int = 20) -> float:
@@ -853,16 +1041,23 @@ def signature(name, args, kwargs) -> str:
     return f"({text})" + (f" {kwargs['mode']}" if "mode" in kwargs else "")
 
 
-def replay(torch, card, name, fn, calls, launches, mesh=None):
+def replay(torch, card, name, fn, calls, launches, mesh=None,
+           warm: bool = True):
     """One GNN kernel's recorded calls of a main-path run, held to its
     plain version and timed.  Every call is checked at TOL[name] (spmm and
     sddmm bit for bit) and counted into the bound.  Then the calls of each
-    shape are timed together, every recorded call in each window: the
-    kernel, its plain version and the library call as device ms under
-    torch.profiler, and the kernel back to back (CUDA events, host
-    included).  Prints the kernel's line (prefixed with the mesh where one
-    is given) and returns its ``kernels`` row (keyed by ``mesh``) and, by
-    shape, {"calls", "ms", "lib_ms", "bound"} summed over its calls."""
+    shape are timed together, every recorded call in each pass, with
+    CUDA events: the kernel and the library call cold (``cold_group_ms``:
+    each pass on copies of the inputs past the L2, the footing of the
+    bound, which no row may read under) and warm (``warm_ms``), the
+    library call the same ways as CUDA graph replays (``graphed``), the
+    plain version warm as one graph of the pass (a graph for each cold
+    copy took seconds a shape to capture, for loops of 420 gemm steps
+    that write far past the L2 on their own), and the kernel back to
+    back, host included.  Prints the kernel's line (prefixed with the
+    mesh where one is given) and returns its ``kernels`` row (keyed by
+    ``mesh``), timed cold, and, by shape, {"calls", "ms", "warm",
+    "lib_ms", "lib_warm", "bound"} summed over its calls."""
     from repro_torch.kernels import cost, ref
     plain, tol = gnn_plain(ref)[name], TOL[name]
     shapes = {}
@@ -890,20 +1085,31 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
         s["calls"].append((args, kwargs))
         s["bound"] += max(t_bytes, t_ops)
 
-    ms = back_ms = plain_ms = 0.0
+    ms = warm_sum = back_ms = plain_ms = 0.0
     lib_ms = 0.0 if name in ("gemm", "spmm") else None
     for s in shapes.values():
         group = s["calls"]
-        s["ms"] = device_ms(torch, lambda: [fn(*a, **k) for a, k in group])
+        s["ms"] = cold_group_ms(
+            torch, lambda a, k: (lambda: fn(*a, **k)), group)
+        if warm:
+            s["warm"] = warm_ms(torch, lambda: [fn(*a, **k) for a, k in group])
+            warm_sum += s["warm"]
         ms += s["ms"]
         back_ms += call_ms(torch, lambda: [fn(*a, **k) for a, k in group])
-        plain_ms += device_ms(                  # one window: host-bound
-            torch, lambda: [plain(*a, **k) for a, k in group], reps=1)
+        plain_ms += warm_ms(                    # one graph: see above
+            torch, lambda: [plain(*a, **k) for a, k in group], launches=3,
+            graphed=True)
         if lib_ms is not None:
             libs = [gnn_library(torch, name, a, k) for a, k in group]
-            s["lib_ms"] = device_ms(torch, lambda: [lib() for lib in libs])
+            s["lib_ms"] = cold_group_ms(
+                torch, lambda a, k: gnn_library(torch, name, a, k), group,
+                graphed=True)
+            if warm:
+                s["lib_warm"] = warm_ms(
+                    torch, lambda: [lib() for lib in libs], graphed=True)
             lib_ms += s["lib_ms"]
     bound_ms = sum(s["bound"] for s in shapes.values())
+    assert ms >= bound_ms, (mesh, name, ms, bound_ms)
     src, replaces = KERNEL_SOURCES[name]
     row = {"name": name, "route": "cuda", "source": src,
            "replaces": replaces, "launches": launches, "max_abs_err": max_err,
@@ -915,8 +1121,9 @@ def replay(torch, card, name, fn, calls, launches, mesh=None):
     tag = f"spmd {mesh[0]}x{mesh[1]} " if mesh is not None else ""
     print(f"{tag}{name}: {len(calls)} calls over {len(shapes)} shapes, max "
           f"abs err {max_err:.3g} (tol {tol}), kernel {ms:.4f} ms a pass on "
-          f"the card ({back_ms:.4f} ms back to back, host included), plain "
-          f"{plain_ms:.4f} ms, library "
+          f"the card, cold ({f'warm {warm_sum:.4f}; ' if warm else ''}"
+          f"{back_ms:.4f} back to back, host included), plain warm "
+          f"{plain_ms:.4f} ms, library cold "
           f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
           f"{bound_ms:.4f} ms  [{card}]")
     return row, shapes
@@ -1258,7 +1465,8 @@ def spmd_phase(torch, card, edges, emb, setups, reqs, fused,
         # slice shape with every recorded call in each window
         for name in (k for k in GNN_KERNELS if launches[k]):
             row, shapes = replay(torch, card, name, originals[name],
-                                 recorded[name], launches[name], mesh=(d, m))
+                                 recorded[name], launches[name], mesh=(d, m),
+                                 warm=False)
             rows.append(row)
             for sig, s in shapes.items():
                 n = len(s["calls"])
@@ -1561,45 +1769,51 @@ def lm_phase(torch, card: str) -> list[dict]:
              "flash_attention": ref.attention_ref,
              "decode_attention": ref.decode_attention_ref}
 
-    def decode_cold_ms(fn, args) -> float:
+    def decode_cold_ms(fn, args, rounds=DECODE_COLD_ROUNDS,
+                       graphed=False) -> float:
         """Device ms a launch with every launch on another layer's pools:
         the call's q, page table and lengths against layers 0..L-1 of the
-        pools its K and V pages are views of, DECODE_COLD_ROUNDS times
-        over.  The layers' pages together (L times the call's K and V
-        rows, ~460 MB at batch 4) exceed the 50 MB L2, so each launch
-        reads its pages from HBM, as each layer of a decode step does."""
+        pools its K and V pages are views of, ``rounds`` times over
+        (``event_ms``).  The layers' pages together (L times the call's K
+        and V rows, ~460 MB at batch 4) exceed the 50 MB L2, so each
+        launch reads its pages from HBM, as each layer of a decode step
+        does."""
         q, kp, vp, pt, lengths = args
         kb, vb = kp._base, vp._base
         assert kb is not None and tuple(kb.shape[1:]) == tuple(kp.shape)
         calls = [lambda li=li: fn(q, kb[li], vb[li], pt, lengths)
                  for li in range(kb.shape[0])]
-        return device_ms(torch, lambda: [c() for c in calls],
-                         reps=DECODE_COLD_ROUNDS) / len(calls)
+        return event_ms(torch, calls, len(calls) * rounds, graphed=graphed)
 
     rows = []
     rms_shapes = {}       # (rows, F, dtype) -> [calls, kernel, lib, bound]
     for name in LM_KERNELS:
         fn = originals[name]
         ms = plain_ms = bound_ms = by_bytes = by_ops = max_err = 0.0
-        calls_ms = warm_ms = 0.0
+        calls_ms = warm = 0.0
         lib_ms = None if name == "decode_attention" else 0.0
         for args, kwargs, count in recorded[name].values():
             max_err = max(max_err, hold_to_plain(torch, name, fn,
                                                  plain[name], args, kwargs))
-            one_ms = device_ms(torch, lambda: fn(*args, **kwargs))
+            warm += count * warm_ms(torch, lambda: fn(*args, **kwargs))
             if name == "decode_attention":        # the cold figure counts
-                warm_ms += count * one_ms
                 one_ms = decode_cold_ms(fn, args)
-                one_plain = decode_cold_ms(plain[name], args)
+                one_plain = decode_cold_ms(plain[name], args, rounds=1,
+                                           graphed=True)
             else:
-                one_plain = device_ms(
-                    torch, lambda: plain[name](*args, **kwargs), reps=5)
+                one_ms = cold_ms(torch, lambda a: (lambda: fn(*a, **kwargs)),
+                                 args)
+                one_plain = cold_ms(
+                    torch, lambda a: (lambda: plain[name](*a, **kwargs)),
+                    args, launches=3, graphed=True)
             ms += count * one_ms
             plain_ms += count * one_plain
             calls_ms += count * call_ms(torch, lambda: fn(*args, **kwargs))
             lib = None if name == "decode_attention" \
                 else lm_library(torch, name, args, kwargs)
-            one_lib = device_ms(torch, lib) if lib is not None else 0.0
+            one_lib = cold_ms(torch, lambda a: lm_library(
+                torch, name, a, kwargs), args,
+                graphed=True) if lib is not None else 0.0
             if lib is not None:
                 lib_ms += count * one_lib
             t_bytes, t_ops = bound_ms_of(torch, name, args, kwargs)
@@ -1617,6 +1831,7 @@ def lm_phase(torch, card: str) -> list[dict]:
                                        max(t_bytes, t_ops))):
                     acc[i] += v if i == 0 else count * v
         n = launches[name]
+        assert ms >= bound_ms, (name, ms, bound_ms)
         src, replaces = KERNEL_SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
@@ -1626,8 +1841,9 @@ def lm_phase(torch, card: str) -> list[dict]:
                      "library_ms": lib_ms})
         print(f"{name}: {n} launches over {len(recorded[name])} argument "
               f"layouts, max abs err {max_err:.3g} (tol {TOL[name]}, bf16 "
-              f"{TOL_BF16}); summed over the run: kernel {ms:.4f} ms on the "
-              f"card ({ms / n:.5f} per launch; back to back, host included, "
+              f"{TOL_BF16}); summed over the run, CUDA events: kernel "
+              f"{ms:.4f} ms on the card cold ({ms / n:.5f} per launch; warm "
+              f"{warm / n:.5f}; back to back, host included, "
               f"{calls_ms / n:.5f}), plain {plain_ms:.4f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
               f"{bound_ms:.4f} ms ({bound_ms / n:.5f} per launch)  [{card}]")
@@ -1638,7 +1854,7 @@ def lm_phase(torch, card: str) -> list[dict]:
         if name == "decode_attention":
             print(f"decode_attention cold: {ms / n:.5f} ms a launch, each "
                   f"launch on another layer's pools; warm (one layer's "
-                  f"pools repeated) {warm_ms / n:.5f}; plain, cold "
+                  f"pools repeated) {warm / n:.5f}; plain, cold "
                   f"{plain_ms / n:.5f}; bound {bound_ms / n:.5f} "
                   f"({100 * bound_ms / ms:.1f} % of bound reached)  [{card}]")
 
@@ -1733,54 +1949,44 @@ def dense_generate(torch, api, params, inp, prompt: int, steps: int,
     return logits, prefill_s, step_s, (caches, lengths, extra)
 
 
-def cold_ms(torch, make, args, launches: int = COLD_LAUNCHES) -> float:
+def cold_ms(torch, make, args, launches: int = COLD_LAUNCHES,
+            **kw) -> float:
     """Device ms of one call with its inputs in HBM, on the footing of a
     bound that reads every input from HBM: ``make(args)`` (a call of the
     function on ``args``) built on copies of the tensor arguments that
-    together pass COLD_BYTES, eight times the L2, and run in turn, so no
-    copy is in the L2 when its turn comes; each output is kept, so each
-    goes to fresh memory, and those still unwritten when the window ends
-    (an L2 at most) are a small share of the bytes.
-    Copies are capped at COLD_MAX_COPIES: only inputs under 0.8 MB stream
-    less, and such calls take their launch latency, far above their
-    bound.  At least ``launches`` calls are timed, each between two CUDA
-    events behind a spin kernel (``torch.cuda._sleep``) that outlasts the
-    host's issue of the call, so the pair holds the call's device time
-    without host gaps; the mean of as many empty pairs (the events' own
-    time) is taken off.  The timed pass follows an untimed one that grows
-    the caching allocator's pool to hold every kept output, so no
-    ``cudaMalloc`` falls between a pair (on a pool just emptied, the
-    first function timed read up to 10x its time).  Not torch.profiler:
-    late in a long run it was seen to lose most of a window's kernel
-    events, and a row then read faster than its bound."""
+    together pass COLD_BYTES, eight times the L2, and run in turn
+    (``event_ms``), so no copy is in the L2 when its turn comes; each
+    output is kept, so each goes to fresh memory, and those still
+    unwritten when the window ends (an L2 at most) are a small share of
+    the bytes.  Copies are capped at COLD_MAX_COPIES: only inputs under
+    0.8 MB stream less, and such calls take their launch latency, far
+    above their bound.  CUDA events, not torch.profiler: late in a long
+    run the profiler was seen to lose most of a window's kernel events,
+    and a row then read faster than its bound."""
     size = sum(a.numel() * a.element_size() for a in args
                if isinstance(a, torch.Tensor))
     n = min(COLD_MAX_COPIES, max(2, -(-COLD_BYTES // max(size, 1))))
     calls = [make(tuple(a.clone() if isinstance(a, torch.Tensor) else a
                         for a in args)) for _ in range(n)]
-    for c in calls:                     # warm: plans, allocator
-        c()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    calls[0]()
-    issue_us = (time.perf_counter() - t0) * 1e6
-    spin = int(max(50.0, 3 * issue_us) * SPIN_CYCLES_PER_US)
-    def timed(fns):
-        pairs, outs = [], []            # outputs kept: each to fresh memory
-        for fn in fns:
-            torch.cuda._sleep(spin)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            outs.append(fn())
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+    return event_ms(torch, calls, launches, **kw)
 
-    fns = calls * -(-launches // n)
-    timed(fns)                          # the pool grows to hold the outputs
-    return timed(fns) - timed([lambda: None] * len(fns))
+
+def cold_group_ms(torch, make, group, launches: int = COLD_LAUNCHES,
+                  **kw) -> float:
+    """Device ms of one pass over ``group``, recorded (args, kwargs)
+    calls, with the inputs in HBM: ``cold_ms`` of the pass as one call
+    (``make(args, kwargs)`` builds a call's callable on the copies), at
+    least ``launches`` calls timed in all."""
+    spans, flat = [], []
+    for args, kwargs in group:
+        spans.append((len(flat), len(flat) + len(args), kwargs))
+        flat += args
+
+    def one_pass(f):
+        calls = [make(f[i:j], k) for i, j, k in spans]
+        return lambda: [c() for c in calls]
+    return cold_ms(torch, one_pass, tuple(flat),
+                   max(2, -(-launches // len(group))), **kw)
 
 
 def dense_rows(torch, card, recorded, originals, plain, path="dense",
@@ -1816,9 +2022,10 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
                 torch, lambda a: (lambda: fn(*a, **kwargs)), args)
             plain_ms += count * cold_ms(
                 torch, lambda a: (lambda: plain[name](*a, **kwargs)), args,
-                launches=3)
+                launches=3, graphed=True)
             lib_ms += count * cold_ms(
-                torch, lambda a: lm_library(torch, name, a, kwargs), args)
+                torch, lambda a: lm_library(torch, name, a, kwargs), args,
+                graphed=True)
             t_bytes, t_ops = bound_ms_of(torch, name, args, kwargs)
             bound += count * max(t_bytes, t_ops)
             by_bytes += count * t_bytes * (t_bytes >= t_ops)
@@ -2278,36 +2485,51 @@ def recurrent_train_phase(torch, card) -> list[dict]:
              "flash_attention": ref.attention_ref,
              "decode_attention": ref.decode_attention_ref}
     t_phase = time.perf_counter()
+    lap = [t_phase]
+
+    def took(what):
+        """Prints the seconds since the last such line (or the phase's
+        start)."""
+        now = time.perf_counter()
+        print(f"recurrent and train phase: {what} in {now - lap[0]:.1f} s")
+        lap[0] = now
+
     rows = recurrent_serve(torch, card, JAMBA_ARCH,
                            {"num_layers": JAMBA_LAYERS}, JAMBA_BATCH,
                            JAMBA_PROMPT, JAMBA_SEQ, JAMBA_STEPS, plain)
     rows += recurrent_serve(torch, card, XLSTM_ARCH, {}, XLSTM_BATCH,
                             XLSTM_PROMPT, XLSTM_SEQ, XLSTM_STEPS, plain,
                             cpu_witness=True)
+    took("recurrent serving")
 
-    # ---- xlstm-125m training through the launcher, at its defaults
+    # ---- xlstm-125m training through examples/torch_train_lm.py
+    example = load_example("torch_train_lm")
     originals = {name: getattr(ops, name) for name in LM_KERNELS}
     with tempfile.TemporaryDirectory() as tmp:
-        flags = ["--arch", XLSTM_ARCH, "--steps", str(TRAIN_STEPS),
-                 "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        flags = ["--steps", str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                 "--device", DEVICE]
         with recording(torch, ops, LM_KERNELS) as recorded:
             kernels.reset_launch_counts()
-            tr = launch_train.main(flags + ["--ckpt", f"{tmp}/a"])
+            out = example.main(flags + ["--ckpt", f"{tmp}/a"])
             launches = kernels.launch_counts()
+        took(f"the example's {TRAIN_STEPS} steps")
+        tr = out["trainer"]
         print(f"train {XLSTM_ARCH} main path launches: {launches}")
         assert launches["rmsnorm"] > 0, launches
-        losses = [m["loss"] for m in tr.metrics_log]
+        losses = out["losses"]
         assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
-        faulty = launch_train.make_trainer(launch_train.parse_args(
-            flags + ["--ckpt", f"{tmp}/b"]))
+        assert out["step"] == TRAIN_STEPS
+        argv = example.launcher_argv(example.parse_args(
+            flags + ["--ckpt", f"{tmp}/b"])) + [
+                "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        faulty = launch_train.make_trainer(launch_train.parse_args(argv))
         try:
             faulty.run(TRAIN_STEPS, fault_hook=lambda s: s == TRAIN_FAULT_AT)
             raise AssertionError("the injected fault did not fire")
         except RuntimeError as e:
             assert "injected fault" in str(e), e
         faulty.ckpt.wait()
-        resumed = launch_train.make_trainer(launch_train.parse_args(
-            flags + ["--ckpt", f"{tmp}/b"]))
+        resumed = launch_train.make_trainer(launch_train.parse_args(argv))
         assert resumed.ckpt.latest_step() == TRAIN_CKPT_EVERY
         resumed.run(TRAIN_STEPS - TRAIN_CKPT_EVERY)
         again = [m["loss"] for m in faulty.metrics_log][:TRAIN_CKPT_EVERY] \
@@ -2318,6 +2540,7 @@ def recurrent_train_phase(torch, card) -> list[dict]:
               f"{RESUME_RTOL} of the uninterrupted run's, max rel diff "
               f"{max(abs(a - b) / abs(b) for a, b in zip(again, losses)):.3g}"
               f", bit for bit {again == losses}; losses {losses}")
+    took("the fault and its resume")
     dts = np.asarray([m["dt"] for m in tr.metrics_log[1:]])
     shape = tr.shape
     tokens = shape.global_batch * shape.seq_len
@@ -2352,16 +2575,21 @@ def recurrent_train_phase(torch, card) -> list[dict]:
           f"{busy_text(busy, wall)}; device ms by kernel: {split}  [{card}]")
     step_fn = make_train_step(api, O.AdamWConfig(
         lr=OVERFIT_LR, warmup_steps=2, decay_steps=100))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in synth_batch(
+        api.cfg, replace(shape, global_batch=OVERFIT_BATCH,
+                         seq_len=OVERFIT_SEQ), 0).items()}
     fit = []
     for _ in range(OVERFIT_STEPS):
         params, opt, m = step_fn(params, opt, batch)
         fit.append(float(m["loss"]))
     print(f"train {XLSTM_ARCH} tiny overfit: {OVERFIT_STEPS} steps on one "
-          f"batch at lr {OVERFIT_LR}: loss {fit[0]:.4f} -> {fit[-1]:.4f} "
+          f"batch of {OVERFIT_BATCH} x {OVERFIT_SEQ} at lr "
+          f"{OVERFIT_LR}: loss {fit[0]:.4f} -> {fit[-1]:.4f} "
           f"(must fall by more than {OVERFIT_DROP})")
     assert fit[-1] < fit[0] - OVERFIT_DROP, fit
     del tr, faulty, resumed, params, opt, api, batch
     torch.cuda.empty_cache()
+    took("the train rows, a step's split and the overfit")
 
     # ---- an attention family's training: every leaf gets a gradient, and
     # the Functions' gradients on the run's arguments
@@ -2393,6 +2621,7 @@ def recurrent_train_phase(torch, card) -> list[dict]:
                        path="train", extra={"arch": ATTN_TRAIN_ARCH})
     del tr, recorded
     torch.cuda.empty_cache()
+    took(f"{ATTN_TRAIN_ARCH} training")
     print(f"recurrent and train phase: {time.perf_counter() - t_phase:.1f} "
           f"s")
     return rows
@@ -3762,7 +3991,7 @@ def step_ranges(torch, fn) -> tuple[dict, float]:
     returns from its part, not when the card does; the op recording slows
     the host, so the spans run longer than an unprofiled step's."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU], acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3892,8 +4121,8 @@ DRYRUN_PROCS = ("cells1", "cells2", "cells3", "cells4", "witness")
 
 
 def start_dryrun() -> tuple[list, str, object]:
-    """Phase 11's processes (DRYRUN_PROCS), started now so that their
-    CPU-only traces run beside the card's phases: (processes, the
+    """Phase 11's processes (DRYRUN_PROCS), started after phase 8 so that
+    their CPU-only traces run beside phases 9-14: (processes, the
     directory of their results, the counter the cell processes share,
     which the caller holds until they are joined: its semaphore goes
     when it does).  Daemonic, so an exit ends them."""
@@ -3903,7 +4132,7 @@ def start_dryrun() -> tuple[list, str, object]:
     ctx = multiprocessing.get_context("spawn")
     taken = ctx.Value("i", 0)
     procs = [ctx.Process(target=dryrun_worker, daemon=True,
-                         args=(name, out, taken))
+                         name=f"dryrun-{name}", args=(name, out, taken))
              for name in DRYRUN_PROCS]
     for p in procs:
         p.start()
@@ -4134,67 +4363,19 @@ def dryrun_phase(torch, card, procs, out) -> None:
     print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs the card",
-              file=sys.stderr)
-        return 2
-    from repro_torch import kernels   # fails without the repository beside us
+def gnn_phase(torch, card, kernel_rows: bool = True):
+    """Phases 3 and 4 (see the module docstring): the main path at full
+    width and, with ``kernel_rows``, every GNN kernel against its plain
+    version.  Returns (the ``kernels`` rows, and what phases 5 and 6
+    reuse: the graph, the models' DFGs and weights, the group's requests,
+    phase 3's results and each model's launches)."""
+    from repro_torch import kernels
     from repro_torch.core import gnn
     from repro_torch.core.service import HolisticGNNService, make_service_dfg
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ops import program_config
-    from repro_torch.rpc import RPCClient, RPCServer
 
-    # the dry run's processes (phase 11) run beside phases 1-14
-    dry_procs, dry_out, dry_taken = start_dryrun()
-
-    # ------------------------------------------------ 1. card, build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi)
-    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({_build.build_dir().name})")
-    entry = ""
-    for line in (_build.build_dir() / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            entry = kernel_name(line.split("'")[1])
-        elif "registers" in line or "spill" in line:
-            print(f"  {entry}: {line.strip()}")
-    sass = flash_bf16_sass(_build)
-    print(f"bf16 flash_attention SASS, tensor-core instructions: {sass}")
-    assert len(sass) == 5 and all(c["HGMMA"] + c["HMMA"] > 0
-                                  for c in sass.values()), sass
-
-    # ------------------------------------------------ 2. quickstart over RPC
-    rng = np.random.default_rng(0)
-    qs_edges = np.stack([rng.integers(0, 1000, 8000),
-                         rng.zipf(1.4, 8000) % 1000], 1).astype(np.int64)
-    qs_emb = rng.standard_normal((1000, 64)).astype(np.float32)
-    qs = HolisticGNNService(h_threshold=32, pad_to=32, device=DEVICE)
-    client = RPCClient(RPCServer(qs))
-    client.call("update_graph", edge_array=qs_edges, embeddings=qs_emb)
-    program_config(qs.xbuilder, "hetero")
-    qs_params = gnn.init_params("gcn", [64, 32, 16], seed=1, device="cpu")
-    qs_weights = {k: v.numpy() for k, v in
-                  gnn.dfg_feeds("gcn", qs_params, None, []).items()
-                  if k != "H"}
-    before = kernels.launch_counts()["agg_combine"]
-    out = client.call("run", dfg=make_service_dfg("gcn", 2, [10, 10]).save(),
-                      batch=[1, 2, 3, 4], weights=qs_weights)["Result"]
-    assert qs.engine.trace.count(("AggCombine", "vector")) == 2, \
-        qs.engine.trace
-    assert kernels.launch_counts()["agg_combine"] > before
-    assert out.shape[1] == 16 and np.isfinite(out).all()
-    print(f"quickstart: Result {out[:4].shape} via "
-          f"{sorted({d for _, d in qs.engine.trace})}")
-
+    t_phase = time.perf_counter()
     # ------------------------------------------------ 3. main path, full width
     edges, emb = make_graph()
     svc = HolisticGNNService(h_threshold=64, pad_to=64, device=DEVICE)
@@ -4276,19 +4457,12 @@ def main() -> int:
         print(f"{m}: hetero vs octa max abs err {err:.3g} (tol {SERVICE_TOL});"
               f" fused == serial bitwise for {GROUP} requests")
 
+    print(f"gnn: phase 3 in {time.perf_counter() - t_phase:.1f} s")
+    reuse = (edges, emb, setups, reqs, fused, per_model)
+    if not kernel_rows:
+        return [], reuse
+    t_phase = time.perf_counter()
     # ------------------------------------------------ 4. kernels vs plain
-    def spmm_cold_ms(args, kwargs) -> float:
-        """Device ms a launch with every launch on another copy of h: as
-        many copies as pass twice the L2 together, so each launch finds
-        the rows it gathers in HBM (nbr and mask, 0.1 MB, stay warm)."""
-        h, nbr, mask = args
-        n_copies = max(2, -(-2 * L2_BYTES // (h.numel() * h.element_size())))
-        copies = [h.clone() for _ in range(n_copies)]
-        fn = originals["spmm"]
-        calls = [lambda c=c: fn(c, nbr, mask, **kwargs) for c in copies]
-        ms = device_ms(torch, lambda: [c() for c in calls], reps=3)
-        return ms / n_copies
-
     def unfused(args, kwargs):
         """The port's own spmm kernel then its gemm kernel on agg_combine's
         arguments: the pair the fused kernel replaces."""
@@ -4302,29 +4476,29 @@ def main() -> int:
                                      recorded[name], launches[name])
         rows.append(row)
 
-    # by shape: where the pass's time goes, against torch.matmul (gemm),
-    # embedding_bag (spmm) and the port's unfused spmm + gemm kernels
-    # (agg_combine)
+    # by shape: where the pass's time goes, cold (inputs past the L2) and
+    # warm, against torch.matmul (gemm), embedding_bag (spmm) and the
+    # port's unfused spmm + gemm kernels (agg_combine)
     for name, shapes in by_shape.items():
         for sig, s in sorted(shapes.items(), key=lambda kv: -kv[1]["ms"]):
             group = s["calls"]
             n = len(group)
             yard = ""
-            share = f"{100 * s['bound'] / s['ms']:.1f} % of bound reached"
-            if name == "gemm":
-                yard = f", torch.matmul {s['lib_ms'] / n:.5f}"
+            if name in ("gemm", "spmm"):
+                lib = "torch.matmul" if name == "gemm" else "embedding_bag"
+                yard = (f"; {lib} {s['lib_ms'] / n:.5f} cold, "
+                        f"{s['lib_warm'] / n:.5f} warm")
             elif name == "agg_combine":
                 pairs = [unfused(a, k) for a, k in group]
-                pair_ms = device_ms(torch, lambda: [u() for u in pairs])
-                yard = f", unfused spmm + gemm {pair_ms / n:.5f}"
-            elif name == "spmm":
-                cold = sum(spmm_cold_ms(a, k) for a, k in group)
-                yard = (f" warm, {cold / n:.5f} cold (h past the L2), "
-                        f"embedding_bag {s['lib_ms'] / n:.5f} warm")
-                share = f"{share} warm, {100 * s['bound'] / cold:.1f} % cold"
+                pair_warm = warm_ms(torch, lambda: [u() for u in pairs])
+                pair_cold = cold_group_ms(torch, unfused, group)
+                yard = (f"; unfused spmm + gemm {pair_cold / n:.5f} cold, "
+                        f"{pair_warm / n:.5f} warm")
             print(f"{name} {sig}: {n} calls, kernel {s['ms'] / n:.5f} ms a "
-                  f"launch{yard}, bound {s['bound'] / n:.5f} ({share})  "
-                  f"[{card}]")
+                  f"launch cold, {s['warm'] / n:.5f} warm{yard}; bound "
+                  f"{s['bound'] / n:.5f} ({100 * s['bound'] / s['ms']:.1f} % "
+                  f"of bound reached cold, {100 * s['bound'] / s['warm']:.1f}"
+                  f" % warm)  [{card}]")
 
     # agg_combine_partial and bf16 gemm on main-path arguments
     (h, nbr, mask, w, _b), kw = recorded["agg_combine"][0]
@@ -4344,53 +4518,260 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
+    print(f"gnn: phase 4 in {time.perf_counter() - t_phase:.1f} s")
+    return rows, reuse
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_phase(torch) -> None:
+    """Phase 2: ``examples/torch_quickstart.py`` on the card: the flow
+    over RPC must run both GCN layers as AggCombine on the vector device
+    and launch the agg_combine kernel."""
+    from repro_torch import kernels
+    before = kernels.launch_counts()["agg_combine"]
+    out = load_example("torch_quickstart").main(["--device", DEVICE])
+    res = out["Result"]
+    assert out["trace"].count(("AggCombine", "vector")) == 2, out["trace"]
+    assert kernels.launch_counts()["agg_combine"] > before
+    assert res.shape[1] == 16 and np.isfinite(res).all()
+    print(f"quickstart: Result {res[:4].shape} via {out['devices']}")
+
+
+def examples_phase(torch, card) -> None:
+    """Phase 17: the port's examples on the card (see the module
+    docstring): ``torch_serve_gnn`` under each drill of EXAMPLE_DRILLS,
+    ``torch_mutable_graph`` and ``torch_serve_lm_paged``; each serving
+    run's launches of its model's kernels above zero, every drill's own
+    asserts (bit for bit against its serial replay or reference answer)
+    and none of its requests failed, under the lock witness."""
+    from repro_torch import concurrency, kernels
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    serve_gnn = load_example("torch_serve_gnn")
+    seen = dict.fromkeys(GNN_KERNELS, 0)
+    concurrency.reset_witness()
+    concurrency.set_witness(True)     # locks made from here on are checked
+    try:
+        for label, flags in EXAMPLE_DRILLS:
+            model = flags[flags.index("--model") + 1]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = serve_gnn.main(flags + EXAMPLE_LOAD + ["--device", DEVICE])
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            for k in GNN_KERNELS:
+                seen[k] += launches[k]
+            want = EXAMPLE_KERNELS[model]
+            assert all(launches[k] > 0 for k in want), (label, launches)
+            assert rep["failed"] == 0 and rep["requests"] == \
+                EXAMPLE_REQUESTS, (label, rep)
+            drills = [d for d in ("firehose", "reshard", "kill", "chaos")
+                      if d in rep]
+            assert drills and all(rep[d]["bit_identical"] is True
+                                  for d in drills), (label, rep)
+            if "--reshard-grow" in flags and "--kill-shard" in flags:
+                assert rep["kill"]["mid_migration"], (label, rep["kill"])
+            assert rep["witness"]["violations"] == 0, (label, rep)
+            print(f"examples serve_gnn {label}: {wall:.1f} s, "
+                  f"{rep['requests']} requests in {rep['serve_s']:.3f} s "
+                  f"({rep['requests_per_s']:.1f} requests/s; scheduler "
+                  f"{rep['scheduler']['throughput_rps']:.1f}), drills "
+                  f"{drills} bit for bit, launches "
+                  f"{ {k: launches[k] for k in GNN_KERNELS} }  [{smi}]")
+    finally:
+        concurrency.set_witness(False)
+    assert all(seen[k] > 0 for k in GNN_KERNELS), seen
+    print(f"examples serve_gnn: the four GNN kernels launched {seen}")
+
+    t0 = time.perf_counter()
+    mg = load_example("torch_mutable_graph").main(
+        ["--days", str(EXAMPLE_DAYS), "--device", DEVICE])
+    assert mg["written_pages"] > 0 and mg["pages_h"] + mg["pages_l"] > 0
+    print(f"examples mutable_graph --days {EXAMPLE_DAYS}: "
+          f"{time.perf_counter() - t0:.1f} s, page statistics {mg}  [{smi}]")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm = load_example("torch_serve_lm_paged").main(
+        ["--requests", "2", "--max-new", "4", "--device", DEVICE])
+    launches = kernels.launch_counts()
+    assert all(launches[k] > 0 for k in LM_KERNELS), launches
+    assert lm["requests"] == 2 and all(len(g) == 4 for g in
+                                       lm["generated"].values()), lm
+    print(f"examples serve_lm_paged (smoke size): "
+          f"{time.perf_counter() - t0:.1f} s, {lm['requests']} requests, "
+          f"{lm['tokens']} tokens in {lm['seconds']:.3f} s "
+          f"({lm['tokens_per_s']:.1f} tokens/s), launches "
+          f"{ {k: launches[k] for k in LM_KERNELS} }  [{smi}]")
+
+
+PHASES = ("2", "3", "4", "5", "6", "7", "8", "9", "10", "12", "13", "14",
+          "11", "15", "16", "17")
+
+
+def selected_phases(argv) -> tuple[str, ...]:
+    """The phases to run, in their order: all of them with no arguments
+    (as the smoke run is made); ``--only 9,16`` runs phase 1 and those
+    (phase 3 also where 4, 5 or 6 is asked for, which reuse its run)."""
+    if not argv:
+        return PHASES
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit(f"usage: chip_smoke.py [--only N,N,...] (phases "
+                         f"{', '.join(PHASES)})")
+    only = set(argv[1].split(","))
+    assert only <= set(PHASES), (only, PHASES)
+    if only & {"4", "5", "6"}:
+        only.add("3")
+    return tuple(p for p in PHASES if p in only)
+
+
+# the phases whose times seed the benchmark's cells: no dry-run process
+# runs beside them (phase 4 runs inside phase 3's call)
+TIMED_ALONE = ("3", "5", "6", "7", "8")
+
+
+def no_dryrun_alive(where: str) -> None:
+    """Phase 11's processes must not run beside a phase whose times seed
+    the benchmark's cells (3, 5, 6, 7 and 8)."""
+    import multiprocessing
+    alive = [p.name for p in multiprocessing.active_children()
+             if p.name.startswith("dryrun-")]
+    assert not alive, (where, alive)
+
+
+def main(argv=None) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the card",
+              file=sys.stderr)
+        return 2
+    from repro_torch import kernels   # noqa: F401  (needs the repository)
+    from repro_torch.kernels import _build
+    phases = selected_phases(sys.argv[1:] if argv is None else argv)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def run(phase: str, label: str, fn):
+        """One phase, timed; its seconds printed and kept for the summary."""
+        if phase not in phases:
+            return None
+        if phase in TIMED_ALONE:
+            no_dryrun_alive(f"the start of phase {phase}")
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[phase] = time.perf_counter() - t0
+        if phase in TIMED_ALONE:
+            no_dryrun_alive(f"the end of phase {phase}")
+        print(f"phase {phase} ({label}): {seconds[phase]:.1f} s")
+        return out
+
+    # ------------------------------------------------ 1. card, build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi)
+    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"({_build.build_dir().name})")
+    entry = ""
+    for line in (_build.build_dir() / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print(f"  {entry}: {line.strip()}")
+    sass = flash_bf16_sass(_build)
+    print(f"bf16 flash_attention SASS, tensor-core instructions: {sass}")
+    assert len(sass) == 5 and all(c["HGMMA"] + c["HMMA"] > 0
+                                  for c in sass.values()), sass
+    seconds["1"] = time.perf_counter() - t_start
+    print(f"phase 1 (card, build): {seconds['1']:.1f} s")
+
+    # ------------------------------------------------ 2. quickstart over RPC
+    run("2", "quickstart", lambda: quickstart_phase(torch))
+
+    # ------------------------------------------------ 3-4. GNN main path
+    rows, reuse = run("3", "GNN main path and kernels", lambda: gnn_phase(
+        torch, card, kernel_rows="4" in phases)) or ([], None)
+
     # ------------------------------------------------ 5. SPMD engine
-    rows += spmd_phase(torch, card, edges, emb, setups, reqs, fused,
-                       per_model)
+    rows += run("5", "SPMD engine", lambda: spmd_phase(
+        torch, card, *reuse[:5], reuse[5])) or []
 
     # ------------------------------------------------ 6. array + runtime
-    array_phase(torch, card, edges, emb, setups, reqs, fused)
+    run("6", "array and runtime", lambda: array_phase(torch, card,
+                                                       *reuse[:5]))
 
     # ------------------------------------------------ 7. LM path, full width
-    rows += lm_phase(torch, card)
+    rows += run("7", "paged LM", lambda: lm_phase(torch, card)) or []
 
     # ------------------------------------------------ 8. dense-cache LM path
-    rows += dense_phase(torch, card)
+    rows += run("8", "dense LM", lambda: dense_phase(torch, card)) or []
+
+    # the dry run's processes (phase 11) start here: they run beside
+    # phases 9-14, after the phases whose times seed the benchmark's cells
+    dry = start_dryrun() if "11" in phases else None
 
     # ------------------------------------------------ 9. recurrent and train
-    rows += recurrent_train_phase(torch, card)
+    rows += run("9", "recurrent and train",
+                lambda: recurrent_train_phase(torch, card)) or []
 
     # ------------------------------------------------ 10. training on a mesh
-    rows += mesh_train_phase(torch, card)
+    rows += run("10", "training on a mesh",
+                lambda: mesh_train_phase(torch, card)) or []
 
     # ------------------------------------------------ 12. serving on a mesh
-    rows += mesh_serve_phase(torch, card)
+    rows += run("12", "serving on a mesh",
+                lambda: mesh_serve_phase(torch, card)) or []
 
     # ------------------------------------------------ 13. MoE on a mesh
-    rows += moe_axis_phase(torch, card)
+    rows += run("13", "MoE on a mesh",
+                lambda: moe_axis_phase(torch, card)) or []
 
     # ------------------------------------------------ 14. MLA on a mesh
-    mla_rows = mla_axis_phase(torch, card)
+    mla_rows = run("14", "MLA on a mesh", lambda: mla_axis_phase(torch, card))
 
     # ------------------------------------------------ 11. the dry run, joined
-    # last: its processes run beside phases 1-14
-    dryrun_phase(torch, card, dry_procs, dry_out)
-    del dry_taken
-    rows += mla_rows()          # phase 14's rows, timed with the host quiet
+    # last: its processes run beside phases 9-14
+    if dry is not None:
+        run("11", "the dry run, joined", lambda: dryrun_phase(
+            torch, card, dry[0], dry[1]))
+        del dry
+    if mla_rows is not None:
+        rows += mla_rows()      # phase 14's rows, timed with the host quiet
 
     # ------------------------------------------------ 15. recurrent on a mesh
-    rows += recurrent_axis_phase(torch, card)   # with the host quiet too
+    rows += run("15", "recurrent on a mesh",   # with the host quiet too
+                lambda: recurrent_axis_phase(torch, card)) or []
 
     # ------------------------------------------------ 16. encdec on a mesh
-    rows += encdec_axis_phase(torch, card)
+    rows += run("16", "encdec on a mesh",
+                lambda: encdec_axis_phase(torch, card)) or []
 
-    # ------------------------------------------------ 17. result lines
+    # ------------------------------------------------ 17. the examples
+    run("17", "the examples", lambda: examples_phase(torch, card))
+
+    # ------------------------------------------------ 18. result lines
+    total = time.perf_counter() - t_start
+    print(f"chip_smoke: {total:.1f} s in all; by phase "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }  [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

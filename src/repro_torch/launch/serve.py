@@ -571,6 +571,8 @@ def serve(cfg, *, num_requests=8, prompt_len=12, max_new=16, seed=0,
 
 
 def main(argv=None):
+    """The command line: returns ``serve``'s finished sequences and
+    stats."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--full", action="store_true",
@@ -581,8 +583,8 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
     cfg = (ARCHS if args.full else SMOKES)[args.arch]
-    serve(cfg, num_requests=args.requests, max_new=args.max_new,
-          device=args.device)
+    return serve(cfg, num_requests=args.requests, max_new=args.max_new,
+                 device=args.device)
 
 
 if __name__ == "__main__":

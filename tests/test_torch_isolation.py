@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, the copied modules stay verbatim
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither JAX nor the
+reference package, the copied modules stay verbatim
 copies of the reference's, and the smoke script refuses to run (and
 prints no result) without CUDA or without the repository beside it."""
 import ast
@@ -64,7 +65,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [REPO / "chip_smoke.py"],
+                         [REPO / "chip_smoke.py"] +
+                         sorted((REPO / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_repro(path):
     for name in _imports(path):
