@@ -219,7 +219,8 @@ counters.  Phases, each uncaught, so any failure exits non-zero:
    among them); prefill ms, decode-step ms and ``max_memory_allocated``
    (the slots share one card: overhead, not scaling).  The (1, 16)
    run's flash calls (one head a slot, D 256) and partial calls are
-   timed cold against their bounds;
+   timed cold against their bounds, each partial row beside its device
+   kernels a call (one where the call's splits fit a cluster);
 13. MoE experts on the model axis: phi3.5-moe at its published widths
    (16 experts top 2, d_ff 6,400), 2 layers, through ``MeshServe`` on
    (1, 2) (8 experts and 4 KV heads a slot, caches by KV heads) and
@@ -416,7 +417,8 @@ LM_KERNEL_SYMBOLS = {"rmsnorm": ("rmsnorm_kernel",),
                      "flash_attention": ("flash_kernel",
                                          "flash_wgmma_kernel"),
                      "decode_attention": ("decode_split_kernel",
-                                          "decode_combine_kernel")}
+                                          "decode_combine_kernel",
+                                          "decode_cluster_kernel")}
 DECODE_COLD_ROUNDS = 3                # rounds over the 28 layers' pools
 L2_BYTES = 50 * 2**20                 # the H100's L2
 # cold replays (the dense, recurrent and train paths' rows): a call made
@@ -799,15 +801,17 @@ def flash_bf16_sass(_build) -> dict[str, dict[str, int]]:
     return counts
 
 
-# the kernel each wrapper launch runs once (decode_attention's split kernel
-# runs only where a sequence has positions; its combine kernel always, for
-# the partial entry too), as a pattern of the profiler's kernel names
+# the kernel each wrapper launch runs once, as a pattern of the profiler's
+# kernel names: decode_attention's combine kernel (its split kernel runs
+# only where the table has a page), or the partial entry's cluster kernel,
+# which runs alone where its splits fit a cluster
 COUNT_SYMBOLS = {"agg_combine": r"\bagg_combine_kernel\b",
                  "spmm": r"\bspmm_kernel\b", "gemm": r"\bgemm_kernel\b",
                  "sddmm": r"\bsddmm_kernel\b",
                  "rmsnorm": r"\brmsnorm_kernel\b",
                  "flash_attention": r"\bflash_(?:wgmma_)?kernel\b",
-                 "decode_attention": r"\bdecode_combine_kernel\b"}
+                 "decode_attention":
+                     r"\bdecode_(?:combine|cluster)_kernel\b"}
 
 
 MARKERS = [64]                        # the marker burst's size, grown in use
@@ -1989,6 +1993,29 @@ def cold_group_ms(torch, make, group, launches: int = COLD_LAUNCHES,
                    max(2, -(-launches // len(group))), **kw)
 
 
+def partial_kernels(torch, fn, calls) -> tuple[float, dict]:
+    """(device kernels a call, {kernel: launches}) of decode_attention's
+    partial entry over one call of each of ``calls``, recorded (args,
+    kwargs, count), in one profiled window (held to the launch counters);
+    asserted against the wrapper's plan: one kernel where a call's splits
+    fit a cluster, else the split kernel (where the table has a page) and
+    the combine kernel."""
+    from repro_torch.kernels.decode_attention import partial_plan
+    events, _ = profiled(torch, lambda: [fn(*a, **kw) for a, kw, _ in calls])
+    want = 0
+    for (q, kp, _, pt, _), _, _ in calls:
+        _, n_split, cluster = partial_plan(kp.shape[1], q.shape[2],
+                                           q.element_size(), pt.shape[1])
+        want += 1 if cluster else 1 + (n_split > 0)
+    names = {}
+    for e in events:
+        m = re.search(r"\w+_kernel(?:<[^>(]*>)?", e.key)
+        key = m.group(0) if m else e.key
+        names[key] = names.get(key, 0) + e.count
+    assert sum(names.values()) == want, (names, want)
+    return want / len(calls), names
+
+
 def dense_rows(torch, card, recorded, originals, plain, path="dense",
                extra=None) -> list[dict]:
     """Each LM kernel's recorded calls held to its plain version (2e-2 in
@@ -2042,6 +2069,10 @@ def dense_rows(torch, card, recorded, originals, plain, path="dense",
         if window is not None:
             row["window"] = window
             tag = f"{name} (window {window})"
+        if name == "decode_attention_partial":
+            row["kernels_a_call"], names = partial_kernels(torch, fn, calls)
+            tag = (f"{name} ({row['kernels_a_call']:g} device kernels a "
+                   f"call: {names})")
         rows.append(row)
         print(f"{path} {tag}: {int(n)} launches over {len(calls)} argument "
               f"layouts, max abs err {max_err:.3g} (tol {TOL_BF16} on bf16 "

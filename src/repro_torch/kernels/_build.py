@@ -53,8 +53,8 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _F, _P],
     "repro_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _F, _P],
-    "repro_decode_attention_partial_f32": [_P] * 8 + [_I] * 8 + [_F, _P],
-    "repro_decode_attention_partial_bf16": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "repro_decode_attention_partial_f32": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "repro_decode_attention_partial_bf16": [_P] * 8 + [_I] * 9 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -27,11 +27,18 @@ the page ids by each block.
 
 :func:`decode_attention_partial` is the same kernel over one slot's
 block of a sequence-split cache (a serving step split over the model
-axis): its own C entry runs the split kernel and a combine that writes
-the normalised fp32 accumulator and the log-sum-exp, what
-:func:`merge_partials` needs to merge the slots' blocks.  The merge is
-plain torch on the gathering slot, the counterpart of GSPMD's reduction
-across devices, not of a Pallas kernel.
+axis), writing the normalised fp32 accumulator and the log-sum-exp, what
+:func:`merge_partials` needs to merge the slots' blocks.  A slot's block
+is short (3 to 128 positions on the split serving step), so the partial
+has its own split of ``partial_pages_per_split(ps, D, element size)``
+pages (16 positions at most), and where a sequence's splits fit one
+thread-block cluster (``CLUSTER_SPLITS``) its C entry runs them in one
+launch, merging the splits in the cluster's shared memory with the
+combine kernel's arithmetic: no workspace.  Wider page tables take the
+split and combine kernels at the same split, so the path never changes
+a bit (:func:`partial_plan`).  The merge across slots is plain torch on
+the gathering slot, the counterpart of GSPMD's reduction across devices,
+not of a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -45,6 +52,9 @@ partial_launches = 0
 
 PAGES_PER_SPLIT = 4           # pages a block owns: 64 positions at ps = 16
 SPLIT_SMEM = 160 * 1024       # at most this many bytes of K and V rows a block
+PARTIAL_SPLIT = 16            # positions a partial's split owns, at most
+CLUSTER_SPLITS = 8            # splits a cluster merges: the portable limit
+BLOCK_SMEM = 232448           # shared memory a block can have on the H100
 MAX_HEAD_DIM = 512
 _ENTRY = {torch.float32: "repro_decode_attention_f32",
           torch.bfloat16: "repro_decode_attention_bf16"}
@@ -52,27 +62,70 @@ _PARTIAL_ENTRY = {torch.float32: "repro_decode_attention_partial_f32",
                   torch.bfloat16: "repro_decode_attention_partial_bf16"}
 
 
-def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
-    """Pages of a split: PAGES_PER_SPLIT, halved while the split's K and V
-    rows (D elements of ``elem_size`` bytes, rounded up to 16 bytes) would
-    take more than SPLIT_SMEM bytes of shared memory.  A function of the
-    pools' page size, head dim and element size only, so the split
-    boundaries of a sequence never move with its batch or with the page
-    table's width."""
+def _fit(n: int, ps: int, d: int, elem_size: int) -> int:
+    """``n`` pages, halved while a split's K and V rows (D elements of
+    ``elem_size`` bytes, rounded up to 16 bytes) would take more than
+    SPLIT_SMEM bytes of shared memory."""
     per = 16 // elem_size
-    n = PAGES_PER_SPLIT
     while n > 1 and 2 * n * ps * (-(-d // per) * per) * elem_size > SPLIT_SMEM:
         n //= 2
     return n
 
 
-def workspace(q, k_pages, page_table) -> tuple[torch.Tensor, int]:
+def pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
+    """Pages of a split: PAGES_PER_SPLIT, halved while the split's K and V
+    rows would take more than SPLIT_SMEM bytes of shared memory.  A
+    function of the pools' page size, head dim and element size only, so
+    the split boundaries of a sequence never move with its batch or with
+    the page table's width."""
+    return _fit(PAGES_PER_SPLIT, ps, d, elem_size)
+
+
+def partial_pages_per_split(ps: int, d: int, elem_size: int = 4) -> int:
+    """Pages of a split of :func:`decode_attention_partial`: PARTIAL_SPLIT
+    positions (one page where a page holds more), halved as
+    :func:`pages_per_split` is; a function of the same three only."""
+    return _fit(max(1, PARTIAL_SPLIT // ps), ps, d, elem_size)
+
+
+def cluster_smem(pps: int, ps: int, d: int, elem_size: int,
+                 n_split: int) -> int:
+    """Bytes of shared memory a block of the one-launch partial takes
+    (``csrc/decode_attention.cu``'s ``split_bytes`` and block 0's slots)
+    at the largest head chunk (8 query heads): K rows or the P @ V
+    partials, V rows, q, scores and page ids, then n_split (m, l,
+    acc[D]) for each head."""
+    per = 16 // elem_size
+    lds, sl, gt = -(-d // per) * per, pps * ps, 8
+    used = (max(sl * lds * elem_size, 128 // (lds // 4) * gt * lds * 4)
+            + (sl + gt) * lds * elem_size + 4 * gt * sl + 4 * pps)
+    return -(-used // 16) * 16 + 4 * n_split * gt * (d + 2)
+
+
+def partial_plan(ps: int, d: int, elem_size: int,
+                 pp: int) -> tuple[int, int, bool]:
+    """(pages a split, splits, cluster) of a partial call over a page
+    table of ``pp`` pages: the splits run as one cluster, in one launch,
+    where there are 1 to CLUSTER_SPLITS of them and a block's shared
+    memory holds them (:func:`cluster_smem`); else as the split and
+    combine kernels over a workspace.  The split length depends on ps, D
+    and the element size alone, whichever path the table's width picks."""
+    pps = partial_pages_per_split(ps, d, elem_size)
+    n_split = -(-pp // pps)
+    return pps, n_split, (1 <= n_split <= CLUSTER_SPLITS and cluster_smem(
+        pps, ps, d, elem_size, n_split) <= BLOCK_SMEM)
+
+
+def workspace(q, k_pages, page_table,
+              pps: int | None = None) -> tuple[torch.Tensor, int]:
     """(ws, pages a split): the fp32 scratch the launch writes each
     split's partial (m, l and D accumulators) into, B*Hq*n_split*(D+2)
-    on q's device, where the combine kernel reads them.  The ``meta``
-    branch allocates it too, so that a trace's live bytes hold it."""
+    on q's device, where the combine kernel reads them; ``pps`` pages a
+    split, by default :func:`pages_per_split`'s.  The ``meta`` branch
+    allocates it too, so that a trace's live bytes hold it."""
     b, hq, d = q.shape
-    pps = pages_per_split(k_pages.shape[1], d, q.element_size())
+    if pps is None:
+        pps = pages_per_split(k_pages.shape[1], d, q.element_size())
     n_split = -(-page_table.shape[1] // pps)
     return torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
                        device=q.device), pps
@@ -123,9 +176,10 @@ def _device(q, name: str) -> None:
 
 
 def _launch(entry, q, k_pages, v_pages, page_table, lengths, outs, ws,
-            pps) -> None:
+            pps, *flags) -> None:
     """The C entry ``entry`` on the arguments, ``outs`` and ``ws`` device
-    pointers."""
+    pointers (``ws`` None for none), ``flags`` the int arguments after
+    the pages a split (the partial's cluster)."""
     b, hq, d = q.shape
     n_pool, ps, hkv, _ = k_pages.shape
     pp = page_table.shape[1]
@@ -134,7 +188,7 @@ def _launch(entry, q, k_pages, v_pages, page_table, lengths, outs, ws,
         rc = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), *outs, ws, b, hkv,
-            hq // hkv, d, n_pool, ps, pp, pps, 1.0 / d ** 0.5,
+            hq // hkv, d, n_pool, ps, pp, pps, *flags, 1.0 / d ** 0.5,
             _build.stream(q.device))
     _build.raise_on(rc, entry)
 
@@ -172,8 +226,10 @@ def decode_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
     """:func:`decode_attention` over a block of each sequence's positions:
     (out, lse), out (B,Hq,D) fp32 normalised over the block's positions
     < lengths[b], lse (B,Hq) fp32 the log-sum-exp of their scaled
-    scores; zeros and -inf at lengths[b] == 0.  The same checks, scratch
-    and ``meta`` branch as :func:`decode_attention`; counted in
+    scores; zeros and -inf at lengths[b] == 0.  The same checks and
+    ``meta`` branch as :func:`decode_attention`, at
+    :func:`partial_plan`'s split: one launch and no scratch where the
+    splits fit a cluster, else the workspace; counted in
     ``partial_launches``."""
     global partial_launches
     _no_grad(q, k_pages, v_pages, "decode_attention_partial")
@@ -186,11 +242,14 @@ def decode_attention_partial(q: torch.Tensor, k_pages: torch.Tensor,
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    ws, pps = workspace(q, k_pages, page_table)
+    pps, _, cluster = partial_plan(k_pages.shape[1], q.shape[2],
+                                   q.element_size(), page_table.shape[1])
+    ws = None if cluster else workspace(q, k_pages, page_table, pps)[0]
     if q.device.type == "meta":
         return out, lse
     _launch(_PARTIAL_ENTRY[q.dtype], q, k_pages, v_pages, page_table,
-            lengths, (out.data_ptr(), lse.data_ptr()), ws.data_ptr(), pps)
+            lengths, (out.data_ptr(), lse.data_ptr()),
+            None if ws is None else ws.data_ptr(), pps, int(cluster))
     partial_launches += 1
     return out, lse
 

@@ -843,6 +843,123 @@ def test_decode_attention_partials_merged_equal_the_whole(cuda, dtype, tol):
     _close(got, whole, tol)
 
 
+def _plan(args):
+    """decode_attention_partial's (pages a split, splits, cluster) for
+    the arguments (q, pools, table, lengths)."""
+    from repro_torch.kernels.decode_attention import partial_plan
+    q, kp, _, pt, _ = args
+    return partial_plan(kp.shape[1], q.shape[2], q.element_size(),
+                        pt.shape[1])
+
+
+def _widened(args, pad):
+    """The same call with ``pad`` more columns of page 0 in the table."""
+    q, kp, vp, pt, lengths = args
+    wide = torch.cat([pt, torch.zeros((pt.shape[0], pad), dtype=pt.dtype,
+                                      device=pt.device)], 1)
+    return q, kp, vp, wide, lengths
+
+
+def _same_bits(a, b):
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,ps,length,pad", [
+    (16, 8, 256, 16, 128, 8),       # gemma3-12b's global block, 8 splits
+    (16, 8, 256, 16, 37, 40),
+    (32, 8, 128, 1, 3, 200),        # the MoE's 3 positions, pages of one
+    (40, 8, 128, 8, 8, 120)])       # G = 5, jamba's pages of 8
+def test_decode_attention_partial_cluster_and_two_kernels_same_bits(
+        cuda, dtype, hq, hkv, d, ps, length, pad):
+    """One sequence's partial through the one-launch cluster path and,
+    with its page table padded past the cluster limit, through the split
+    and combine kernels at the same split: the same bits, out and lse,
+    and the plain version's answer."""
+    rng = np.random.default_rng(33)
+    args = _paged(rng, [length], hq=hq, hkv=hkv, d=d, ps=ps, device=cuda,
+                  dtype=dtype)
+    wide = _widened(args, pad)
+    assert _plan(args)[2] and not _plan(wide)[2]
+    assert _plan(args)[0] == _plan(wide)[0]
+    got = kernels.decode_attention_partial(*args)
+    _same_bits(got, kernels.decode_attention_partial(*wide))
+    want = ref.decode_attention_partial_ref(*args)
+    _close(got[0], want[0], 3e-5)
+    _close(got[1], want[1], 3e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_partial_bits_do_not_depend_on_batch_or_width(
+        cuda, dtype):
+    """Each sequence of a batch of 4 (gemma3-12b's heads, blocks of up to
+    112 positions, 7 pages) alone, with a page table just wide enough for
+    it, and the batch with its table padded by 1 and by 9 pages (the
+    second past the cluster limit) give the same bits, out and lse."""
+    rng = np.random.default_rng(34)
+    args = _paged(rng, [112, 3, 77, 16], hq=16, hkv=8, d=256, device=cuda,
+                  dtype=dtype)
+    assert _plan(_widened(args, 1))[2] and not _plan(_widened(args, 9))[2]
+    q, kp, vp, pt, lengths = args
+    full = kernels.decode_attention_partial(*args)
+    for pad in (1, 9):
+        _same_bits(full, kernels.decode_attention_partial(
+            *_widened(args, pad)))
+    for i, n in enumerate(lengths.tolist()):
+        out, lse = kernels.decode_attention_partial(
+            q[i:i + 1].contiguous(), kp, vp,
+            pt[i:i + 1, :-(-n // 16)].contiguous(), lengths[i:i + 1])
+        assert torch.equal(full[0][i:i + 1], out), i
+        assert torch.equal(full[1][i:i + 1], lse), i
+
+
+@pytest.mark.parametrize("pad", [0, 12])
+def test_decode_attention_partial_empty_block_inside_a_cluster(cuda, pad):
+    """A sequence at length 0 beside sequences with positions (its
+    cluster's blocks all past its end, theirs partly): zeros and -inf
+    there, the plain version's answer elsewhere, on the cluster path and
+    (the table padded) the two-kernel path."""
+    rng = np.random.default_rng(35)
+    args = _widened(_paged(rng, [20, 100, 1], hq=16, hkv=8, d=256,
+                           device=cuda, dtype=torch.bfloat16), pad)
+    args[4][0] = 0
+    assert _plan(args)[2] == (pad == 0)
+    out, lse = kernels.decode_attention_partial(*args)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert bool(torch.isneginf(lse[0]).all())
+    assert bool(torch.isfinite(lse[1:]).all())
+    want_out, want_lse = ref.decode_attention_partial_ref(*args)
+    _close(out, want_out, 3e-5)
+    _close(lse[1:], want_lse[1:], 3e-5)
+
+
+@pytest.mark.parametrize("pad", [0, 12])
+def test_decode_attention_partial_masks_pages_outside_the_pool(cuda, pad):
+    """Page ids outside the pool (-1 and the pool's size) mask their
+    slots: the partial equals the plain version over the table without
+    those pages (their positions taken off the length), on both paths;
+    a block whose every page is masked gives zeros and -inf."""
+    rng = np.random.default_rng(36)
+    q, kp, vp, pt, lengths = _paged(rng, [100, 80, 40], hq=16, hkv=8,
+                                    d=256, device=cuda, dtype=torch.bfloat16)
+    n_pool = kp.shape[0]
+    masked = pt.clone()
+    masked[0, 2], masked[1, 0] = -1, n_pool          # a middle, a first page
+    masked[2, :3] = n_pool                           # every page of a block
+    args = _widened((q, kp, vp, masked, lengths), pad)
+    assert _plan(args)[2] == (pad == 0)
+    out, lse = kernels.decode_attention_partial(*args)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    assert bool(torch.isneginf(lse[2]).all())
+    for i, drop in ((0, 2), (1, 0)):
+        keep = [j for j in range(pt.shape[1]) if j != drop]
+        want_out, want_lse = ref.decode_attention_partial_ref(
+            q[i:i + 1], kp, vp, pt[i:i + 1, keep].contiguous(),
+            lengths[i:i + 1] - 16)
+        _close(out[i:i + 1], want_out, 3e-5)
+        _close(lse[i:i + 1], want_lse, 3e-5)
+
+
 def test_decode_attention_copy_width_does_not_change_bits(cuda):
     """Pools 4 bytes past a 16-byte boundary take 4-byte copies; the output
     has the same bits as from aligned copies of the same pools."""

@@ -264,6 +264,94 @@ def test_decode_splits_depend_on_the_pools_only():
             assert 2 * (2 * n) * ps * (-(-d // 8) * 8) * 2 > SPLIT_SMEM
 
 
+def test_partial_split_plan_depends_on_the_pools_only():
+    """decode_attention_partial's split: PARTIAL_SPLIT positions (one page
+    where a page holds more), halved only where a split's K and V rows
+    would pass the shared-memory budget, from the pools' page size, head
+    dim and element size alone; the table's width picks only the path,
+    one cluster where 1 to CLUSTER_SPLITS splits cover it and a block's
+    shared memory holds them (at 8 heads a block).  At the split
+    serving step's blocks: gemma3-12b's 128 global and 64 ring positions
+    (ps 16, D 256, bf16) one cluster of 8 and of 4; the MoE's 3 positions
+    (ps 1, D 128) and jamba's 8 (ps 8) one split; long mode's 1,024 (64
+    pages of 16) the split and combine kernels."""
+    from repro_torch.kernels.decode_attention import (
+        BLOCK_SMEM, CLUSTER_SPLITS, PARTIAL_SPLIT, SPLIT_SMEM, cluster_smem,
+        partial_pages_per_split, partial_plan)
+    assert PARTIAL_SPLIT == 16 and CLUSTER_SPLITS == 8
+    assert partial_plan(16, 256, 2, 8) == (1, 8, True)
+    assert partial_plan(16, 256, 2, 4) == (1, 4, True)
+    assert partial_plan(1, 128, 2, 3) == (16, 1, True)
+    assert partial_plan(8, 128, 2, 1) == (2, 1, True)
+    assert partial_plan(16, 256, 2, 64) == (1, 64, False)
+    for ps, d, size in [(1, 128, 2), (3, 64, 4), (8, 128, 2), (16, 256, 2),
+                        (16, 20, 4), (32, 512, 4), (64, 512, 4),
+                        (64, 512, 2)]:
+        per = 16 // size
+        row = -(-d // per) * per * size
+        n = partial_pages_per_split(ps, d, size)
+        assert 1 <= n <= max(1, PARTIAL_SPLIT // ps)
+        assert n == 1 or 2 * n * ps * row <= SPLIT_SMEM
+        if n < max(1, PARTIAL_SPLIT // ps):
+            assert 2 * (2 * n) * ps * row > SPLIT_SMEM
+        for pp in range(0, 3 * CLUSTER_SPLITS * n):
+            pps, n_split, cluster = partial_plan(ps, d, size, pp)
+            assert pps == n and n_split == -(-pp // n)
+            assert cluster == (1 <= n_split <= CLUSTER_SPLITS and
+                               cluster_smem(n, ps, d, size, n_split)
+                               <= BLOCK_SMEM)
+    # the split serving step's blocks fit a cluster's shared memory
+    assert cluster_smem(1, 16, 256, 2, 8) <= cluster_smem(
+        1, 16, 512, 4, 8) <= BLOCK_SMEM
+    assert not partial_plan(32, 512, 4, 8)[2]     # 128 KB of rows a block
+
+
+@pytest.mark.parametrize("pp,cluster", [(1, True), (8, True), (9, False),
+                                        (40, False)])
+def test_partial_allocates_on_meta_what_its_launch_does(pp, cluster):
+    """On ``meta`` tensors decode_attention_partial allocates what a CUDA
+    launch on its path allocates: out and lse, and the split kernels'
+    workspace (B*Hq*n_split*(D+2) fp32) only on the two-kernel path."""
+    from repro_torch.kernels.decode_attention import partial_plan
+    from repro_torch.launch.memtrace import StepTrace
+    meta = torch.device("meta")
+    q = torch.empty(3, 8, 64, device=meta)
+    pages = torch.empty(50, 16, 2, 64, device=meta)
+    table = torch.empty(3, pp, dtype=torch.int32, device=meta)
+    lengths = torch.empty(3, dtype=torch.int32, device=meta)
+    pps, n_split, path = partial_plan(16, 64, 4, pp)
+    assert path == cluster
+    with StepTrace() as tr:
+        tr.hold((q, pages, table, lengths))
+        with torch.no_grad():
+            out, lse = tops.decode_attention_partial(q, pages, pages, table,
+                                                     lengths)
+    ws = 0 if cluster else 3 * 8 * n_split * 66 * 4
+    assert tr.peak_bytes - tr.held_bytes == out.nbytes + lse.nbytes + ws
+    assert tr.kernel_calls == {"decode_attention_partial": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partial_cost_is_unchanged(dtype):
+    """kernels/cost.py counts the partial's work as before its redesign:
+    the visible positions' K and V rows and q read once, out and lse
+    written in fp32, the table and lengths; 4*Hq*D flops a position."""
+    from repro_torch.kernels import cost
+    g = torch.Generator().manual_seed(0)
+    q = torch.empty(4, 16, 256, dtype=dtype)
+    pages = torch.empty(32, 16, 8, 256, dtype=dtype)
+    table = torch.zeros(4, 8, dtype=torch.int32)
+    lengths = torch.randint(-3, 200, (4,), generator=g, dtype=torch.int32)
+    n = int(lengths.clamp(0, 128).sum())
+    args = (q, pages, pages, table, lengths)
+    size = q.element_size()
+    assert cost.lm_call_cost("decode_attention_partial", args, {}) == (
+        (2 * n * 8 * 256 + q.numel()) * size + (q.numel() + 64) * 4
+        + (32 + 4) * 4, 4.0 * n * 16 * 256)
+    assert cost.lm_dot_flops("decode_attention_partial", args, {}) == \
+        4.0 * 4 * 16 * 8 * 16 * 256
+
+
 @pytest.mark.parametrize("f", [1, 17, 64, 3072, 3075, 4096, 8192, 16384])
 @pytest.mark.parametrize("rows", [1, 4, 500])
 def test_rmsnorm_threads_per_row_hold_the_row(f, rows):

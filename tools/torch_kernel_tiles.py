@@ -32,6 +32,13 @@ under torch.profiler:
   of 28 layers' pools) and warm, split and combine kernels apart, one
   line per pages-a-split (the C entry's argument), beside the plain
   version and the bound;
+* decode_attention's partial entry at the split serving step's (1,16)
+  blocks (gemma3-12b's 128 global and 64 ring positions, phi3.5-moe's 3,
+  jamba's 8; bf16), one line per (positions a split, one launch as a
+  cluster or the split and combine kernels), in device ms a launch on
+  CUDA events (back to back behind a spin, each launch on another copy
+  of the pools), beside SDPA over the dense cache under a length mask
+  (which writes no lse) and the bound;
 * rmsnorm at the 500 x 3072 prefill rows and the 4 x 3072 decode rows,
   fp32 and bf16, one line per threads-a-row (the C entry's argument),
   beside ``F.rms_norm`` and the bound;
@@ -85,6 +92,15 @@ GEMM_TILES = {
 }
 DECODE_PAGES_PER_SPLIT = (1, 2, 4, 8)
 DECODE_LAYERS, DECODE_ROUNDS = 28, 3
+# decode_attention_partial at the split serving step's (1,16) blocks, bf16:
+# (label, B, Hq, Hkv, D, ps, positions a block, all of them seen)
+PARTIAL_SHAPES = [("gemma3-12b global", 4, 16, 8, 256, 16, 128),
+                  ("gemma3-12b ring", 4, 16, 8, 256, 16, 64),
+                  ("phi3.5-moe", 8, 32, 8, 128, 1, 3),
+                  ("jamba", 8, 32, 8, 128, 8, 8)]
+PARTIAL_SPLITS = (8, 16, 32, 64)           # positions a split
+PARTIAL_LAUNCHES = 200                     # timed launches a variant
+SPIN_CYCLES_PER_US = 2000                  # the H100's 1.98 GHz, rounded up
 RMSNORM_THREADS = (96, 128, 192, 256, 384)  # 8, 6, 4, 3, 2 vectors
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 # GNN main-path layers: (N, F, D, K, O)
@@ -399,6 +415,102 @@ def sweep_decode(card: str) -> None:
           f"{warm:.5f}  [{card}]")
 
 
+def events_ms(calls, launches: int = PARTIAL_LAUNCHES) -> float:
+    """Device ms a launch of ``launches`` calls taken in turn from
+    ``calls``, on CUDA events, issued behind a spin long enough to cover
+    the host's issue, so the launches reach the card back to back."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(launches * 100 * SPIN_CYCLES_PER_US)
+    start.record()
+    for i in range(launches):
+        calls[i % len(calls)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def sweep_partial(card: str) -> None:
+    """decode_attention_partial by positions a split and path, at the
+    split serving step's blocks."""
+    from repro_torch.kernels.decode_attention import (CLUSTER_SPLITS,
+                                                      partial_pages_per_split)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    one = torch.zeros(1, device="cuda")
+    print(f"decode_attention_partial: a one-element fill, the floor of a "
+          f"launch back to back, {events_ms([lambda: one.fill_(1.0)]):.5f} "
+          f"ms  [{card}]")
+    for label, b, hq, hkv, d, ps, n in PARTIAL_SHAPES:
+        pp = n // ps
+        copies = max(2, -(-8 * L2_BYTES // (4 * b * n * hkv * d)))
+        copies = min(copies, DECODE_LAYERS)
+        pools = [tuple(torch.randn(b * pp, ps, hkv, d, device="cuda",
+                                   generator=gen).to(bf16) for _ in range(2))
+                 for _ in range(copies)]
+        pt = torch.arange(b * pp, device="cuda",
+                          dtype=torch.int32).view(b, pp)
+        lengths = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, hq, d, device="cuda", generator=gen).to(bf16)
+        out = torch.empty(b, hq, d, device="cuda")
+        lse = torch.empty(b, hq, device="cuda")
+        bound = ((2 * b * n * hkv * d + q.numel()) * 2
+                 + (q.numel() + b * hq + pt.numel() + b) * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        want = ref.decode_attention_partial_ref(q, *pools[0], pt, lengths)
+        port = partial_pages_per_split(ps, d, 2) * ps
+        for pps in sorted({max(1, sl // ps) for sl in PARTIAL_SPLITS}):
+            n_split = -(-pp // pps)
+            for cluster in (1, 0):
+                if cluster and n_split > 16:
+                    continue
+                ws = torch.empty(b * hq * n_split * (d + 2), device="cuda")
+
+                def kernel(kp, vp, pps=pps, cluster=cluster, ws=ws):
+                    return lib.repro_decode_attention_partial_bf16(
+                        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                        pt.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                        lse.data_ptr(), ws.data_ptr(), b, hkv, hq // hkv, d,
+                        b * pp, ps, pp, pps, cluster, d ** -0.5, stream)
+                assert kernel(*pools[0]) == 0
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, want[0], rtol=3e-5,
+                                           atol=3e-5)
+                torch.testing.assert_close(lse, want[1], rtol=3e-5,
+                                           atol=3e-5)
+                calls = [lambda p=p: kernel(*p) for p in pools]
+                ms = events_ms(calls)
+                port_path = cluster == (n_split <= CLUSTER_SPLITS)
+                mark = ""
+                if pps * ps == port and port_path:
+                    by = device_ms_by_kernel(lambda: [c() for c in calls], 3)
+                    mark = (f" (the port's; kernels' own time a launch "
+                            f"{sum(by.values()) / len(calls):.5f} under "
+                            f"torch.profiler)")
+                path = (f"one launch, clusters of {n_split}" if cluster
+                        else "split + combine")
+                print(f"decode_attention_partial {label} (B {b}, {hq}/{hkv}"
+                      f" heads, D {d}, {n} positions): {pps * ps} positions"
+                      f" a split, {path}{mark}: {ms:.5f} ms a launch, bound "
+                      f"{bound:.5f} ({100 * bound / ms:.1f} %)  [{card}]")
+        rep = hq // hkv
+        sdpa = []
+        for kp, vp in pools:
+            k, v = (p.view(b, -1, hkv, d).permute(0, 2, 1, 3)
+                    .repeat_interleave(rep, 1) for p in (kp, vp))
+            mask = (torch.arange(n, device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            sdpa.append(lambda k=k, v=v, mask=mask:
+                        torch.nn.functional.scaled_dot_product_attention(
+                            q[:, :, None, :], k, v, attn_mask=mask))
+        print(f"decode_attention_partial {label}: SDPA with a length mask "
+              f"{events_ms(sdpa):.5f} ms a launch  [{card}]")
+
+
 def sweep_rmsnorm(card: str) -> None:
     """rmsnorm by threads a row at the LM's prefill and decode rows."""
     from repro_torch.kernels.rmsnorm import threads_per_row
@@ -603,6 +715,7 @@ def main(argv: list[str]) -> int:
     which = set(argv) or {"gemm", "flash", "decode", "rmsnorm", "agg",
                           "sddmm", "spmm"}
     if "decode" in which:
+        sweep_partial(card)
         sweep_decode(card)
     if "rmsnorm" in which:
         sweep_rmsnorm(card)
