@@ -342,7 +342,24 @@ counters.  Phases, each uncaught, so any failure exits non-zero:
    GNN kernels launched over the four; ``examples/torch_mutable_graph.py
    --days 3``; ``examples/torch_serve_lm_paged.py`` at smoke size, the
    three LM kernels launched.  Each run's seconds and requests/s;
-18. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
+18. training over processes (the multi-host entry, ``launch/procs.py``),
+   after phase 17 with this process's allocator emptied: phase 10's cut
+   trained 3 steps by two processes on the one card, each a gloo rank
+   whose slots' work runs only there: at (2, 2), each process one data
+   row of two model slots, split with ZeRO-1 (spawned processes that
+   build ``Trainer(mesh=...)`` on ``make_host_mesh`` of the group), and
+   at (2, 1) through ``python -m repro_torch.launch.train --mesh
+   --zero1`` under torchrun's environment (RANK, WORLD_SIZE,
+   LOCAL_RANK, MASTER_ADDR, MASTER_PORT), gathered.  Each process's
+   loss, xent, grad_norm and lr at every step and the sha256 of every
+   block of its slots' parameters and moments equal phase 10's
+   single-process run on the same mesh; the launcher's checkpoint,
+   written once by slot 0's process, equals that run's leaves byte for
+   byte; rmsnorm and flash_attention launched in each process; a rank's
+   non-zero exit, or the deadline, fails the phase.  Each process's
+   step ms (median after the first) beside phase 10's on the same mesh,
+   with the card's name and power limit; the phase's seconds;
+19. a ``kernels`` JSON line for all seven kernels (and the SPMD rows,
    keyed by ``mesh``, and the dense, recurrent, train, mesh_train,
    mesh serve, mesh_serve_moe, mesh_serve_mla, mesh_serve_recurrent and
    mesh_serve_encdec paths', keyed by ``path``; decode_attention's
@@ -501,6 +518,12 @@ PARENT_MESH_PEAK = {"1x1": 19_092_874_240, "1x2": 17_849_448_448,
 SPLIT_FLASH = ((2, 1, 128, 0), (1, 1, 256, 1024), (1, 1, 256, 0),
                (2, 1, 128, 1024), (4, 1, 128, 0))
 SPLIT_FLASH_BATCH, SPLIT_FLASH_SEQ = 2, 1536
+# training over processes (phase 18): phase 10's cut in PROC_WORLD
+# processes on the one card, each run held to phase 10's single-process
+# run on the same mesh bit for bit in PROC_METRICS and every block
+PROC_WORLD, PROC_TIMEOUT_S = 2, 300
+PROC_TRAIN_MESHES = {"2x2": (2, 2), "2x1": (2, 1)}
+PROC_METRICS = ("loss", "xent", "grad_norm", "lr")
 
 # serving on the model axis (phase 12): phase 8's gemma3-12b cut in bf16
 # through launch/serve.py::MeshServe on meshes of MESH_SLOT slots, each
@@ -2759,10 +2782,11 @@ def split_flash(torch, card, fn, plain_fn) -> None:
           f"error / max) {worst}  [{card}]")
 
 
-def mesh_train_phase(torch, card) -> list[dict]:
+def mesh_train_phase(torch, card, keep=None) -> list[dict]:
     """Phase 10: training on a mesh (see the module docstring).  Returns
     the ``kernels`` rows of the (2, 2) run, keyed ``"path":
-    "mesh_train"``."""
+    "mesh_train"``; fills ``keep`` with what phase 18 holds its runs in
+    several processes to (:func:`kept_run`)."""
     import os
     import shutil
     import tempfile
@@ -2780,8 +2804,7 @@ def mesh_train_phase(torch, card) -> list[dict]:
     plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.attention_ref}
     originals = {name: getattr(ops, name) for name in TRAIN_KERNELS}
     base = ARCHS[ATTN_TRAIN_ARCH]
-    cfg = base.replace(num_layers=ATTN_TRAIN_LAYERS, dtype="float32")
-    shape = ShapeConfig("mesh", "train", ATTN_TRAIN_SEQ, ATTN_TRAIN_BATCH)
+    cfg, shape = mesh_train_cut()
     tokens = ATTN_TRAIN_BATCH * ATTN_TRAIN_SEQ
     print(f"mesh train: {ATTN_TRAIN_ARCH} {cfg.num_layers} of "
           f"{base.num_layers} layers, d_model {cfg.d_model}, "
@@ -2804,6 +2827,7 @@ def mesh_train_phase(torch, card) -> list[dict]:
         print(f"mesh train {tag}: step ms {ms} (the first builds cuBLAS "
               f"plans), median of the rest "
               f"{med * 1e3:.3f} ms, {tokens / med:.1f} tokens/s  [{card}]")
+        return med * 1e3
 
     flat = trainer(None)
     kernels.reset_launch_counts()
@@ -2868,7 +2892,9 @@ def mesh_train_phase(torch, card) -> list[dict]:
               f"parameters and {held['moments'] / 1e9:.3f} GB of moments "
               f"({sum('data' in str(sp) for sp in specs)} of {len(specs)} "
               f"moment specs over data), blocks as the specs dictate")
-        timing(tr, tag)
+        med_ms = timing(tr, tag)
+        if keep is not None and mesh_shape in PROC_TRAIN_MESHES.values():
+            keep[tag] = kept_run(torch, tr, params, opt, med_ms)
         if record:
             worst = {k: max(max(hold_gradients(torch, k, originals[k],
                                                plain[k], a, kw),
@@ -2928,6 +2954,249 @@ def mesh_train_phase(torch, card) -> list[dict]:
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
     return rows
+
+
+def mesh_train_cut():
+    """(config, shape) of phase 10's training and phase 18's: llama3.2-3b
+    at its widths, ATTN_TRAIN_LAYERS layers, fp32, ATTN_TRAIN_BATCH x
+    ATTN_TRAIN_SEQ."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    cfg = ARCHS[ATTN_TRAIN_ARCH].replace(num_layers=ATTN_TRAIN_LAYERS,
+                                         dtype="float32")
+    return cfg, ShapeConfig("mesh", "train", ATTN_TRAIN_SEQ,
+                            ATTN_TRAIN_BATCH)
+
+
+def sha(torch, t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b.tobytes()).hexdigest()
+
+
+def slot_digests(torch, mesh, params, opt) -> dict:
+    """{slot: sha of each leaf's block of the parameters, then of the
+    optimizer state} for this process's slots of ``mesh``."""
+    from repro_torch.models import layers as L
+    leaves = L.tree_leaves(params) + L.tree_leaves(opt)
+    return {str(i): [sha(torch, a.blocks[i]) for a in leaves]
+            for i in mesh.local_slots()}
+
+
+def kept_run(torch, tr, params, opt, med_ms) -> dict:
+    """What phase 18 holds a run in several processes to: each step's
+    metrics, the median step ms, each slot's block digests and each
+    leaf's whole digest under its checkpoint key."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import sharded as S
+    tree = {"params": params, "opt": opt}
+    return {"metrics": [{k: m[k] for k in PROC_METRICS}
+                        for m in tr.metrics_log],
+            "median_ms": med_ms,
+            "slots": slot_digests(torch, tr.mesh, params, opt),
+            "leaves": {"/".join(map(str, path)): sha(torch, S.gather(leaf))
+                       for path, leaf in L.tree_items(tree)}}
+
+
+def proc_train_rank(rank: int, init_file: str, out: str) -> None:
+    """One of phase 18's two processes at PROC_TRAIN_MESHES["2x2"]: a
+    gloo group over ``init_file``, this process's pool two slots of the
+    card (one data row), 3 steps of phase 10's cut split with ZeRO-1;
+    its metrics, launch counts, step ms, slots' block digests and
+    ``max_memory_allocated`` as JSON in ``out``."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import procs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.train import Trainer
+
+    group = procs.init("cuda", rank=rank, world_size=PROC_WORLD,
+                       init_method=f"file://{init_file}",
+                       timeout_s=PROC_TIMEOUT_S)
+    try:
+        cfg, shape = mesh_train_cut()
+        mesh = make_host_mesh(devices=[MESH_SLOT] * 2)
+        assert mesh.devices.shape == PROC_TRAIN_MESHES["2x2"], mesh
+        tr = Trainer(build(cfg, tp=mesh.shape["model"]), shape, mesh=mesh,
+                     zero1=True)
+        kernels.reset_launch_counts()
+        params, opt, step = tr.run(ATTN_TRAIN_STEPS)
+        launches = kernels.launch_counts()
+        torch.cuda.synchronize()
+        with open(out, "w") as f:
+            json.dump({"rank": rank, "step": step,
+                       "ranks": mesh.ranks.tolist(), "moved": group.moved,
+                       "metrics": tr.metrics_log, "launches": launches,
+                       "slots": slot_digests(torch, mesh, params, opt),
+                       "peak": torch.cuda.max_memory_allocated()}, f)
+    finally:
+        procs.close()
+
+
+def wait_all(procs_, what: str, timeout_s: float) -> None:
+    """Every process of ``procs_`` (``Popen`` or ``multiprocessing``)
+    exits 0 within ``timeout_s``; a failure or the deadline kills the
+    others and fails the phase."""
+    def code(p):
+        return p.poll() if hasattr(p, "poll") else p.exitcode
+
+    deadline = time.monotonic() + timeout_s
+    while any(code(p) is None for p in procs_):
+        if time.monotonic() > deadline or any(
+                code(p) not in (None, 0) for p in procs_):
+            break
+        time.sleep(0.2)
+    for p in procs_:
+        if code(p) is None:
+            p.kill()
+        p.wait() if hasattr(p, "poll") else p.join()
+    codes = [code(p) for p in procs_]
+    assert codes == [0] * len(procs_), (what, codes)
+
+
+def step_ms(metrics) -> tuple[list, float]:
+    """Each step's ms, and the median of the steps after the first."""
+    ms = [round(m["dt"] * 1e3, 3) for m in metrics]
+    return ms, float(np.median(ms[1:]))
+
+
+def proc_train_phase(torch, card, keep) -> None:
+    """Phase 18: phase 10's cut trained by two processes on the one card,
+    each holding bit for bit to phase 10's single-process run on the
+    same mesh (see the module docstring)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"proc train: {PROC_WORLD} processes on one card; this process "
+          f"keeps {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    tmp = tempfile.mkdtemp(prefix="proc_train_")
+    try:
+        # ---- (2, 2): each process one data row of two model slots, split
+        ctx = multiprocessing.get_context("spawn")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(PROC_WORLD)]
+        ps = [ctx.Process(target=proc_train_rank, name=f"proc-train-{r}",
+                          args=(r, os.path.join(tmp, "init"), outs[r]))
+              for r in range(PROC_WORLD)]
+        t0 = time.perf_counter()
+        for p in ps:
+            p.start()
+        wait_all(ps, "proc train 2x2", PROC_TIMEOUT_S)
+        hold_proc_runs(card, "2x2 (split, ZeRO-1)", keep["2x2"],
+                       [json.load(open(o)) for o in outs],
+                       time.perf_counter() - t0)
+
+        # ---- (2, 1) through the launcher under torchrun's environment
+        ckpt, report = os.path.join(tmp, "ckpt"), os.path.join(tmp, "report")
+        cfg, shape = mesh_train_cut()
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                ATTN_TRAIN_ARCH, "--layers", str(cfg.num_layers), "--dtype",
+                cfg.dtype, "--batch", str(shape.global_batch), "--seq",
+                str(shape.seq_len), "--steps", str(ATTN_TRAIN_STEPS),
+                "--mesh", "--zero1", "--ckpt", ckpt, "--report", report]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   WORLD_SIZE=str(PROC_WORLD), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        logs = [open(os.path.join(tmp, f"launcher{r}.log"), "w+")
+                for r in range(PROC_WORLD)]
+        t0 = time.perf_counter()
+        ps = [subprocess.Popen(argv, cwd=ROOT, stdout=logs[r],
+                               stderr=subprocess.STDOUT,
+                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+              for r in range(PROC_WORLD)]
+        try:
+            wait_all(ps, "proc train 2x1 launcher", PROC_TIMEOUT_S)
+        finally:
+            for r, log in enumerate(logs):
+                log.seek(0)
+                text = log.read().strip()
+                print(f"proc train launcher rank {r}: "
+                      f"{text.splitlines()[-1] if text else '(no output)'}")
+                log.close()
+        runs = [json.load(open(f"{report}.{r}")) for r in range(PROC_WORLD)]
+        hold_proc_runs(card, "2x1 (gathered, ZeRO-1, the launcher)",
+                       keep["2x1"], runs, time.perf_counter() - t0,
+                       checkpointed=True)
+        hold_checkpoint(ckpt, ATTN_TRAIN_STEPS, keep["2x1"]["leaves"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"proc train phase: {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def hold_proc_runs(card, tag, want, runs, seconds,
+                   checkpointed=False) -> None:
+    """Each process's run against phase 10's single-process one: its
+    metrics bit for bit, its slots' block digests (where it reports
+    them), rmsnorm's and flash_attention's launches > 0; its step ms
+    beside the single process's."""
+    mesh = PROC_TRAIN_MESHES[tag[:3]]
+    for run in runs:
+        r = run["rank"]
+        assert tuple(np.shape(run["ranks"])) == mesh, (tag, r, run["ranks"])
+        got = [{k: m[k] for k in PROC_METRICS} for m in run["metrics"]]
+        assert got == want["metrics"], (tag, r, got, want["metrics"])
+        assert run["step"] == ATTN_TRAIN_STEPS, (tag, r, run["step"])
+        assert all(run["launches"][k] > 0 for k in TRAIN_KERNELS), \
+            (tag, r, run["launches"])
+        slots = run["slots"]
+        mine = [str(i) for i, o in enumerate(np.ravel(run["ranks"]))
+                if o == r]
+        assert sorted(slots) == mine, (tag, r, sorted(slots), mine)
+        for i, digests in slots.items():
+            assert digests == want["slots"][i], (tag, r, i)
+        ms, med = step_ms(run["metrics"])
+        moved = run["moved"]
+        print(f"proc train {tag} rank {r}: the transport sent "
+              f"{moved['sent'] / 1e9:.3f} GB and received "
+              f"{moved['received'] / 1e9:.3f} GB over the run, "
+              f"{moved['seconds']:.3f} s inside send and recv (waits "
+              f"included) beside {sum(m['dt'] for m in run['metrics']):.3f}"
+              f" s of {len(ms)} steps"
+              + (", the final checkpoint's gather included in the bytes "
+                 "and seconds" if checkpointed else ""))
+        print(f"proc train {tag} rank {r} of {len(runs)} (mesh {mesh}): "
+              f"metrics and its slots {mine}' blocks of the parameters and "
+              f"moments equal the single-process run's bit for bit; launches "
+              f"{ {k: run['launches'][k] for k in TRAIN_KERNELS} }; step ms "
+              f"{ms}, median of the rest {med:.3f} against the single "
+              f"process's {want['median_ms']:.3f}"
+              + (f"; max_memory_allocated {run['peak'] / 2**30:.3f} GiB"
+                 if "peak" in run else "") + f"  [{card}]")
+    print(f"proc train {tag}: {seconds:.1f} s, the processes' start "
+          "included")
+
+
+def hold_checkpoint(ckpt: str, step: int, want: dict) -> None:
+    """The launcher's final checkpoint, written once by slot 0's
+    process: every leaf's bytes equal phase 10's (2, 1) run's."""
+    import hashlib
+    d = os.path.join(ckpt, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert sorted(manifest["leaves"]) == sorted(want), \
+        (sorted(manifest["leaves"]), sorted(want))
+    for key, meta in manifest["leaves"].items():
+        arr = np.load(os.path.join(d, meta["file"]))
+        got = hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+        assert got == want[key], key
+    print(f"proc train 2x1 checkpoint: {len(want)} leaves at step {step}, "
+          "each equal to the single-process run's bit for bit")
 
 
 def mesh_generate(torch, serve, params, inp, prompt: int, steps: int,
@@ -4647,7 +4916,7 @@ def examples_phase(torch, card) -> None:
 
 
 PHASES = ("2", "3", "4", "5", "6", "7", "8", "9", "10", "12", "13", "14",
-          "11", "15", "16", "17")
+          "11", "15", "16", "17", "18")
 
 
 def selected_phases(argv) -> tuple[str, ...]:
@@ -4663,6 +4932,8 @@ def selected_phases(argv) -> tuple[str, ...]:
     assert only <= set(PHASES), (only, PHASES)
     if only & {"4", "5", "6"}:
         only.add("3")
+    if "18" in only:             # held to phase 10's single-process runs
+        only.add("10")
     return tuple(p for p in PHASES if p in only)
 
 
@@ -4760,8 +5031,9 @@ def main(argv=None) -> int:
                 lambda: recurrent_train_phase(torch, card)) or []
 
     # ------------------------------------------------ 10. training on a mesh
+    kept = {}
     rows += run("10", "training on a mesh",
-                lambda: mesh_train_phase(torch, card)) or []
+                lambda: mesh_train_phase(torch, card, kept)) or []
 
     # ------------------------------------------------ 12. serving on a mesh
     rows += run("12", "serving on a mesh",
@@ -4794,7 +5066,11 @@ def main(argv=None) -> int:
     # ------------------------------------------------ 17. the examples
     run("17", "the examples", lambda: examples_phase(torch, card))
 
-    # ------------------------------------------------ 18. result lines
+    # ------------------------------------------------ 18. over processes
+    run("18", "training over processes",
+        lambda: proc_train_phase(torch, card, kept))
+
+    # ------------------------------------------------ 19. result lines
     total = time.perf_counter() - t_start
     print(f"chip_smoke: {total:.1f} s in all; by phase "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }  [{card}]")

@@ -2,10 +2,11 @@
 
 Counterpart of ``repro/data/pipeline.py``: ``synth_batch`` is the
 reference's, verbatim, so both packages train on the same NumPy batches
-bit for bit.  ``Pipeline`` is the reference's except that ``host_index``
-and ``host_count`` default to 0 and 1, where the reference asks
-``jax.process_index()`` / ``jax.process_count()``: the port's training
-runs in one process.  Produces the token/label (and frame/patch) batches
+bit for bit.  ``Pipeline`` is the reference's: ``host_index`` and
+``host_count`` default to the process group's rank and size
+(``launch/procs.py``), as the reference's follow
+``jax.process_index()`` / ``jax.process_count()``, and to 0 and 1
+without one.  Produces the token/label (and frame/patch) batches
 each architecture takes, deterministic per (seed, step), so a restarted
 trainer replays the exact stream from its checkpoint step; a background
 thread keeps ``prefetch`` batches ready.
@@ -48,10 +49,14 @@ def synth_batch(cfg: ModelConfig, shape: ShapeConfig, step: int, *,
 
 class Pipeline:
     def __init__(self, cfg, shape, *, seed=0, start_step=0, prefetch=2,
-                 host_index=0, host_count=1):
+                 host_index=None, host_count=None):
+        from ..launch import procs
+        group = procs.current()
         self.cfg, self.shape, self.seed = cfg, shape, seed
-        self.host_index = host_index
-        self.host_count = host_count
+        self.host_index = host_index if host_index is not None \
+            else (group.rank if group else 0)
+        self.host_count = host_count if host_count is not None \
+            else (group.size if group else 1)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._step = start_step
         self._stop = threading.Event()

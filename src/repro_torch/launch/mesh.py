@@ -14,6 +14,14 @@ collectives become copies between cards.
 ``make_host_mesh`` applies it to a list of slots (by default every
 visible card).  Axis ``"model"`` stripes hidden/embedding dims, axis
 ``"data"`` stripes super-batch rows.
+
+In a process group (``launch/procs.py``) ``make_host_mesh`` makes one
+mesh of every process's pool of local slots, ordered by rank as
+``jax.devices()`` orders devices by process: the processes stack along
+the data axis, each process's share of the grid ``host_mesh_shape`` of
+its own pool, so a model row never crosses a process.  Each slot
+records its owner rank (``Mesh.ranks``); a slot of another process is
+remote here, and its work runs only there (``train/sharded.py::at``).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import procs
 
 # Slots of a CPU service's ``model_parallel`` pool: the 8 host devices
 # the reference's tests force (``tests/conftest.py::SPMD_HOST_DEVICES``),
@@ -32,9 +41,13 @@ class Mesh:
     """A grid of ``torch.device`` slots with named axes.  ``devices`` is
     a NumPy object array (``.shape``, ``.size``, ``.flat``), as the
     reference's ``jax.sharding.Mesh.devices`` is, so ``core/spmd.py``
-    reads both the same way."""
+    reads both the same way.  ``ranks`` (the grid's shape) is each
+    slot's owner process and ``group`` this process's
+    ``launch/procs.py::Group``: None, every slot this process's, without
+    a process group."""
 
-    def __init__(self, devices, axis_names: tuple[str, ...]):
+    def __init__(self, devices, axis_names: tuple[str, ...], *,
+                 ranks=None, group=None):
         grid = np.vectorize(torch.device, otypes=[object])(
             np.array(devices, dtype=object))
         if grid.ndim != len(axis_names):
@@ -42,6 +55,18 @@ class Mesh:
                              f"names, got {axis_names}")
         self.devices = grid
         self.axis_names = tuple(axis_names)
+        self.ranks = np.zeros(grid.shape, dtype=int) if ranks is None \
+            else np.asarray(ranks, dtype=int).reshape(grid.shape)
+        self.group = group
+
+    def local(self, slot: int) -> bool:
+        """Whether slot ``slot`` (a flat index) is this process's."""
+        return self.group is None or \
+            int(self.ranks.flat[slot]) == self.group.rank
+
+    def local_slots(self) -> list[int]:
+        """This process's slots, flat indices in order."""
+        return [i for i in range(self.devices.size) if self.local(i)]
 
     @property
     def shape(self) -> dict:
@@ -51,7 +76,10 @@ class Mesh:
     def __repr__(self) -> str:
         shape = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names,
                                                       self.devices.shape))
-        return f"Mesh({shape}; {sorted({str(d) for d in self.devices.flat})})"
+        procs_ = "" if self.group is None else \
+            f"; {self.group.size} processes, this one rank {self.group.rank}"
+        return (f"Mesh({shape}; {sorted({str(d) for d in self.devices.flat})}"
+                f"{procs_})")
 
 
 def visible_cards() -> list[torch.device]:
@@ -114,20 +142,28 @@ def host_mesh_shape(n: int, *, model: int | None = None) -> tuple[int, int]:
 def make_host_mesh(n: int | None = None, *, model: int | None = None,
                    shape: tuple[int, int] | None = None,
                    devices=None) -> Mesh:
-    """A (data, model) mesh over ``devices`` (default: every visible card;
-    without CUDA that raises ``RuntimeError``, as ``resolve_device``
-    does).  A slot may repeat a device: ``["cuda:0"] * 4`` on one card,
-    ``["cpu"] * 8`` in the tests.
+    """A (data, model) mesh over ``devices`` (default: every visible card,
+    or in a process group this process's card; without CUDA that raises
+    ``RuntimeError``, as ``resolve_device`` does).  A slot may repeat a
+    device: ``["cuda:0"] * 4`` on one card, ``["cpu"] * 8`` in the
+    tests.
 
     ``n`` uses only the first n slots (a submesh of the pool); ``model``
     pins the model-axis width; ``shape`` bypasses the selection policy
     entirely.  Defaults to all slots with the ``host_mesh_shape`` policy.
+    In a process group (``procs.current()``) ``devices`` is this
+    process's pool and the mesh is every process's (see the module
+    docstring): ``n`` must be None, and a ``shape`` or ``model`` whose
+    model row would cross processes raises ``NotImplementedError``.
     """
+    group = procs.current()
     if devices is None:
         resolve_device(None)
-        devs = visible_cards()
+        devs = visible_cards() if group is None else [group.device]
     else:
         devs = [torch.device(d) for d in devices]
+    if group is not None and group.size > 1:
+        return _process_mesh(devs, group, n=n, model=model, shape=shape)
     if n is None:
         n = len(devs)
     if n > len(devs):
@@ -139,3 +175,38 @@ def make_host_mesh(n: int | None = None, *, model: int | None = None,
     grid = np.empty(n, dtype=object)
     grid[:] = devs[:n]
     return Mesh(grid.reshape(shape), ("data", "model"))
+
+
+def _process_mesh(devs, group, *, n, model, shape) -> Mesh:
+    """:func:`make_host_mesh` in a process group: every rank's pool of
+    slots gathered, each rank's rows ``host_mesh_shape`` of its own pool
+    (or of the model width ``shape`` or ``model`` pins), stacked along
+    the data axis in rank order."""
+    if group.device.type == "cuda" and any(d.type != "cuda" for d in devs):
+        raise ValueError(f"a CUDA process's slots are its cards, got {devs}")
+    pools = group.all_gather([str(d) for d in devs])
+    sizes = [len(p) for p in pools]
+    total = sum(sizes)
+    if n is not None and n != total:
+        raise NotImplementedError(
+            f"a submesh of n={n} of a process group's {total} slots")
+    if shape is not None:
+        if shape[0] * shape[1] != total:
+            raise ValueError(f"shape {shape} does not cover the process "
+                             f"group's {total} slots")
+        model = shape[1]
+    if model is not None and any(s % model for s in sizes):
+        raise NotImplementedError(
+            f"a model row of {model} slots across processes: each process's "
+            f"pool ({sizes} slots by rank) must hold whole model rows")
+    widths = {host_mesh_shape(s, model=model)[1] for s in sizes}
+    if len(widths) > 1:
+        raise NotImplementedError(
+            f"pools of {sizes} slots by rank pick model widths "
+            f"{sorted(widths)}: one mesh needs one; pin it with model=")
+    m = widths.pop()
+    grid = np.empty(total, dtype=object)
+    grid[:] = [torch.device(d) for pool in pools for d in pool]
+    ranks = [r for r, s in enumerate(sizes) for _ in range(s)]
+    return Mesh(grid.reshape(total // m, m), ("data", "model"), ranks=ranks,
+                group=group)

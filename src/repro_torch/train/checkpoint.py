@@ -23,7 +23,10 @@ restores in the other, leaf for leaf.
   ``np.asarray`` does, and ``restore(..., layouts=)`` lays each leaf
   out onto the current mesh's slots, as the reference's ``shardings=``
   re-shards; so a checkpoint moves between meshes, and between meshed
-  and unmeshed runs, in both packages.
+  and unmeshed runs, in both packages.  On a mesh of a process group
+  every process gathers (sending its slots' blocks to slot 0) and only
+  slot 0's process writes (``save(write=)``); a restore lays out only
+  this process's slots' blocks.
 
 NumPy has no bfloat16 type on a host without ml_dtypes, which writes the
 reference's bf16 leaves, so a bf16 leaf raises ``TypeError`` naming its
@@ -52,6 +55,8 @@ def _key(path) -> str:
 def _to_numpy(key: str, leaf) -> np.ndarray:
     if isinstance(leaf, S.Laid):
         leaf = S.gather(leaf)
+    if isinstance(leaf, S.Remote):          # slot 0 is another process's
+        return None
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"checkpoint leaf {key} is bfloat16, which NumPy "
@@ -68,9 +73,14 @@ class Checkpointer:
         self._thread: threading.Thread | None = None
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree, *, blocking: bool = False,
+             write: bool = True) -> None:
+        """Commit ``tree`` as ``step``; ``write`` False gathers its laid
+        leaves (this process's part of the moves) and writes nothing."""
         host = [(_key(path), _to_numpy(_key(path), leaf))  # device->host now
                 for path, leaf in L.tree_items(tree)]
+        if not write:
+            return
         self.wait()                                          # one in flight
 
         def write():

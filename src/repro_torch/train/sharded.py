@@ -40,6 +40,14 @@ Blocks on one card share its memory: a tensor laid out from a slot is
 viewed by the slots on its device, and one placed from the host is one
 tensor for the slots that hold the same slice on one device, so a spec
 replicated over slots of one card holds one copy there.
+
+A mesh of a process group (``launch/mesh.py``, ``Mesh.ranks``) has
+slots of other processes: this process holds :data:`REMOTE` in their
+place, :func:`at` runs a slot's work only in the process that owns it,
+and :func:`send` between two processes is the sender's ``Group.send``
+and the receiver's ``Group.recv`` (``launch/procs.py``), each process
+walking the same moves in the same order.  Where several slots hold a
+slice, a slot reads it from a slot of its own process first.
 """
 from __future__ import annotations
 
@@ -49,6 +57,35 @@ import numpy as np
 import torch
 
 from ..models import layers as L
+
+
+class Remote:
+    """A tensor that another process holds: the block of one of its slots,
+    or the result of that slot's work."""
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "REMOTE"
+
+
+REMOTE = Remote()
+
+
+def owner(mesh, slot: int) -> int:
+    """The rank of the process that owns slot ``slot`` (0 on a mesh of
+    one process)."""
+    return int(mesh.ranks.flat[slot])
+
+
+def is_local(mesh, slot) -> bool:
+    """Whether slot ``slot`` (None: the host) is this process's."""
+    return slot is None or mesh.local(slot)
+
+
+def at(mesh, slot: int, fn, *args):
+    """Slot ``slot``'s work, ``fn(*args)``, where that slot is this
+    process's; :data:`REMOTE` elsewhere."""
+    return fn(*args) if is_local(mesh, slot) else REMOTE
 
 
 def _axes(entry) -> tuple:
@@ -101,7 +138,11 @@ class Laid:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.blocks[0].dtype
+        """The first held block's dtype (a block this process holds)."""
+        for b in self.blocks:
+            if isinstance(b, torch.Tensor):
+                return b.dtype
+        raise ValueError("no block of this tensor is held here")
 
 
 def _key(sl: tuple) -> tuple:
@@ -111,26 +152,44 @@ def _key(sl: tuple) -> tuple:
 def send(t: torch.Tensor, mesh, src, dst: int,
          out: torch.Tensor | None = None) -> torch.Tensor:
     """``t``, held by slot ``src`` (``None``: by no slot, as a tensor read
-    from the host), on slot ``dst``: copied into ``out``, a tensor on that
-    slot, where one is given, else ``t`` on the slot's device (``t``
-    itself, or a view, when it is there already)."""
-    if out is not None:
-        return out.copy_(t)
-    return t.to(mesh.devices.flat[dst])
+    from the host, which every process holds), on slot ``dst``: copied
+    into ``out``, a tensor on that slot, where one is given, else ``t`` on
+    the slot's device (``t`` itself, or a view, when it is there
+    already).  Between processes the sender sends and gets
+    :data:`REMOTE`, the receiver receives; a process that owns neither
+    slot gets :data:`REMOTE`."""
+    here_src, here_dst = is_local(mesh, src), is_local(mesh, dst)
+    if here_src and here_dst:
+        if out is not None:
+            return out.copy_(t)
+        return t.to(mesh.devices.flat[dst])
+    if here_src:
+        mesh.group.send(t, owner(mesh, dst))
+    elif here_dst:
+        return mesh.group.recv(owner(mesh, src), mesh.devices.flat[dst],
+                               out=out)
+    return REMOTE
 
 
-def lay_out(x: torch.Tensor, layout: Layout, src: int | None = None) -> Laid:
+def lay_out(x: torch.Tensor, layout: Layout, src: int | None = None, *,
+            shape=None) -> Laid:
     """``x`` split into one block per slot of ``layout``'s mesh, each
     sent from slot ``src``, where ``x`` lies; with ``src`` None (``x``
     on the host or in no slot) the slots on one device that hold the
-    same slice share one copy."""
-    shape = tuple(x.shape)
+    same slice share one copy, and another process's slots get
+    :data:`REMOTE`.  ``shape`` is ``x``'s, given where ``x`` is another
+    process's."""
+    shape = tuple(x.shape if shape is None else shape)
     mesh = layout.mesh
     seen, blocks = {}, []
     for i, (coord, dev) in enumerate(zip(layout.coords(), mesh.devices.flat)):
         sl = layout.block_slices(shape, coord)
         if src is not None:
-            blocks.append(send(x[sl], mesh, src, i))
+            blocks.append(send(at(mesh, src, lambda sl=sl: x[sl]), mesh,
+                               src, i))
+            continue
+        if not is_local(mesh, i):
+            blocks.append(REMOTE)
             continue
         k = (_key(sl), str(dev))
         if k not in seen:
@@ -143,35 +202,44 @@ def _whole(sl: tuple, shape) -> bool:
     return all(s.start == 0 and s.stop == n for s, n in zip(sl, shape))
 
 
+def _nearest(mesh, dst: int, holders) -> int:
+    """Of the slots ``holders`` (in slot order) that hold one slice, the
+    one ``dst`` reads it from: ``dst`` itself, else the first of
+    ``dst``'s process, else the first."""
+    return min(holders, key=lambda i: (
+        i != dst, owner(mesh, i) != owner(mesh, dst), i))
+
+
 def sources(layout: Layout, shape, slot: int) -> list[tuple[int, tuple]]:
     """(slot read, slices) for each distinct block of a tensor of
     ``shape`` that :func:`gather` onto ``slot`` reads, in slot order:
     ``slot``'s own block where it holds that slice, else the first slot
-    in slot order that does."""
-    coords = layout.coords()
-    mine = _key(layout.block_slices(shape, coords[slot]))
-    out = {}
-    for i, c in enumerate(coords):
+    of its process that does, else the first in slot order."""
+    holders, slices = {}, {}
+    for i, c in enumerate(layout.coords()):
         sl = layout.block_slices(shape, c)
-        k = _key(sl)
-        if k not in out or (k == mine and i == slot):
-            out[k] = (i, sl)
-    return sorted(out.values(), key=lambda v: v[0])
+        holders.setdefault(_key(sl), []).append(i)
+        slices[_key(sl)] = sl
+    out = [(_nearest(layout.mesh, slot, h), slices[k])
+           for k, h in holders.items()]
+    return sorted(out, key=lambda v: v[0])
 
 
 def gather(laid: Laid, slot: int = 0) -> torch.Tensor:
     """The whole tensor on slot ``slot`` (default: the first): that slot's
     own block where it is whole (a replicated spec, or axes of size 1),
-    else a new tensor filled from :func:`sources`."""
+    else a new tensor filled from :func:`sources` (:data:`REMOTE` where
+    ``slot`` is another process's)."""
     layout = laid.layout
     mesh = layout.mesh
     if _whole(layout.block_slices(laid.shape, layout.coords()[slot]),
               laid.shape):
         return laid.blocks[slot]
-    out = torch.empty(laid.shape, dtype=laid.dtype,
-                      device=mesh.devices.flat[slot])
+    out = at(mesh, slot, lambda: torch.empty(
+        laid.shape, dtype=laid.dtype, device=mesh.devices.flat[slot]))
     for i, sl in sources(layout, laid.shape, slot):
-        send(laid.blocks[i], mesh, i, slot, out=out[sl])
+        send(laid.blocks[i], mesh, i, slot,
+             out=at(mesh, slot, lambda sl=sl: out[sl]))
     return out
 
 
@@ -182,7 +250,7 @@ def relayout(laid: Laid, layout: Layout, slot: int = 0) -> Laid:
     if layout.mesh is laid.layout.mesh and \
             tuple(layout.spec) == tuple(laid.layout.spec):
         return laid
-    return lay_out(gather(laid, slot), layout, src=slot)
+    return lay_out(gather(laid, slot), layout, src=slot, shape=laid.shape)
 
 
 def layouts(mesh, specs):
@@ -439,19 +507,20 @@ def plan(held, shape, layout: Layout) -> list[list[tuple]]:
     ``held`` hold in blocks, ``held`` a list of (slot, slices of the
     whole): (source slot, the piece's slices of the whole), one for
     each distinct held block its own block meets, read from the slot
-    itself where it holds that block, else from the first in slot
-    order that does."""
-    coords = layout.coords()
+    itself where it holds that block, else from the first of its
+    process that does, else from the first in slot order."""
+    mesh = layout.mesh
+    holders, slices = {}, {}
+    for i, sl in held:
+        holders.setdefault(_key(sl), []).append(i)
+        slices[_key(sl)] = sl
     out = []
-    for j, c in enumerate(coords):
+    for j, c in enumerate(layout.coords()):
         want = layout.block_slices(shape, c)
-        first = {}
-        for i, sl in held:
-            k = _key(sl)
-            if k not in first or i == j:
-                first[k] = (i, sl)
         pieces = []
-        for i, sl in sorted(first.values(), key=lambda v: v[0]):
+        for i, sl in sorted(((_nearest(mesh, j, h), slices[k])
+                             for k, h in holders.items()),
+                            key=lambda v: v[0]):
             piece = _intersect(sl, want)
             if piece is not None:
                 pieces.append((i, piece))
@@ -468,34 +537,45 @@ def redistribute(blocks: dict, shape, layout: Layout, send_fn,
     the slots of a device that hold the same slice (each still sent its
     pieces, which are there already), as :func:`lay_out` holds one copy.
     ``send_fn(t, src, dst, out=None)`` moves (``MeshStep.send``) and
-    ``at(slot, fn)`` runs a slot's part (``MeshStep.at``)."""
+    ``at(slot, fn)`` runs a slot's part (``MeshStep.at``): the piece's
+    view on its source slot, the new tensor on the reading one.  In a
+    process group the slots of a device that hold one slice share a copy
+    within a process: a piece of another process is sent once to it."""
     mesh = layout.mesh
     held = [(i, sl) for i, (sl, _) in sorted(blocks.items())]
     coords = layout.coords()
     built = {}
 
+    def piece_of(i, piece):
+        sl, t = blocks[i]
+        return at(i, lambda: t[_within(piece, sl)])
+
     def one(j, pieces):
         want = layout.block_slices(shape, coords[j])
         if len(pieces) == 1 and _key(pieces[0][1]) == _key(want):
             i, piece = pieces[0]
-            sl, t = blocks[i]
-            return send_fn(t[_within(piece, sl)], i, j)
-        k = (_key(want), str(mesh.devices.flat[j]))
+            return send_fn(piece_of(i, piece), i, j)
+        k = (_key(want), owner(mesh, j), str(mesh.devices.flat[j]))
         if k in built:
             for i, piece in pieces:
-                sl, t = blocks[i]
-                send_fn(t[_within(piece, sl)], i, j)
+                if owner(mesh, i) == owner(mesh, j):
+                    send_fn(piece_of(i, piece), i, j)
             return built[k]
-        first = blocks[pieces[0][0]][1]
-        out = torch.empty([s.stop - s.start for s in want], dtype=first.dtype,
-                          device=mesh.devices.flat[j])
+        out = at(j, lambda: torch.empty(
+            [s.stop - s.start for s in want], dtype=_held_dtype(blocks),
+            device=mesh.devices.flat[j]))
         for i, piece in pieces:
-            sl, t = blocks[i]
-            send_fn(t[_within(piece, sl)], i, j,
-                    out=out[_within(piece, want)])
+            send_fn(piece_of(i, piece), i, j,
+                    out=at(j, lambda piece=piece: out[_within(piece, want)]))
         built[k] = out
         return out
 
     return Laid(layout, tuple(shape),
-                [at(j, lambda j=j, p=p: one(j, p))
-                 for j, p in enumerate(plan(held, shape, layout))])
+                [one(j, p) for j, p in enumerate(plan(held, shape, layout))])
+
+
+def _held_dtype(blocks: dict) -> torch.dtype:
+    for _, t in blocks.values():
+        if isinstance(t, torch.Tensor):
+            return t.dtype
+    raise ValueError("no block of this tensor is held in this process")

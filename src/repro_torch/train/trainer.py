@@ -50,6 +50,14 @@ arithmetic on its block; under ZeRO-1 the updated parameter slices are
 then brought back over the data axes into the parameters' layout (the
 gathered step through slot 0, the split one slot to slot).
 
+On a mesh of a process group (``launch/mesh.py``, the multi-host entry
+``launch/procs.py``) each process runs :class:`ProcStep`: the same
+parts, each slot's work only in the process that owns it (``at``), each
+move between processes a send met by a receive, the metrics slot 0's
+broadcast from its process; every process lays out only its own slots'
+blocks, builds the global batch and keeps its rows, and the checkpoint
+is written by slot 0's process.
+
 A step's three parts run under ``torch.profiler`` ranges named
 ``train_step.forward``, ``train_step.backward`` and
 ``train_step.optimizer``, so a profiler window splits its time.
@@ -113,26 +121,39 @@ def loss_and_grads(api: ModelAPI, params, batch, objective=None, *,
             L.tree_unflatten(params, grads))
 
 
-def _blockwise(fn):
-    """``fn`` on tensors, and on the held blocks of a ``sharded.Laid``,
-    block by block (the split step's gradients)."""
+def _here(slot, fn, *args):
+    return fn(*args)
+
+
+def _blockwise(fn, at=_here):
+    """``fn`` on tensors (slot 0's work), and on the held blocks of a
+    ``sharded.Laid``, block by block, each its slot's work (the split
+    step's gradients)."""
     def apply(a, *rest):
         if isinstance(a, S.Laid):
             return S.Laid(a.layout, a.shape, [
-                None if x is None else fn(x, *(r.blocks[k] for r in rest))
+                None if x is None else at(k, fn, x, *(r.blocks[k]
+                                                      for r in rest))
                 for k, x in enumerate(a.blocks)])
-        return fn(a, *rest)
+        return at(0, fn, a, *rest)
     return apply
 
 
 def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
-                    grad_accum: int = 1, grads_fn=None, update_fn=None):
+                    grad_accum: int = 1, grads_fn=None, update_fn=None,
+                    at=_here):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
     ``grads_fn(params, batch)`` and ``update_fn(params, grads, state)``
     replace ``loss_and_grads`` and ``apply_updates`` (the meshed step's
-    parts); the accumulation over micro-batches is the same."""
+    parts), and ``at(slot, fn, *args)`` runs the accumulation's
+    arithmetic on a slot (``MeshStep.at``); the accumulation over
+    micro-batches is the same."""
     grads_fn = grads_fn or functools.partial(loss_and_grads, api)
     update_fn = update_fn or functools.partial(O.apply_updates, opt_cfg)
+    zeros = _blockwise(lambda a: torch.zeros(
+        a.shape, dtype=torch.float32, device=a.device), at)
+    add = _blockwise(torch.add, at)
+    mean = _blockwise(lambda g: g / grad_accum, at)
 
     def step(params, opt_state, batch):
         if grad_accum == 1:
@@ -146,14 +167,12 @@ def make_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, *,
                       for k, v in batch.items()}
                 loss_i, _, g = grads_fn(params, mb)
                 if gsum is None:
-                    gsum = L.tree_map(_blockwise(lambda a: torch.zeros(
-                        a.shape, dtype=torch.float32, device=a.device)), g)
-                    lsum = torch.zeros((), dtype=torch.float32,
-                                       device=loss_i.device)
-                gsum = L.tree_map(_blockwise(torch.add), gsum, g)
-                lsum = lsum + loss_i
-            grads = L.tree_map(_blockwise(lambda g: g / grad_accum), gsum)
-            loss = lsum / grad_accum
+                    gsum = L.tree_map(zeros, g)
+                    lsum = zeros(loss_i)
+                gsum = L.tree_map(add, gsum, g)
+                lsum = add(lsum, loss_i)
+            grads = L.tree_map(mean, gsum)
+            loss = mean(lsum)
             metrics = {}
         with record_function("train_step.optimizer"):
             params, opt_state, om = update_fn(params, grads, opt_state)
@@ -186,13 +205,15 @@ class MeshStep:
         tp = int(mesh.shape.get("model", 1))
         self.split = tp > 1 and api.model_split()
         self.rows = S.model_rows(mesh, dp_axes)
+        self.home = mesh.local_slots()[0]   # where the batch lies
 
     def send(self, t, src: int, dst: int, out=None):
         return S.send(t, self.mesh, src, dst, out=out)
 
     def at(self, slot: int, fn, *args):
-        """Slot ``slot``'s part of a step: ``fn(*args)``."""
-        return fn(*args)
+        """Slot ``slot``'s part of a step: ``fn(*args)`` (``sharded.at``:
+        :data:`sharded.REMOTE` where the slot is another process's)."""
+        return S.at(self.mesh, slot, fn, *args)
 
     def model_row(self, i: int) -> S.ModelRow:
         """Data shard ``i``'s (its first slot's flat index) row of model
@@ -202,14 +223,15 @@ class MeshStep:
     def shard_grads(self, params, batch, cnt, i: int):
         """Data shard ``i``'s (its first slot's flat index) part on its
         row: (loss, xent weighted, aux or None, gradients).  Its rows of
-        the batch, which lies on slot 0, run on the row's blocks (split)
-        or on the whole parameters gathered onto slot ``i``; the
+        the batch, which lies on slot ``home``, run on the row's blocks
+        (split) or on the whole parameters gathered onto slot ``i``; the
         cross-entropy is weighted by the shard's share of the labels that
         count (``cnt`` in all), an MoE's aux by 1/dp.  A split leaf's
         gradient is a tuple of its blocks' on the row's slots."""
         rows = {k: self.send(v[self.b_lay[k].block_slices(
-            v.shape, self.coords[i])], 0, i) for k, v in batch.items()}
-        w = (rows["labels"] >= 0).sum().float() / self.send(cnt, 0, i)
+            v.shape, self.coords[i])], self.home, i)
+            for k, v in batch.items()}
+        w = (rows["labels"] >= 0).sum().float() / self.send(cnt, self.home, i)
         dp = len(self.slots)
 
         def objective(_, m):
@@ -253,21 +275,22 @@ class MeshStep:
         for i in self.slots:
             l_d, x_d, a_d, g_d = self.shard_grads(params, batch, cnt, i)
             x_d = self.send(x_d, i, 0)
-            a_d = self.send(a_d, i, 0) / dp if a_d is not None else None
+            if a_d is not None:
+                a_d = self.at(0, lambda a: a / dp, self.send(a_d, i, 0))
             first = loss is None
             if first:
                 loss, xent, aux = self.send(l_d, i, 0), x_d, a_d
             else:
-                loss = loss + self.send(l_d, i, 0)
-                xent = xent + x_d
-                aux = None if aux is None else aux + a_d
+                loss = self.at(0, torch.add, loss, self.send(l_d, i, 0))
+                xent = self.at(0, torch.add, xent, x_d)
+                aux = None if aux is None else self.at(0, torch.add, aux, a_d)
             if self.split:
                 grads = self._sum_blocks(grads, params, g_d, i)
             elif first:
                 grads = L.tree_map(lambda g: self.send(g, i, 0), g_d)
             else:
-                grads = L.tree_map(lambda a, g: a + self.send(g, i, 0),
-                                   grads, g_d)
+                grads = L.tree_map(lambda a, g: self.at(
+                    0, torch.add, a, self.send(g, i, 0)), grads, g_d)
         metrics = {"xent": xent} if aux is None else {"xent": xent,
                                                       "aux": aux}
         return loss, metrics, grads
@@ -278,7 +301,7 @@ class MeshStep:
         holding slot's sum of its blocks' squares (split), where a
         replicated leaf's one block counts once."""
         if not self.split:
-            return O.global_norm(grads)
+            return self.at(0, O.global_norm, grads)
         held = {}
         for laid in L.tree_leaves(grads):
             for j, b in enumerate(laid.blocks):
@@ -291,8 +314,9 @@ class MeshStep:
         total = None
         for j in sorted(held):
             part = self.send(self.at(j, sq, held[j]), j, 0)
-            total = part if total is None else total + part
-        return torch.sqrt(total)
+            total = part if total is None else self.at(0, torch.add, total,
+                                                       part)
+        return self.at(0, torch.sqrt, total)
 
     def regroup(self, laid: S.Laid, layout: S.Layout) -> S.Laid:
         """``laid`` (whose absent blocks are None) laid out by ``layout``:
@@ -328,7 +352,8 @@ class MeshStep:
         if self.split:
             g = L.tree_map(self.regroup, grads, self.m_lay)
         else:
-            g = S.lay_out_tree(grads, self.m_lay, src=0)
+            g = L.tree_map(lambda x, lay, ref: S.lay_out(
+                x, lay, src=0, shape=ref.shape), grads, self.m_lay, params)
         p = L.tree_map(self.regroup, params, self.m_lay)
         new_p, new_m, new_v, new_step = [], [], [], []
         for i in range(self.mesh.devices.size):
@@ -337,6 +362,8 @@ class MeshStep:
             new_m.append(ns_i["m"])
             new_v.append(ns_i["v"])
             new_step.append(ns_i["step"])
+            if i == 0:
+                lr = om["lr"]        # every slot's: the schedule at its step
 
         def laid(trees, lay_tree):
             leaves = [L.tree_leaves(t) for t in trees]
@@ -348,7 +375,67 @@ class MeshStep:
         params = L.tree_map(self.regroup, laid(new_p, self.m_lay), self.p_lay)
         state = {"step": S.Laid(self.step_lay, (), new_step),
                  "m": laid(new_m, self.m_lay), "v": laid(new_v, self.m_lay)}
-        return params, state, {"grad_norm": gnorm, "lr": om["lr"]}
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    def publish(self, metrics: dict) -> dict:
+        """The step's metrics as every process reports them: slot 0's."""
+        return metrics
+
+
+def _remote_like(x):
+    """``x``'s structure with :data:`sharded.REMOTE` for each tensor."""
+    if isinstance(x, torch.Tensor):
+        return S.REMOTE
+    if isinstance(x, dict):
+        return {k: _remote_like(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_remote_like(v) for v in x)
+    return x
+
+
+class ProcStep(MeshStep):
+    """:class:`MeshStep` on a mesh of a process group
+    (``launch/mesh.py``; each process runs this on its own slots).
+    Every process walks the same parts in the same order: each runs its
+    own data rows' :meth:`shard_grads` (all of them first, which touch
+    no other process's slot) and its own slots' :meth:`slot_update`,
+    holds :data:`sharded.REMOTE` for another process's, and meets the
+    other end of each move (:meth:`send`, ``sharded.send``) as the
+    sender or the receiver.  The sums keep slot order on the slots that
+    own them, so every block, loss and norm is the single-process step's
+    bit for bit; the metrics are slot 0's, broadcast from its
+    process."""
+
+    def grads(self, params, batch):
+        self._mine = None
+        try:
+            return super().grads(params, batch)
+        finally:
+            self._mine = None
+
+    def shard_grads(self, params, batch, cnt, i: int):
+        if self._mine is None:
+            self._mine = {j: super(ProcStep, self).shard_grads(
+                params, batch, cnt, j)
+                for j in self.slots if S.is_local(self.mesh, j)}
+            self._theirs = _remote_like(next(iter(self._mine.values())))
+        return self._mine.pop(i) if i in self._mine else self._theirs
+
+    def slot_update(self, i: int, p, g, state, gnorm):
+        if S.is_local(self.mesh, i):
+            return super().slot_update(i, p, g, state, gnorm)
+        self.send(gnorm, 0, i)
+        theirs = L.tree_map(lambda _: S.REMOTE, self.m_lay)
+        return theirs, {"step": S.REMOTE, "m": theirs, "v": theirs}, \
+            {"lr": S.REMOTE}
+
+    def publish(self, metrics: dict) -> dict:
+        keys = list(metrics)
+        here = S.is_local(self.mesh, 0)
+        values = self.mesh.group.broadcast(
+            [float(metrics[k]) if here else 0.0 for k in keys],
+            S.owner(self.mesh, 0))
+        return dict(zip(keys, values))
 
 
 def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
@@ -361,12 +448,14 @@ def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
     (see the module docstring and :class:`MeshStep`).  Raises
     ``ValueError`` when the batch's rows do not split into
     ``grad_accum`` micro-batches of whole data shards."""
-    parts = MeshStep(api, opt_cfg, mesh, dp_axes=dp_axes,
-                     param_specs=param_specs, opt_specs=opt_specs,
-                     batch_specs=batch_specs)
+    kind = MeshStep if mesh.group is None else ProcStep
+    parts = kind(api, opt_cfg, mesh, dp_axes=dp_axes,
+                 param_specs=param_specs, opt_specs=opt_specs,
+                 batch_specs=batch_specs)
     dp = len(parts.slots)
     step = make_train_step(api, opt_cfg, grad_accum=grad_accum,
-                           grads_fn=parts.grads, update_fn=parts.update)
+                           grads_fn=parts.grads, update_fn=parts.update,
+                           at=parts.at)
 
     def checked(params, opt_state, batch):
         b = batch["labels"].shape[0]
@@ -374,7 +463,8 @@ def make_mesh_train_step(api: ModelAPI, opt_cfg: O.AdamWConfig, mesh, *,
             raise ValueError(f"a global batch of {b} rows does not split "
                              f"into {grad_accum} micro-batches over {dp} "
                              "data shards")
-        return step(params, opt_state, batch)
+        params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, parts.publish(metrics)
 
     return checked
 
@@ -415,8 +505,9 @@ class Trainer:
         self.shape = shape
         self.mesh = mesh
         self.dp_axes = tuple(dp_axes)
-        self.device = mesh.devices.flat[0] if mesh is not None \
-            else resolve_device(device)
+        # a meshed trainer's batch lies on its process's first slot
+        self.device = mesh.devices.flat[mesh.local_slots()[0]] \
+            if mesh is not None else resolve_device(device)
         self.opt_cfg = opt_cfg or O.AdamWConfig()
         self.grad_accum = grad_accum
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
@@ -465,8 +556,11 @@ class Trainer:
     def run(self, num_steps: int, *, pipeline=None, fault_hook=None):
         from ..data.pipeline import Pipeline
         params, opt_state, start = self.init_or_restore()
+        # every process builds the global batch (host 0 of 1), as the
+        # reference's Trainer asks for one host's worth of it
         pipe = pipeline or Pipeline(self.api.cfg, self.shape, seed=self.seed,
-                                    start_step=start, host_count=1)
+                                    start_step=start, host_index=0,
+                                    host_count=1)
         ctx = L.use_mesh(self.mesh, self.dp_axes) if self.mesh is not None \
             else contextlib.nullcontext()
         with ctx, contextlib.closing(pipe):
@@ -489,8 +583,18 @@ class Trainer:
                 self.metrics_log.append(m)
                 step += 1
                 if self.ckpt and (step % self.ckpt_every == 0):
-                    self.ckpt.save(step, {"params": params, "opt": opt_state})
+                    self.save(step, params, opt_state)
             if self.ckpt:
-                self.ckpt.save(step, {"params": params, "opt": opt_state},
-                               blocking=True)
+                self.save(step, params, opt_state, blocking=True)
         return params, opt_state, step
+
+    def save(self, step: int, params, opt_state, *, blocking=False):
+        """A checkpoint of ``step``: leaves gathered onto slot 0 and
+        written by the process that owns it; in a process group the
+        others wait at a barrier for a blocking one."""
+        group = self.mesh.group if self.mesh is not None else None
+        self.ckpt.save(step, {"params": params, "opt": opt_state},
+                       blocking=blocking, write=group is None or
+                       self.mesh.local(0))
+        if blocking and group is not None:
+            group.barrier()

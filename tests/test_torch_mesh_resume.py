@@ -224,9 +224,3 @@ def test_launcher_trains_on_a_mesh_of_cpu_slots(tmp_path, capsys, flags):
                        "--seq", "32", "--batch", "4", "--ckpt",
                        str(tmp_path)])
     assert tr2.mesh is None and [m["step"] for m in tr2.metrics_log] == [2]
-
-
-def test_launcher_refuses_the_multi_host_entry(monkeypatch):
-    monkeypatch.setenv("JAX_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host entry"):
-        ltrain.main(["--smoke", "--device", "cpu", "--steps", "1"])
